@@ -1,6 +1,7 @@
 """The slice as a whole: the port's file pipeline writes the same SRT as the
-JAX pipeline on the same weights (tiny model, f32 on the CPU), and the
-port's CLI refuses what it does not cover."""
+JAX pipeline on the same weights (tiny model, f32 on the CPU), with bf16
+and with int8 decoder weights, and the port's CLI refuses what it does
+not cover."""
 
 import json
 
@@ -55,13 +56,14 @@ def _wav(tmp_path, name="clip.wav"):
     return path
 
 
-def _jax_pipeline(cfg, params, thresholds, options):
+def _jax_pipeline(cfg, params, thresholds, options, int8_weights):
     from whisperjav_tpu.pipelines.engine import TranscriptionEngine
     from whisperjav_tpu.pipelines.transcribe import TranscribePipeline
     engine = TranscriptionEngine(TINY, params, options=options,
                                  thresholds=thresholds,
                                  batch_size=cfg.batch_size, mesh=None,
-                                 compute_dtype=jnp.float32)
+                                 compute_dtype=jnp.float32,
+                                 int8_weights=int8_weights)
     return TranscribePipeline(engine, scene_backend=cfg.mode.scene_backend,
                               vad_backend=cfg.mode.vad_backend,
                               vad_kwargs=_vad_kwargs(cfg),
@@ -74,7 +76,8 @@ def _vad_kwargs(cfg):
             "max_group_duration_s": cfg.sensitivity.max_group_duration_s}
 
 
-def test_port_pipeline_writes_the_jax_srt(tmp_path):
+@pytest.mark.parametrize("int8_weights", [False, True])
+def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
     from whisperjav_tpu.models.whisper import decode as jd
     from whisperjav_tpu.pipelines import engine as je
     from whisperjav_tpu_torch.models.whisper import decode as td
@@ -99,12 +102,14 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path):
 
     wav = _wav(tmp_path)
     ref = _jax_pipeline(cfg, params, je.QualityThresholds(**gates),
-                        jd.DecodeOptions(**common)).process(
+                        jd.DecodeOptions(**common), int8_weights).process(
         probe(wav), tmp_path / "jax")
     engine = te.TranscriptionEngine(
         TINY, model, options=td.DecodeOptions(**common),
         thresholds=te.QualityThresholds(**gates), batch_size=4,
-        device="cpu", compute_dtype=torch.float32)
+        device="cpu", compute_dtype=torch.float32,
+        int8_weights=int8_weights)
+    assert hasattr(engine.model.decoder, "lm_head_q") == int8_weights
     out = TranscribePipeline(engine, vad_backend="silero",
                              vad_kwargs=_vad_kwargs(cfg),
                              postprocessor=SRTPostProcessor(),
@@ -134,11 +139,11 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--mode", "fidelity"], ["--mode", "qwen"], ["--mode", "transformers"],
-    ["--mode", "anime"], ["--int8-weights"], ["--word-timestamps"],
+    ["--mode", "anime"], ["--word-timestamps"],
     ["--ensemble"], ["--daemon"], ["--daemon-stop"], ["--multihost"],
     ["--async-processing"], ["--translate", "ollama"],
     ["--vocab-slice", "ja"], ["--enhancer", "zipenhancer"],
-    ["--enhance-for-vad"], ["--compute-type", "int8"], ["--devices", "4"],
+    ["--enhance-for-vad"], ["--devices", "4"],
     ["--vad-backend", "ten"], ["--vad-arg", "weights=silero.npz"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
@@ -155,7 +160,25 @@ def test_cli_flagless_defaults_are_the_slice(capsys):
     assert dumped["sensitivity"]["name"] == "balanced"
     assert dumped["sensitivity"]["beam_size"] == 2
     assert dumped["batch_size"] == 32
+    assert dumped["int8_weights"] is False
     assert dumped["device"] == "cuda"
+
+
+@pytest.mark.parametrize("flags,int8", [
+    (["--int8-weights"], True),
+    (["--compute-type", "int8"], True),
+    (["--compute-type", "int8_float16"], True),
+    (["--compute-type", "float16"], False),
+    (["--int8-weights", "--compute-type", "float32"], False),
+])
+def test_cli_int8_weights_flags(capsys, flags, int8):
+    """--int8-weights, and the faster-whisper spelling --compute-type
+    int8* (float* turns it off), as the JAX CLI maps them."""
+    assert cli.main(["clip.wav", "--model", "large-v2", *flags,
+                     "--dump-params"]) == 0
+    dumped = json.loads(capsys.readouterr().out)
+    assert dumped["int8_weights"] is int8
+    assert dumped["model"] == "large-v2"
 
 
 def test_cli_cuda_without_a_gpu_raises(tmp_path):

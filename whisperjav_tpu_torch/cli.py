@@ -6,11 +6,16 @@ balanced sensitivity: turbo, energy scenes, silero-calibrated VAD,
 batch 32, beam 2 with the temperature ladder. ``--device`` picks the
 device (default ``cuda``; a CUDA device that is not there is an error).
 
+``--int8-weights`` runs the decoder on int8 weights through the fused
+decode blocks; the faster-whisper spelling ``--compute-type int8*``
+turns it on and ``float*`` off, as in the JAX CLI.
+
 What the port does not cover yet makes it exit with "not ported yet"
 before any work: modes other than faster/fast/balanced, and the flags
 listed in ``_UNPORTED``.
 
     whisperjav-torch clip.wav --output-dir out/
+    whisperjav-torch clip.wav --model large-v2 --int8-weights
     python -m whisperjav_tpu_torch.cli clip.wav --output-dir out/
 """
 
@@ -32,7 +37,7 @@ _VAD_BACKENDS = ("silero", "silero-jax", "energy", "default", "none",
                  "null")
 # argparse dest -> the flag a user typed, for flags outside the port
 _UNPORTED = {
-    "int8_weights": "--int8-weights", "word_timestamps": "--word-timestamps",
+    "word_timestamps": "--word-timestamps",
     "ensemble": "--ensemble", "daemon": "--daemon",
     "daemon_replace": "--daemon-replace", "multihost": "--multihost",
     "async_processing": "--async-processing", "translate": "--translate",
@@ -49,8 +54,6 @@ def _unported(args) -> List[str]:
     out = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest)]
     if args.mode not in PORTED_MODES:
         out.append(f"--mode {args.mode}")
-    if args.compute_type and args.compute_type.startswith("int8"):
-        out.append(f"--compute-type {args.compute_type}")
     if args.devices is not None and args.devices > 1:
         out.append(f"--devices {args.devices}")
     if args.model and args.model.startswith("qwen"):
@@ -87,6 +90,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("whisperjav-torch: not ported yet: " + ", ".join(missing),
               file=sys.stderr)
         return 2
+    if args.compute_type:
+        # faster-whisper precision spelling -> the int8 weight path
+        args.int8_weights = args.compute_type.startswith("int8")
     if args.debug:
         args.verbosity = "debug"
     if args.make_vtt and args.output_format is None:
@@ -132,6 +138,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         initial_prompt=args.prompt,
         no_timestamps=args.no_timestamps,
         pack_windows=not args.no_pack,
+        int8_weights=args.int8_weights,
         keep_intermediates=args.keep_temp,
         output_format=output_format)
     dot = _parse_kv_args(args.overrides, "--overrides", keep_dots=True)
@@ -144,6 +151,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "mode": asdict(cfg.mode), "sensitivity": asdict(cfg.sensitivity),
             "language": cfg.language, "task": cfg.task, "model": cfg.model,
             "batch_size": cfg.batch_size, "output_format": cfg.output_format,
+            "int8_weights": cfg.int8_weights,
             "device": args.device or "cuda",
         }, indent=2))
         return 0

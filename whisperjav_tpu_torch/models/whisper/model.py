@@ -8,9 +8,16 @@ layouts are the JAX package's: attention operands (B, T, H, hd), the
 self-attention cache ``KVCache`` (L, B, T, d) and the int8 cross-attention
 ``CrossKV`` (L, B, H, hd, T).
 
-The two kernels of this path sit behind :func:`encoder_attention` (every
-encoder layer) and :func:`cross_attention` (every decoder layer of every
-decode step); both run their plain PyTorch versions on CPU tensors.
+Int8 decoder weights (``quant.quantize_decoder_weights``) are the JAX
+tree's ``{"q": int8, "s": f32}`` leaves, held as :class:`Int8Weight`;
+:func:`dense` takes them, and the lm head is ``decoder.lm_head_q``.
+
+Kernels sit behind :func:`encoder_attention` (every encoder layer),
+:func:`cross_attention` (every decoder layer of a step on bf16 weights,
+and of every prefill) and, on int8 weights at q_len == 1, the three
+fused blocks of ``ops/cuda/fused_decode.py`` (every decoder layer of
+every step, beam rungs included); all run their plain PyTorch versions
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from whisperjav_tpu_torch.ops.cuda.decode_attention import (
 from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
     attention, encoder_attention,
 )
+from whisperjav_tpu_torch.ops.cuda.fused_decode import (
+    cross_block, mlp_block, self_block,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -43,13 +53,29 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (..., in) @ w (in, out) [+ b]; the bias joins the product's f32
-    accumulation and the result is rounded once to x's dtype."""
-    x2 = x.reshape(-1, x.shape[-1])
-    out = torch.mm(x2, w) if b is None else torch.addmm(b, x2, w)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+class Int8(NamedTuple):
+    """One int8 weight: codes (in, out) and f32 scales (1, out)."""
+    q: torch.Tensor
+    s: torch.Tensor
+
+
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """x (..., in) @ w (in, out) [+ b], rounded once to x's dtype.
+
+    ``w`` is a tensor, whose product the bias joins in the f32
+    accumulation, or an :class:`Int8`: then the product of x and the int8
+    codes is taken in f32 (a bf16 product would round first), times the
+    f32 scale, plus the bias, as the JAX package's ``dense``.
+    """
+    if isinstance(w, torch.Tensor):
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, w) if b is None else torch.addmm(b, x2, w)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    out = torch.matmul(x.float(), w.q.float()) * w.s.float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -76,17 +102,41 @@ def _param(x) -> nn.Parameter:
     return nn.Parameter(torch.as_tensor(x), requires_grad=False)
 
 
+class Int8Weight(nn.Module):
+    """A ``{"q": int8 (..., in, out), "s": f32 (..., 1, out)}`` leaf of the
+    JAX tree: symmetric int8 codes with per-output-channel scales, as
+    parameters ``q`` and ``s`` (state-dict names ``<leaf>.q``,
+    ``<leaf>.s``). ``w[i]`` is layer i of a stacked one, as an
+    :class:`Int8` of views. Casting the module casts ``s``: quantise
+    after the cast to the compute dtype, as the engine does."""
+
+    def __init__(self, q, s):
+        super().__init__()
+        self.q = _param(q)
+        self.s = _param(s)
+
+    def __getitem__(self, i: int) -> Int8:
+        return Int8(self.q[i], self.s[i])
+
+
+def _leaf(value):
+    if isinstance(value, dict):
+        return Int8Weight(value["q"], value["s"])
+    return _param(value)
+
+
 class _Part(nn.Module):
     """One of encoder/decoder: named tensors plus a ``blocks`` dict of
-    layer-stacked tensors, as in the JAX parameter tree."""
+    layer-stacked tensors, as in the JAX parameter tree; int8 leaves are
+    :class:`Int8Weight` submodules."""
 
     def __init__(self, tree: Dict[str, object]):
         super().__init__()
         for name, value in tree.items():
             if name != "blocks":
-                self.register_parameter(name, _param(value))
+                setattr(self, name, _leaf(value))
         self.blocks = nn.ParameterDict(
-            {name: _param(value) for name, value in tree["blocks"].items()})
+            {name: _leaf(value) for name, value in tree["blocks"].items()})
 
 
 class Whisper(nn.Module):
@@ -272,16 +322,56 @@ def _decoder_block(x, p, i, cross: CrossKV, cache: "KVCache", pos: int,
     return x, k_new, v_new
 
 
+# int8 decoder weights the fused blocks read (quant.quantize_decoder_weights)
+_FUSED_WEIGHTS = ("wqkv", "wo", "cwq", "cwo", "w1", "w2")
+
+
+def _fused_layers(x: torch.Tensor, p: nn.ParameterDict, cross: CrossKV,
+                  cache: KVCache, pos: int, n_head: int) -> torch.Tensor:
+    """One decode step (x (R, d)) through every decoder layer as three
+    fused blocks, then one store of every layer's new K/V column at
+    ``pos``. Cross K/V and scales go in the JAX kernels' flat layouts
+    ((L, B, d, T) and (L, B, H): views, no copies)."""
+    n_layer, b, h, hd, t = cross.k.shape
+    ck = cross.k.reshape(n_layer, b, h * hd, t)
+    cv = cross.v.reshape(n_layer, b, h * hd, t)
+    ks = cross.k_scale.reshape(n_layer, b, h)
+    vs = cross.v_scale.reshape(n_layer, b, h)
+    k_cols, v_cols = [], []
+    for i in range(n_layer):
+        x, k_new, v_new = self_block(x, p["ln1_s"], p["ln1_b"], p["wqkv"],
+                                     p["bqkv"], p["wo"], p["bo"], cache.k,
+                                     cache.v, i, pos, n_head)
+        x = cross_block(x, p["lnx_s"], p["lnx_b"], p["cwq"], p["cbq"],
+                        p["cwo"], p["cbo"], ck, cv, ks, vs, i, n_head)
+        x = mlp_block(x, p["ln2_s"], p["ln2_b"], p["w1"], p["b1"], p["w2"],
+                      p["b2"], i)
+        k_cols.append(k_new)
+        v_cols.append(v_new)
+    cache.k[:, :, pos] = torch.stack(k_cols)
+    cache.v[:, :, pos] = torch.stack(v_cols)
+    return x
+
+
 def decode_hidden(model: Whisper, tokens: torch.Tensor, pos: int,
                   cache: KVCache, cross: CrossKV) -> torch.Tensor:
     """Decoder blocks and final LN for tokens (B, q_len) at positions
     [pos, pos + q_len), without the lm head. Writes the new K/V into
-    ``cache`` in place; returns hidden states (B, q_len, d)."""
+    ``cache`` in place; returns hidden states (B, q_len, d).
+
+    On int8 decoder weights a single step (q_len == 1) runs the fused
+    blocks, beam fold included (B = g x the cross-K/V rows); prefill
+    keeps the unfused layers with int8 :func:`dense`, as in the JAX
+    package (``model.py:605``)."""
     dec = model.decoder
     b, q_len = tokens.shape
     t_max = cache.k.shape[2]
     n_head = model.config.n_text_head
     x = dec.tok_emb[tokens] + dec.pos_emb[pos:pos + q_len]
+    if q_len == 1 and all(isinstance(dec.blocks.get(n), Int8Weight)
+                          for n in _FUSED_WEIGHTS):
+        x = _fused_layers(x[:, 0], dec.blocks, cross, cache, pos, n_head)
+        return layer_norm(x[:, None], dec.ln_s, dec.ln_b)
     column_mode = q_len == 1
     k_idx = torch.arange(t_max, device=tokens.device)
     if column_mode:
@@ -308,9 +398,14 @@ def decode_step(model: Whisper, tokens: torch.Tensor, pos: int,
                 cache: KVCache, cross: CrossKV
                 ) -> Tuple[torch.Tensor, KVCache]:
     """Decoder on a chunk (prefill or one step) -> (logits (B, q_len,
-    vocab) f32, cache). The lm head is the tied token embedding, applied
-    in f32 so the logits keep f32 precision as in the JAX package."""
+    vocab) f32, cache). The lm head is the tied token embedding, or its
+    int8 copy ``lm_head_q`` on int8 weights (the f32 product times the
+    scale), applied in f32 so the logits keep f32 precision as in the JAX
+    package."""
     x = decode_hidden(model, tokens, pos, cache, cross)
+    lm = getattr(model.decoder, "lm_head_q", None)
+    if lm is not None:
+        return torch.matmul(x.float(), lm.q.float()) * lm.s, cache
     emb = model.decoder.tok_emb
     logits = torch.matmul(x.float(), emb.float().t())
     return logits, cache

@@ -19,8 +19,13 @@ from whisperjav_tpu_torch.models.whisper.model import (
 )
 
 
+def _is_int8(tree) -> bool:
+    """A quantised leaf of ``quant.quantize_decoder_weights``."""
+    return isinstance(tree, dict) and set(tree) == {"q", "s"}
+
+
 def _tree_map(fn, tree):
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and not _is_int8(tree):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
@@ -29,12 +34,21 @@ def params_from_jax(tree: Dict, config: WhisperConfig,
                     dtype: Optional[torch.dtype] = None,
                     device="cpu") -> Whisper:
     """A JAX parameter tree (array or numpy leaves) -> :class:`Whisper`.
-    ``dtype`` casts floating leaves; None keeps each leaf's own."""
+    ``dtype`` casts floating leaves; None keeps each leaf's own. A
+    quantised tree's ``{"q": int8, "s": f32}`` leaves (in ``blocks`` and
+    ``decoder.lm_head_q``) become :class:`Int8Weight` modules with
+    parameters ``q`` and ``s``, kept int8 and f32: both packages then
+    decode from the same codes."""
+    def tensor(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
     def leaf(x):
-        t = torch.from_numpy(np.array(x, copy=True))
+        if _is_int8(x):
+            return {"q": tensor(x["q"]), "s": tensor(x["s"])}
+        t = tensor(x)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
-        return t.to(device)
+        return t
     return Whisper(config, _tree_map(leaf, tree))
 
 

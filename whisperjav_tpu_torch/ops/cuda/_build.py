@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file compiles, in one ``nvcc`` call, into one shared
-library with a plain C interface for Hopper (``sm_90a``). The library
+Every ``csrc/*.cu`` file compiles for Hopper (``sm_90a``) in its own
+``nvcc`` process, all started together, and the objects link into one
+shared library with a plain C interface. The library
 lands in ``build/whisperjav_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads what is there. Nothing is built or
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "whisperjav_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -60,18 +61,40 @@ def build() -> Tuple[Path, float, str]:
     out = library_path()
     if out.exists():
         return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp_dir = BUILD_DIR / f"objects.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        jobs = []
+        for src in sources():
+            obj = tmp_dir / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            report.append(err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{err[-4000:]}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out, seconds, proc.stderr
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return out, time.perf_counter() - t0, "".join(report)
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -91,6 +114,14 @@ def load_library() -> ctypes.CDLL:
     lib.wjt_decode_cross_attention.restype = _I
     lib.wjt_decode_cross_attention_max_t.argtypes = []
     lib.wjt_decode_cross_attention_max_t.restype = _I
+    lib.wjt_fused_workspace_bytes.argtypes = [_I, _I, _I, _I]
+    lib.wjt_fused_workspace_bytes.restype = ctypes.c_longlong
+    lib.wjt_self_block.argtypes = [_P] * 15 + [_I] * 6 + [_P]
+    lib.wjt_self_block.restype = _I
+    lib.wjt_cross_block.argtypes = [_P] * 15 + [_I] * 6 + [_P]
+    lib.wjt_cross_block.restype = _I
+    lib.wjt_mlp_block.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+    lib.wjt_mlp_block.restype = _I
     lib.wjt_error_string.argtypes = [_I]
     lib.wjt_error_string.restype = ctypes.c_char_p
     return lib

@@ -26,7 +26,9 @@ from whisperjav_tpu_torch.models.whisper.decode import (
     extract_segments,
 )
 from whisperjav_tpu_torch.models.whisper.model import Whisper, encode
-from whisperjav_tpu_torch.models.whisper.quant import fuse_qkv_weights
+from whisperjav_tpu_torch.models.whisper.quant import (
+    fuse_qkv_weights, quantize_decoder_weights,
+)
 from whisperjav_tpu_torch.ops.mel import N_SAMPLES, log_mel_spectrogram
 from whisperjav_tpu_torch.parallel.batching import (
     Window, WindowBatch, batch_windows,
@@ -63,7 +65,10 @@ class TranscriptionEngine:
     """Batched Whisper inference with the temperature-fallback ladder.
 
     Takes ownership of ``model``: it is moved to ``device``, cast to
-    ``compute_dtype`` and its decoder q/k/v weights are fused, in place.
+    ``compute_dtype`` and its decoder q/k/v weights are fused, in place;
+    with ``int8_weights`` the decoder matmuls and the lm head are then
+    quantised to int8 (``--int8-weights``), which single decode steps run
+    through the fused blocks.
     """
 
     def __init__(
@@ -77,6 +82,7 @@ class TranscriptionEngine:
         tokenizer: Optional[WhisperTokenizer] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         prompt_tokens: Tuple[int, ...] = (),
+        int8_weights: bool = False,
     ):
         # f32 matmuls and cuDNN convolutions (the mel STFT, the encoder
         # convs) in full f32, not TF32
@@ -92,6 +98,8 @@ class TranscriptionEngine:
         self.prompt_tokens = tuple(prompt_tokens)
         self.model = fuse_qkv_weights(model.to(device=self.device,
                                                dtype=compute_dtype))
+        if int8_weights:
+            quantize_decoder_weights(self.model)
 
     # ------------------------------------------------------------------
     def upload_audio(self, audio: np.ndarray) -> torch.Tensor:

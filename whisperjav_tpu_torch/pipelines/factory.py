@@ -68,7 +68,8 @@ def build_pipeline(
     device="cuda",
 ) -> TranscribePipeline:
     """The file pipeline for ``cfg`` (default: the flagless balanced
-    mode and sensitivity) on one device, computing in bf16."""
+    mode and sensitivity) on one device, computing in bf16, with int8
+    decoder weights when ``cfg.int8_weights``."""
     if cfg is None:
         cfg = resolve_pipeline_config()
     model_config, model = load_model(cfg.model, checkpoint, device=device)
@@ -101,7 +102,7 @@ def build_pipeline(
     engine = TranscriptionEngine(
         model_config, model, options=options, thresholds=thresholds,
         batch_size=cfg.batch_size, device=device, tokenizer=tokenizer,
-        prompt_tokens=prompt_tokens)
+        prompt_tokens=prompt_tokens, int8_weights=cfg.int8_weights)
     vad_kwargs = dict(cfg.vad_kwargs)
     if cfg.mode.vad_backend == "energy":
         vad_kwargs.setdefault("energy_db", sens.energy_vad_db)
