@@ -36,16 +36,30 @@ Phases, in order; any failure exits non-zero before the result line:
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, and every kernel
-of that path must have launched (A and B on the flagless path; A, B and
-the three fused blocks on the int8 path). The last two lines of standard
-output are the kernels' JSON record and ``{"ok": true, "device":
-{...}}``. Exits with an error, and prints no result, where no CUDA GPU
-is visible.
+of that path must have launched (A and B on the flagless path; A, B,
+the three fused blocks and the kernels inside them on the int8 path).
+The last two lines of standard output are the kernels' JSON record and
+``{"ok": true, "device": {...}}``. Exits with an error, and prints no
+result, where no CUDA GPU is visible.
+
+Each kernel's record also holds its bound (``bound_ms``: the larger of
+its bytes over 3.35 TB/s and its operations over the peak rate of their
+type, 989 TFLOP/s bf16 on the tensor cores or 67 TFLOP/s f32, from the
+shapes of this run), the time of one PyTorch call computing the same
+function where there is one (``library_ms``: scaled_dot_product_attention
+beside Kernel A; null elsewhere), and the launches on the large-v2 int8
+path. The kernels inside the fused blocks are timed by the profiler at
+the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
+holds an older version of the kernels (an unpacked earlier commit), it
+is built too, and Kernel A and the fused blocks of both versions are
+timed in turns in this run (``v1_ms``).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import json
 import re
 import statistics
@@ -75,6 +89,13 @@ REF_TOL_REL = 0.05
 # large-v2 at full width: 80 mels, d = 1280, 20 heads x 64, 32 + 32
 # layers; the self cache holds the 3-token prompt and 224 new tokens
 LV2_D, LV2_H, LV2_L, SELF_T = 1280, 20, 32, 3 + 224
+# the card's published peaks (H100 SXM, at a 700 W power limit)
+HBM_BYTES_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+# an older version of the kernels, when present, is timed beside these
+V1_CSRC = Path(__file__).resolve().parent / "build" / "v1" / \
+    "whisperjav_tpu_torch" / "csrc"
 
 
 def log(msg: str) -> None:
@@ -138,7 +159,66 @@ def call_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def check_encoder_attention(dev, gen):
+def bound(bytes_: float, flop: float, peak: float) -> tuple:
+    """The least time of a function on the card, in ms, and what sets it:
+    each input read once and each output written once at the memory
+    rate, or its operations at the peak rate of their type."""
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    t_ops = flop / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(name, source, replaces, max_err, ms, plain_ms, bound_, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0],
+            "bound_by": bound_[1], "library_ms": None, **extra}
+
+
+@contextlib.contextmanager
+def kernels_from(lib):
+    """Route every wrapper's launches to ``lib`` (another build of the
+    same C interface) inside the block."""
+    from whisperjav_tpu_torch.ops.cuda import _build
+    from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
+    saved = _build.load_library
+    _build.load_library = lambda: lib
+    fd._workspace_bytes.cache_clear()
+    try:
+        yield
+    finally:
+        _build.load_library = saved
+        fd._workspace_bytes.cache_clear()
+
+
+def turn_kernels(turn: str, v1_lib):
+    """The kernels of a timing turn: the older version's for "v1", this
+    tree's otherwise."""
+    return kernels_from(v1_lib) if turn == "v1" else contextlib.nullcontext()
+
+
+def kernel_device_ms(fn, reps: int = 10) -> dict:
+    """Device ms per call of ``fn`` of each CUDA kernel it launches, by
+    short name (``qgemv_kernel<2, 4>``), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel)(<[^>]*>)?", e.name)
+        name = m.group(0) if m else e.name[:40]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def check_encoder_attention(dev, gen, v1_lib):
     from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
         attention, encoder_attention,
     )
@@ -160,15 +240,37 @@ def check_encoder_attention(dev, gen):
         raise RuntimeError("encoder_attention disagrees with its plain "
                            "version")
     del out, ref, err
-    ms = device_ms(lambda: encoder_attention(q, k, v), iters=20)
+    # the library yardstick on the same tensors, as (B, H, T, hd) views
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {"kernel": [], "library": [], "v1": []}
+    for turn in ("kernel", "library", "v1", "v1", "library", "kernel"):
+        if turn == "v1" and v1_lib is None:
+            continue
+        if turn == "library":
+            times[turn].append(device_ms(lambda: sdpa(qh, kh, vh), iters=20))
+            continue
+        with turn_kernels(turn, v1_lib):
+            times[turn].append(device_ms(lambda: encoder_attention(q, k, v),
+                                         iters=20))
+    ms = statistics.median(times["kernel"])
+    library_ms = statistics.median(times["library"])
+    v1_ms = statistics.median(times["v1"]) if times["v1"] else None
     plain_ms = device_ms(lambda: attention(q, k, v), iters=5)
-    flop = 4 * 32 * 20 * 1500 * 1500 * 64
-    log(f"kernel A per layer: {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.4f} ms")
-    return {"name": "encoder_attention", "route": "cuda",
-            "source": "whisperjav_tpu_torch/csrc/encoder_attention.cu",
-            "replaces": "whisperjav_tpu/ops/pallas/attention.py:52",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    b, t, h, hd = shape
+    flop = 4 * b * h * t * t * hd
+    bnd = bound(4 * q.numel() * 2, flop, PEAK_BF16)
+    log(f"kernel A per layer: {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bnd[0] / ms:.1f}% of the {bnd[0]:.4f} ms bound), "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; turns {json.dumps(times)}"
+        + (f"; older version {v1_ms:.4f} ms" if v1_ms else ""))
+    rec = record("encoder_attention",
+                 "whisperjav_tpu_torch/csrc/encoder_attention.cu",
+                 "whisperjav_tpu/ops/pallas/attention.py:52", max_err, ms,
+                 plain_ms, bnd, v1_ms=v1_ms)
+    rec["library_ms"] = library_ms
+    return rec
 
 
 def check_decode_attention(dev, gen, prompt_len: int):
@@ -211,10 +313,16 @@ def check_decode_attention(dev, gen, prompt_len: int):
             timed[(t, rows)] = (ms, plain_ms)
         del k8, v8
     ms, plain_ms = timed[(1500, 2)]       # the beam step at a 30 s bucket
-    return {"name": "decode_cross_attention", "route": "cuda",
-            "source": "whisperjav_tpu_torch/csrc/decode_cross_attention.cu",
-            "replaces": "whisperjav_tpu/ops/pallas/decode_attention.py:57",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # int8 K and V of one layer, f32 q and out; 4 FLOP per (row, key, dim)
+    rows, t = 2, 1500
+    bnd = bound(2 * b * h * hd * t + 2 * 4 * b * rows * h * hd,
+                4 * b * rows * h * hd * t, PEAK_F32)
+    log(f"kernel B at T=1500 R=2: bound {bnd[0]:.4f} ms ({bnd[1]}), "
+        f"{100 * bnd[0] / ms:.1f}% of it")
+    return record("decode_cross_attention",
+                  "whisperjav_tpu_torch/csrc/decode_cross_attention.cu",
+                  "whisperjav_tpu/ops/pallas/decode_attention.py:57", worst,
+                  ms, plain_ms, bnd)
 
 
 def _int8_stack(gen, dev, k: int, n: int):
@@ -261,15 +369,27 @@ def _fused_case(name, fn, plain, args, label, iters=20):
     return max_err, ms, plain_ms
 
 
-def check_fused_blocks(dev, gen):
+# qgemv_kernel<EPI, MT>: its epilogue, and the GEMVs of a layer-step
+# that use it
+GEMV_EPILOGUES = {"0": "LN -> wqkv, store with the k/v columns",
+                  "1": "LN -> w1, GELU (hi/lo terms out)",
+                  "2": "wo / cwo / w2 + residual",
+                  "3": "LN -> cwq, q-fold (hd^-0.5 k_scale)"}
+
+
+def check_fused_blocks(dev, gen, v1_lib):
     """The three fused decode blocks against their plain versions at
-    large-v2 widths (d=1280, H=20, L=32), layers 0 and 31."""
+    large-v2 widths (d=1280, H=20, L=32), layers 0 and 31; then, at the
+    main shapes (self R=64 pos 100, cross B=32 g=2 T=1500, MLP R=64, layer
+    31), the device time of every kernel inside them, their bounds and
+    plain versions, and the older version's times where it is built."""
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
     d, h = LV2_D, LV2_H
     ln = dict(ln_s=_bf16(gen, dev, LV2_L, d, base=1.0),
               ln_b=_bf16(gen, dev, LV2_L, d))
     src = "whisperjav_tpu_torch/csrc/fused_decode.cu"
-    results = []
+    pallas = "whisperjav_tpu/ops/pallas/fused_decode.py"
+    results, main = [], {}
 
     # self block: R = 32 (sampled) and 64 (beam 2), pos over the cache
     wqkv, wo = _int8_stack(gen, dev, d, 3 * d), _int8_stack(gen, dev, d, d)
@@ -289,13 +409,17 @@ def check_fused_blocks(dev, gen):
                     f"R={rows} layer={layer} pos={pos}")
                 worst = max(worst, err)
                 timed[(rows, layer, pos)] = (ms, plain_ms)
-        del cache
-    ms, plain_ms = timed[(64, LV2_L - 1, 100)]
-    results.append({"name": "self_block", "route": "cuda", "source": src,
-                    "replaces": "whisperjav_tpu/ops/pallas/fused_decode.py:88",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
-    del wqkv, wo, bqkv, bo
-    torch.cuda.empty_cache()
+                if (rows, layer, pos) == (64, LV2_L - 1, 100):
+                    main["self"] = args
+    rows, pos = 64, 100
+    self_bytes = (2 * rows * d * 2 + 2 * d * 2 + 4 * d * d + 4 * d * 6
+                  + 2 * rows * pos * d * 2 + 3 * rows * d * 2)
+    results.append(record(
+        "self_block", src, f"{pallas}:88", worst,
+        *timed[(64, LV2_L - 1, 100)],
+        bound(self_bytes, 2 * rows * 4 * d * d * 2 + 4 * rows * pos * d,
+              PEAK_BF16)))
+    selfw = (wqkv, wo)
 
     # cross block: B=32 cross-K/V rows, g = 1 (sampled) and 2 (beam 2)
     cwq, cwo = _int8_stack(gen, dev, d, d), _int8_stack(gen, dev, d, d)
@@ -318,14 +442,17 @@ def check_fused_blocks(dev, gen):
                     args, f"B={b} g={g} T={t} layer={layer}")
                 worst = max(worst, err)
                 timed[(t, g, layer)] = (ms, plain_ms)
+                if (t, g, layer) == (1500, 2, LV2_L - 1):
+                    main["cross"] = args
         del ck, cv
-    ms, plain_ms = timed[(1500, 2, LV2_L - 1)]
-    results.append({"name": "cross_block", "route": "cuda", "source": src,
-                    "replaces":
-                        "whisperjav_tpu/ops/pallas/fused_decode.py:185",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
-    del cwq, cwo
-    torch.cuda.empty_cache()
+    rows, t = 64, 1500
+    cross_bytes = (2 * rows * d * 2 + 2 * d * 2 + 2 * d * d + 2 * d * 6
+                   + 2 * b * d * t + 2 * b * h * 4)
+    results.append(record(
+        "cross_block", src, f"{pallas}:185", worst,
+        *timed[(1500, 2, LV2_L - 1)],
+        bound(cross_bytes, 2 * rows * 2 * d * d * 2 + 4 * rows * d * t,
+              PEAK_BF16)))
 
     # MLP block: R = 32 and 64
     w1, w2 = _int8_stack(gen, dev, d, 4 * d), _int8_stack(gen, dev, 4 * d, d)
@@ -340,14 +467,156 @@ def check_fused_blocks(dev, gen):
                 f"R={rows} layer={layer}")
             worst = max(worst, err)
             timed[(rows, layer)] = (ms, plain_ms)
-    ms, plain_ms = timed[(64, LV2_L - 1)]
-    results.append({"name": "mlp_block", "route": "cuda", "source": src,
-                    "replaces":
-                        "whisperjav_tpu/ops/pallas/fused_decode.py:265",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
-    del w1, w2
+            if (rows, layer) == (64, LV2_L - 1):
+                main["mlp"] = args
+    rows = 64
+    mlp_bytes = 2 * rows * d * 2 + 2 * d * 2 + 8 * d * d + 5 * d * 6
+    results.append(record(
+        "mlp_block", src, f"{pallas}:265", worst, *timed[(64, LV2_L - 1)],
+        bound(mlp_bytes, 2 * rows * 8 * d * d * 2, PEAK_BF16)))
+    results.extend(inner_kernels(main, selfw, (cwq, cwo), (w1, w2), v1_lib,
+                                 max(r["max_abs_err"] for r in results)))
+    if v1_lib is not None:
+        # each block at its main shape, this version and the older in turns
+        for rec, kind in zip(results[:3], ("self", "cross", "mlp")):
+            fn = getattr(fd, f"{kind}_block")
+            turns = {"kernel": [], "v1": []}
+            for turn in ("kernel", "v1", "v1", "kernel"):
+                with turn_kernels(turn, v1_lib):
+                    turns[turn].append(device_ms(lambda: fn(**main[kind]),
+                                                 iters=20))
+            rec["v1_ms"] = statistics.median(turns["v1"])
+            log(f"{rec['name']} at its main shape: "
+                f"{statistics.median(turns['kernel']):.4f} ms, older version "
+                f"{rec['v1_ms']:.4f} ms; turns {json.dumps(turns)}")
+    del main, wqkv, wo, cwq, cwo, w1, w2
     torch.cuda.empty_cache()
     return results
+
+
+def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
+    """One decode layer-step of large-v2 at R=64 (the three blocks at
+    their main shapes) under the profiler: the device time of each kernel
+    inside the blocks, beside its bound and its plain version; the older
+    version's where it is built. The inner kernels' outputs are checked
+    through the blocks' (``block_err``, the blocks' worst error)."""
+    from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
+    d, h, rows, pos, layer = LV2_D, LV2_H, 64, 100, LV2_L - 1
+    sa, ca, ma = main["self"], main["cross"], main["mlp"]
+
+    def step():
+        fd.self_block(**sa)
+        fd.cross_block(**ca)
+        fd.mlp_block(**ma)
+
+    turns = {"kernel": [], "v1": []}
+    for turn in ("kernel", "v1", "v1", "kernel"):
+        if turn == "v1" and v1_lib is None:
+            continue
+        with turn_kernels(turn, v1_lib):
+            turns[turn].append(device_ms(step, iters=20))
+    prof = kernel_device_ms(step)
+    v1_prof = None
+    if v1_lib is not None:
+        with kernels_from(v1_lib):
+            v1_prof = kernel_device_ms(step)
+    log(f"large-v2 layer-step (self + cross + MLP, R=64, T=1500, pos 100): "
+        f"device {statistics.median(turns['kernel']):.4f} ms per step"
+        + (f", older version {statistics.median(turns['v1']):.4f} ms"
+           if turns["v1"] else "") + f"; turns {json.dumps(turns)}")
+    for label, pr in (("kernels", prof), ("older version", v1_prof)):
+        if pr:
+            log(f"  {label} per layer-step (profiler): " + "; ".join(
+                f"{k} {v:.4f} ms" for k, v in sorted(pr.items(),
+                                                     key=lambda kv: -kv[1])))
+
+    # the six GEMVs: weights, scales and biases, f32 input and output
+    gemvs = {"0": [(d, 3 * d)], "1": [(d, 4 * d)],
+             "2": [(d, d), (d, d), (4 * d, d)], "3": [(d, d)]}
+    qg_ms, qg_bytes, qg_flop = 0.0, 0, 0
+    for epi, shapes in gemvs.items():
+        name = f"qgemv_kernel<{epi}, 4>"
+        ms = prof.get(name, 0.0)
+        by = sum(k * n + n * 6 + rows * (k + n) * 4 for k, n in shapes)
+        fl = sum(2 * rows * k * n for k, n in shapes)
+        bnd = bound(by, 2 * fl, PEAK_BF16)
+        log(f"  qgemv_kernel<{epi}, 4> ({GEMV_EPILOGUES[epi]}, "
+            f"{len(shapes)} a layer-step): {ms:.4f} ms, bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]})")
+        qg_ms, qg_bytes, qg_flop = qg_ms + ms, qg_bytes + by, qg_flop + fl
+
+    # plain versions of the inner kernels, on f32 inputs of the shapes
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f32 = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    a_d, a_h = f32(rows, d), f32(rows, 4 * d)
+    ws = [(w.q[layer], w.s[layer], torch.zeros(w.q.shape[-1], device="cuda"))
+          for w in (*selfw, *crossw, *mlpw)]
+
+    def plain_gemvs():
+        for (q, s, bias), a in zip(ws, (a_d, a_d, a_d, a_d, a_d, a_h)):
+            fd._qdense(a, q, s, bias)
+
+    qkv = f32(rows, 3 * d)
+
+    def plain_self_attention():
+        ck = sa["cache_k"][layer, :, :pos].float().reshape(rows, pos, h, 64)
+        cv = sa["cache_v"][layer, :, :pos].float().reshape(rows, pos, h, 64)
+        q = qkv[:, :d].reshape(rows, h, 64) * 0.125
+        lg = torch.cat([torch.einsum("rhd,rthd->rht", q, ck),
+                        (q * qkv[:, d:2 * d].reshape(rows, h, 64)).sum(
+                            -1, keepdim=True)], dim=-1).softmax(-1)
+        return (torch.einsum("rht,rthd->rhd", lg[..., :-1], cv)
+                + lg[..., -1:] * qkv[:, 2 * d:].reshape(rows, h, 64))
+
+    def split(y):
+        hi = y.bfloat16()
+        return hi, (y - hi.float()).bfloat16()
+
+    x = sa["x"]
+
+    def plain_ln_split():
+        return split(fd._ln(x.float(), sa["ln_s"][layer], sa["ln_b"][layer]))
+
+    vs = ca["v_scale"][layer].reshape(32, 1, h, 1)
+
+    def plain_v_split():
+        return split((a_d.reshape(32, 2, h, 64) * vs).reshape(rows, d))
+
+    v1 = v1_prof or {}
+    v1_qgemv = sum(v for k, v in v1.items() if k.startswith("qgemv_kernel"))
+    recs = [
+        record("qgemv", "whisperjav_tpu_torch/csrc/fused_decode.cu",
+               "whisperjav_tpu/ops/pallas/fused_decode.py:166,248,323",
+               block_err, qg_ms, device_ms(plain_gemvs, iters=10),
+               bound(qg_bytes, 2 * qg_flop, PEAK_BF16),
+               v1_ms=v1_qgemv or None,
+               per="the six int8 GEMVs of one large-v2 layer-step, R=64"),
+        record("self_attention", "whisperjav_tpu_torch/csrc/fused_decode.cu",
+               "whisperjav_tpu/ops/pallas/fused_decode.py:88", block_err,
+               prof.get("self_attention_kernel", 0.0),
+               device_ms(plain_self_attention, iters=10),
+               bound(2 * rows * pos * d * 2 + rows * 3 * d * 4
+                     + 2 * rows * d * 2, 4 * rows * pos * d, PEAK_F32),
+               v1_ms=v1.get("self_attention_kernel")),
+        record("ln_split", "whisperjav_tpu_torch/csrc/fused_decode.cu",
+               "whisperjav_tpu/ops/pallas/fused_decode.py:88,185,265",
+               block_err, prof.get("ln_split_kernel", 0.0) / 3,
+               device_ms(plain_ln_split, iters=10),
+               bound(rows * d * 2 + 2 * d * 2 + 2 * rows * d * 2,
+                     8 * rows * d, PEAK_F32)),
+        record("v_split", "whisperjav_tpu_torch/csrc/fused_decode.cu",
+               "whisperjav_tpu/ops/pallas/fused_decode.py:185", block_err,
+               prof.get("split_kernel", 0.0),
+               device_ms(plain_v_split, iters=10),
+               bound(rows * d * 4 + 2 * rows * d * 2, 3 * rows * d,
+                     PEAK_F32)),
+    ]
+    for r in recs:
+        log(f"  {r['name']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+            + (f", older version {r['v1_ms']:.4f} ms" if r.get("v1_ms")
+               else ""))
+    return recs
 
 
 def check_small_reference(dev):
@@ -503,10 +772,15 @@ def kernel_counters():
     from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
         encoder_attention,
     )
-    return {"encoder_attention": encoder_attention,
-            "decode_cross_attention": decode_cross_attention,
-            "self_block": fd.self_block, "cross_block": fd.cross_block,
-            "mlp_block": fd.mlp_block}
+    counters = {"encoder_attention": encoder_attention,
+                "decode_cross_attention": decode_cross_attention,
+                "self_block": fd.self_block, "cross_block": fd.cross_block,
+                "mlp_block": fd.mlp_block}
+    # Kernel B inside the cross block counts apart from its own wrapper's
+    counters.update({("decode_cross_attention_in_block"
+                      if k == "decode_cross_attention" else k): v
+                     for k, v in fd.inner.items()})
+    return counters
 
 
 def run_cli_path(tmp: Path, label: str, seconds: float, flags: list,
@@ -678,7 +952,15 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
         f"device(s); {card}")
-    path, build_s, report = _build.build()
+    # this tree's kernels and, where present, the older version's, each
+    # file in its own nvcc process, all started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        new_build = pool.submit(_build.build)
+        old_build = (pool.submit(_build.build, V1_CSRC,
+                                 _build.BUILD_DIR / "v1")
+                     if V1_CSRC.is_dir() else None)
+        path, build_s, report = new_build.result()
+        v1_path = old_build.result()[0] if old_build else None
     log(f"built {path.name} in {build_s:.3f} s from "
         f"{[p.name for p in _build.sources()]}")
     for line in report.splitlines():
@@ -686,13 +968,16 @@ def main(argv=None) -> int:
                 or "spill" in line:
             log(f"  {line.strip()}")
     _build.load_library()
+    v1_lib = _build.open_library(v1_path) if v1_path else None
+    if v1_lib is not None:
+        log(f"older version of the kernels from {V1_CSRC}: {v1_path.name}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
     if "kernels" in only:
-        kernels = [check_encoder_attention(dev, gen),
+        kernels = [check_encoder_attention(dev, gen, v1_lib),
                    check_decode_attention(dev, gen, prompt_len=3),
-                   *check_fused_blocks(dev, gen)]
+                   *check_fused_blocks(dev, gen, v1_lib)]
         torch.cuda.empty_cache()
     if "reference" in only:
         check_small_reference(dev)
@@ -718,9 +1003,11 @@ def main(argv=None) -> int:
         return 3
 
     for k in kernels:
-        k["launches"] = launches["large_v2_int8"][k["name"]]
-        k["launches_by_path"] = {path: counts[k["name"]]
-                                 for path, counts in launches.items()}
+        by_path = {path: counts[k["name"]]
+                   + counts.get(f"{k['name']}_in_block", 0)
+                   for path, counts in launches.items()}
+        k["launches"] = by_path["large_v2_int8"]
+        k["launches_by_path"] = by_path
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

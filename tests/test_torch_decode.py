@@ -14,12 +14,17 @@ import jax.numpy as jnp
 from whisperjav_tpu.models.whisper import decode as jd
 from whisperjav_tpu.models.whisper import model as jm
 from whisperjav_tpu.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig as TorchWhisperConfig,
+)
 from whisperjav_tpu_torch.models.whisper import decode as td
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
 
-CFG = WhisperConfig(name="torch-tiny", n_mels=80, n_audio_state=64,
-                    n_audio_head=4, n_audio_layer=2, n_text_state=64,
-                    n_text_head=4, n_text_layer=2, n_vocab=51865)
+_DIMS = dict(name="torch-tiny", n_mels=80, n_audio_state=64,
+             n_audio_head=4, n_audio_layer=2, n_text_state=64,
+             n_text_head=4, n_text_layer=2, n_vocab=51865)
+CFG = WhisperConfig(**_DIMS)          # the JAX package's
+TCFG = TorchWhisperConfig(**_DIMS)    # the port's
 # the balanced sensitivity's decoding options, with a short budget
 BALANCED = dict(max_new_tokens=24, cross_kv_int8=True,
                 repetition_penalty=1.5, no_repeat_ngram_size=3,
@@ -39,7 +44,7 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def setup():
     params = jm.init_params(CFG, jax.random.PRNGKey(1))
-    model = params_from_jax(jax.tree.map(np.asarray, params), CFG)
+    model = params_from_jax(jax.tree.map(np.asarray, params), TCFG)
     mel = np.random.default_rng(2).standard_normal(
         (3, CFG.n_mels, 3000)).astype(np.float32)
     xa = np.array(jm.encode(params, CFG, jnp.asarray(mel))[:, :448])
@@ -123,6 +128,6 @@ def test_extract_segments_identical(setup):
         np.array([500, ts + 10, ts + 11, 600, 700])]
     for row in rows:
         ref = jd.extract_segments(row, CFG, jo, 8.96, -0.5, 0.1)
-        out = td.extract_segments(row, CFG, to, 8.96, -0.5, 0.1)
+        out = td.extract_segments(row, TCFG, to, 8.96, -0.5, 0.1)
         assert [dataclasses.asdict(s) for s in out] == \
             [dataclasses.asdict(s) for s in ref]

@@ -73,7 +73,8 @@ def test_wrapper_runs_plain_version_on_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 200, 4, 64), (2, 1500, 3, 64)])
+@pytest.mark.parametrize("shape", [(2, 200, 4, 64), (2, 1500, 3, 64),
+                                   (32, 1500, 20, 64)])
 def test_kernel_matches_plain_on_gpu(cuda_device, shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k = ((torch.randn(shape, generator=g, device=cuda_device) * 3)
@@ -87,5 +88,22 @@ def test_kernel_matches_plain_on_gpu(cuda_device, shape):
     err = (out.float() - ref).abs()
     # probabilities and output round to bf16 at other points than in the
     # plain version: two bf16 steps at the output's largest magnitude
+    assert err.max().item() <= ref.abs().max().item() / 64
+    assert err.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_views_on_gpu(cuda_device):
+    """q, k, v as views of one (B, T, 3, H, 64) tensor: the tensor maps
+    read the strides, no copy is made."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = (torch.randn((3, 1500, 3, 5, 64), generator=g, device=cuda_device)
+           * 2).bfloat16()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    out = encoder_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention(q, k, v).float()
+    err = (out.float() - ref).abs()
     assert err.max().item() <= ref.abs().max().item() / 64
     assert err.mean().item() <= 2e-3

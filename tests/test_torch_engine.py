@@ -11,11 +11,16 @@ import jax.numpy as jnp
 
 from whisperjav_tpu.models.whisper.config import WhisperConfig
 from whisperjav_tpu.models.whisper.model import init_params
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig as TorchWhisperConfig,
+)
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
 
-TINY = WhisperConfig(name="torch-engine-tiny", n_mels=128, n_audio_state=64,
-                     n_audio_head=4, n_audio_layer=2, n_text_state=64,
-                     n_text_head=4, n_text_layer=2, n_vocab=51866)
+_DIMS = dict(name="torch-engine-tiny", n_mels=128, n_audio_state=64,
+             n_audio_head=4, n_audio_layer=2, n_text_state=64,
+             n_text_head=4, n_text_layer=2, n_vocab=51866)
+TINY = WhisperConfig(**_DIMS)          # the JAX package's
+TTINY = TorchWhisperConfig(**_DIMS)    # the port's
 SR = 16000
 
 
@@ -58,7 +63,7 @@ def test_engine_ladder_matches_jax(monkeypatch, bumps, marker):
     from whisperjav_tpu_torch.pipelines import engine as te
 
     params = init_params(TINY, jax.random.PRNGKey(2))
-    model = params_from_jax(jax.tree.map(np.asarray, params), TINY)
+    model = params_from_jax(jax.tree.map(np.asarray, params), TTINY)
     temps = (0.0, 0.4, 0.6, 0.8)
     for mod, cls in ((je, jd.DecodeResult), (te, td.DecodeResult)):
         monkeypatch.setattr(mod.TranscriptionEngine, "decode_encoded",
@@ -70,7 +75,7 @@ def test_engine_ladder_matches_jax(monkeypatch, bumps, marker):
         thresholds=je.QualityThresholds(temperatures=temps), batch_size=2,
         mesh=None, compute_dtype=jnp.float32)
     teng = te.TranscriptionEngine(
-        TINY, model, options=td.DecodeOptions(max_new_tokens=8,
+        TTINY, model, options=td.DecodeOptions(max_new_tokens=8,
                                               cross_kv_int8=True),
         thresholds=te.QualityThresholds(temperatures=temps), batch_size=2,
         device="cpu", compute_dtype=torch.float32)

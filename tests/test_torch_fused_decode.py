@@ -283,3 +283,28 @@ def test_mlp_block_kernel_matches_plain_on_gpu(cuda_device, rows):
     torch.cuda.synchronize()
     assert tfd.mlp_block.launches == before + 1
     _assert_bf16_close(out, tfd.mlp_block_plain(**args), "x_out")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 5])
+def test_split_k_sums_are_deterministic_on_gpu(cuda_device, rows):
+    """The split-K GEMVs add their partial sums in a fixed order: two
+    calls on the same inputs give the same bits."""
+    dev, n_layer, d = cuda_device, 2, 1280
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def bf(*shape, base=0.0):
+        return (base + 0.1 * torch.randn(*shape, generator=g, device=dev)
+                ).bfloat16()
+
+    def q8(k, n):
+        w = torch.randn(n_layer, k, n, generator=g, device=dev) * k ** -0.5
+        s = w.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+        return Int8(torch.round(w / s).clamp(-127, 127).to(torch.int8), s)
+
+    args = dict(x=bf(rows, d) * 10, ln_s=bf(n_layer, d, base=1.0),
+                ln_b=bf(n_layer, d), w1=q8(d, 4 * d), b1=bf(n_layer, 4 * d),
+                w2=q8(4 * d, d), b2=bf(n_layer, d), layer=1)
+    first = tfd.mlp_block(**args)
+    for _ in range(3):
+        assert torch.equal(tfd.mlp_block(**args), first)

@@ -1,0 +1,209 @@
+"""The port's own copies of the JAX package's host modules give the same
+results on the same inputs: scene detection and VAD, the sanitizer, the
+preset resolution, the argument parser and the SRT reader and writer;
+and the two packages' loggers share one handler."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from whisperjav_tpu import cli as jcli
+from whisperjav_tpu.config import presets as jpresets
+from whisperjav_tpu.modules import srt as jsrt
+from whisperjav_tpu.modules.sanitize import SRTPostProcessor as JPost
+from whisperjav_tpu.modules.scene_detection import (
+    create_scene_detector as j_scene,
+)
+from whisperjav_tpu.modules.segmentation import create_segmenter as j_seg
+from whisperjav_tpu_torch import cli_args as tcli
+from whisperjav_tpu_torch.config import presets as tpresets
+from whisperjav_tpu_torch.modules import srt as tsrt
+from whisperjav_tpu_torch.modules.sanitize import SRTPostProcessor as TPost
+from whisperjav_tpu_torch.modules.scene_detection import (
+    create_scene_detector as t_scene,
+)
+from whisperjav_tpu_torch.modules.segmentation import (
+    create_segmenter as t_seg,
+)
+
+SR = 16000
+
+
+def _clip(seed: int) -> np.ndarray:
+    """~70 s of speech-like bursts (3-9 s) between silences (1-3 s) and a
+    quiet noise floor, from one seed."""
+    rng = np.random.default_rng(seed)
+    parts, total = [], 0.0
+    while total < 70.0:
+        n = int(rng.uniform(3.0, 9.0) * SR)
+        t = np.arange(n) / SR
+        parts.append(0.3 * np.sin(2 * np.pi * rng.uniform(120, 260) * t)
+                     * (1 + 0.5 * np.sin(2 * np.pi * 4 * t))
+                     + 0.05 * rng.standard_normal(n))
+        gap = int(rng.uniform(1.0, 3.0) * SR)
+        parts.append(0.002 * rng.standard_normal(gap))
+        total += (n + gap) / SR
+    return np.concatenate(parts).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,backend,kwargs", [
+    ("scene", "energy", {}),
+    ("scene", "none", {}),
+    ("scene", "energy", {"max_scene_duration_s": 12.0}),
+    ("vad", "silero", {}),
+    ("vad", "silero", {"threshold": 0.41, "max_group_duration_s": 12.0}),
+    ("vad", "energy", {}),
+    ("vad", "none", {}),
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scenes_and_groups_match(kind, backend, kwargs, seed):
+    audio = _clip(seed)
+    if kind == "scene":
+        ref = j_scene(backend, **kwargs).detect(audio, SR)
+        out = t_scene(backend, **kwargs).detect(audio, SR)
+        assert len(ref.scenes) >= 1
+        assert [dataclasses.asdict(s) for s in out.scenes] == \
+            [dataclasses.asdict(s) for s in ref.scenes]
+    else:
+        ref = j_seg(backend, **kwargs).segment(audio, SR)
+        out = t_seg(backend, **kwargs).segment(audio, SR)
+        assert len(ref.groups) >= 1
+        assert [dataclasses.asdict(g) for g in out.groups] == \
+            [dataclasses.asdict(g) for g in ref.groups]
+        assert [dataclasses.asdict(s) for s in out.segments] == \
+            [dataclasses.asdict(s) for s in ref.segments]
+    assert (out.backend, out.stats) == (ref.backend, ref.stats)
+
+
+_SRT = """1
+00:00:01,000 --> 00:00:02,500
+こんにちは、今日はいい天気ですね。
+
+2
+00:00:02,600 --> 00:00:04,000
+ご視聴ありがとうございました
+
+3
+00:00:04,100 --> 00:00:05,000
+あああああああああああああああああああああああああ
+
+4
+00:00:05,200 --> 00:00:06,000
+はい、はい、はい、はい、はい、はい、はい、はい
+
+5
+00:00:06,100 --> 00:00:06,900
+そうですね
+
+6
+00:00:07,000 --> 00:00:07,800
+そうですね
+
+7
+00:00:08,000 --> 00:00:09,000
+チャンネル登録よろしくお願いします
+
+8
+00:00:09,100 --> 00:00:20,000
+うん
+
+9
+00:00:20,100 --> 00:00:20,200
+これはとても長い字幕で、短い時間の中に多すぎる文字が詰め込まれています。
+
+10
+00:00:21,000 --> 00:00:23,000
+Thanks for watching!
+"""
+
+
+@pytest.mark.parametrize("language,preset", [
+    ("ja", "default"), ("ja", "aggressive"), ("en", "default"),
+])
+def test_sanitizer_output_is_byte_equal(tmp_path, language, preset):
+    ref_subs, ref_stats = JPost(regroup_preset=preset).process(
+        jsrt.parse_srt(_SRT), language=language)
+    out_subs, out_stats = TPost(regroup_preset=preset).process(
+        tsrt.parse_srt(_SRT), language=language)
+    assert len(ref_subs) < 10          # something was removed or merged
+    jsrt.save_srt(tmp_path / "jax.srt", ref_subs)
+    tsrt.save_srt(tmp_path / "torch.srt", out_subs)
+    assert (tmp_path / "torch.srt").read_bytes() == \
+        (tmp_path / "jax.srt").read_bytes()
+    assert json.dumps(out_stats, sort_keys=True, default=str) == \
+        json.dumps(ref_stats, sort_keys=True, default=str)
+
+
+@pytest.mark.parametrize("mode", ["faster", "fast", "balanced"])
+@pytest.mark.parametrize("sensitivity",
+                         ["conservative", "balanced", "aggressive"])
+@pytest.mark.parametrize("int8_weights", [False, True])
+def test_resolved_pipeline_config_matches(mode, sensitivity, int8_weights):
+    kw = dict(mode=mode, sensitivity=sensitivity, int8_weights=int8_weights)
+    ref = jpresets.resolve_pipeline_config(**kw)
+    out = tpresets.resolve_pipeline_config(**kw)
+    assert json.dumps(dataclasses.asdict(out), sort_keys=True) == \
+        json.dumps(dataclasses.asdict(ref), sort_keys=True)
+    assert tpresets.config_fingerprint(out) == \
+        jpresets.config_fingerprint(ref)
+
+
+@pytest.mark.parametrize("argv", [
+    ["clip.wav"],
+    ["a.wav", "b.mp4", "--output-dir", "out", "--mode", "faster"],
+    ["clip.wav", "--model", "large-v2", "--int8-weights"],
+    ["clip.wav", "--compute-type", "int8_float16", "--sensitivity",
+     "aggressive", "--batch-size", "16"],
+    ["clip.wav", "--vad-backend", "silero", "--vad-arg", "threshold=0.3",
+     "--scene-arg", "max_scene_duration_s=20", "--speech-pad-ms", "200"],
+    ["clip.wav", "--no-sanitize", "--no-signature", "--output-format",
+     "both", "--overrides", "sensitivity.beam_size=3"],
+    ["clip.wav", "--word-timestamps", "--ensemble", "--devices", "4"],
+    ["clip.wav", "--asr", "faster_whisper", "--features",
+     "auditok_scene_detection", "--dump-params"],
+])
+def test_parser_gives_the_same_namespace(argv):
+    assert vars(tcli.parse_arguments(argv)) == \
+        vars(jcli.parse_arguments(argv))
+    assert tcli._ASR_TO_MODE == jcli._ASR_TO_MODE
+    assert tcli._FEATURE_TO_SCENE == jcli._FEATURE_TO_SCENE
+
+
+@pytest.mark.parametrize("vtt", [False, True])
+def test_srt_round_trip_matches(tmp_path, vtt):
+    subs = [(0.0, 1.234, "一行目"), (1.5, 3.0, "二行目\n続き"),
+            (3661.001, 3662.5, "over an hour")]
+    for side, mod in (("jax", jsrt), ("torch", tsrt)):
+        path = tmp_path / f"{side}.srt"
+        mod.save_srt(path, [mod.Subtitle(i + 1, a, b, t)
+                            for i, (a, b, t) in enumerate(subs)])
+        if vtt:
+            mod.srt_to_vtt(path)
+    ext = "vtt" if vtt else "srt"
+    assert (tmp_path / f"torch.{ext}").read_bytes() == \
+        (tmp_path / f"jax.{ext}").read_bytes()
+    ref = [dataclasses.asdict(s) for s in jsrt.load_srt(tmp_path / "jax.srt")]
+    out = [dataclasses.asdict(s)
+           for s in tsrt.load_srt(tmp_path / "torch.srt")]
+    assert out == ref
+    assert [(s["start"], s["end"], s["text"]) for s in out] == subs
+
+
+@pytest.mark.parametrize("order", [
+    ("whisperjav_tpu", "whisperjav_tpu_torch"),
+    ("whisperjav_tpu_torch", "whisperjav_tpu"),
+])
+def test_both_packages_log_through_one_handler(order):
+    """The port's logger keeps the JAX package's name: importing both, in
+    either order, attaches one default handler to the one logger."""
+    code = ("import importlib, logging\n"
+            f"for pkg in {list(order)!r}:\n"
+            "    importlib.import_module(pkg + '.utils.logger')\n"
+            "print(len(logging.getLogger('whisperjav_tpu').handlers))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    assert out.strip() == "1"

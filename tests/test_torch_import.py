@@ -1,4 +1,5 @@
-"""The PyTorch port imports no jax, directly or through the JAX package."""
+"""The PyTorch port imports no jax, and nothing of the JAX package: it keeps
+its own copy of every host module it runs."""
 
 import pkgutil
 import re
@@ -44,3 +45,82 @@ def test_no_port_source_imports_jax():
     offenders = [str(p) for p in PKG_DIR.rglob("*.py")
                  if pat.search(p.read_text(encoding="utf-8"))]
     assert offenders == []
+
+
+# `whisperjav_tpu` as a module, never the port's own `whisperjav_tpu_torch`
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+whisperjav_tpu(\.|\s+import\b)"
+    r"|import\s+whisperjav_tpu(\.|\s|,|$))", re.M)
+
+
+def test_no_port_source_imports_the_jax_package():
+    files = sorted(PKG_DIR.rglob("*.py")) + [PKG_DIR.parent / "chip_smoke.py"]
+    offenders = [str(p) for p in files
+                 if _JAX_PACKAGE_IMPORT.search(p.read_text(encoding="utf-8"))]
+    assert offenders == []
+    assert _JAX_PACKAGE_IMPORT.search("from whisperjav_tpu.cli import x")
+    assert _JAX_PACKAGE_IMPORT.search("  import whisperjav_tpu")
+    assert not _JAX_PACKAGE_IMPORT.search("from whisperjav_tpu_torch import x")
+    assert not _JAX_PACKAGE_IMPORT.search("import whisperjav_tpu_torch.cli")
+
+
+_PIPELINE_RUN = """
+import sys, tempfile
+from pathlib import Path
+import numpy as np
+import torch
+from whisperjav_tpu_torch import cli
+from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
+from whisperjav_tpu_torch.models.whisper.weights import init_params
+from whisperjav_tpu_torch.modules.audio_io import write_wav
+from whisperjav_tpu_torch.modules.media_discovery import probe
+from whisperjav_tpu_torch.modules.sanitize import SRTPostProcessor
+from whisperjav_tpu_torch.pipelines.engine import (
+    QualityThresholds, TranscriptionEngine,
+)
+from whisperjav_tpu_torch.pipelines.transcribe import TranscribePipeline
+
+torch.set_num_threads(1)
+cfg = WhisperConfig(name="isolation-tiny", n_mels=80, n_audio_state=64,
+                    n_audio_head=4, n_audio_layer=1, n_text_state=64,
+                    n_text_head=4, n_text_layer=1, n_vocab=51865)
+model = init_params(cfg, torch.Generator().manual_seed(0))
+sr, rng = 16000, np.random.default_rng(0)
+t = np.arange(6 * sr) / sr
+burst = (0.3 * np.sin(2 * np.pi * 180 * t)
+         + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+audio = np.concatenate([burst, np.zeros(2 * sr, np.float32), burst])
+with tempfile.TemporaryDirectory() as tmp:
+    wav = Path(tmp) / "clip.wav"
+    write_wav(wav, audio, sr)
+    for int8 in (False, True):
+        engine = TranscriptionEngine(
+            cfg, model, options=DecodeOptions(max_new_tokens=6, beam_size=2,
+                                              cross_kv_int8=True),
+            thresholds=QualityThresholds(temperatures=(0.0,)),
+            batch_size=2, device="cpu", compute_dtype=torch.float32,
+            int8_weights=int8)
+        out = TranscribePipeline(
+            engine, scene_backend="energy", vad_backend="silero",
+            postprocessor=SRTPostProcessor()).process(
+                probe(wav), Path(tmp) / f"out{int(int8)}")
+        assert out.srt_path.exists() and out.metadata["stats"]["windows"] >= 1
+    assert cli.main([str(wav), "--int8-weights", "--dump-params"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "whisperjav_tpu" or m.startswith("whisperjav_tpu."))
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_port_pipeline_and_cli_leave_the_jax_package_out():
+    """The port's file pipeline (silero VAD, sanitizer, bf16 and int8
+    decoder weights) and its CLI run on the CPU without loading a single
+    module of ``whisperjav_tpu``."""
+    proc = subprocess.run([sys.executable, "-c", _PIPELINE_RUN],
+                          cwd=str(PKG_DIR.parent), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    loaded = [line for line in proc.stdout.splitlines()
+              if line.startswith("LOADED:")]
+    assert loaded == ["LOADED:"], f"JAX package modules loaded: {loaded}"

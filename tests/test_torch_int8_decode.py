@@ -14,14 +14,19 @@ from whisperjav_tpu.models.whisper import decode as jd
 from whisperjav_tpu.models.whisper import model as jm
 from whisperjav_tpu.models.whisper import quant as jq
 from whisperjav_tpu.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig as TorchWhisperConfig,
+)
 from whisperjav_tpu_torch.models.whisper import decode as td
 from whisperjav_tpu_torch.models.whisper import model as tm
 from whisperjav_tpu_torch.models.whisper import quant as tq
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
 
-CFG = WhisperConfig(name="torch-int8-tiny", n_mels=80, n_audio_state=64,
-                    n_audio_head=4, n_audio_layer=2, n_text_state=64,
-                    n_text_head=4, n_text_layer=2, n_vocab=51865)
+_DIMS = dict(name="torch-int8-tiny", n_mels=80, n_audio_state=64,
+             n_audio_head=4, n_audio_layer=2, n_text_state=64,
+             n_text_head=4, n_text_layer=2, n_vocab=51865)
+CFG = WhisperConfig(**_DIMS)          # the JAX package's
+TCFG = TorchWhisperConfig(**_DIMS)    # the port's
 # the balanced sensitivity's decoding options, with a short budget
 BALANCED = dict(max_new_tokens=16, cross_kv_int8=True,
                 repetition_penalty=1.5, no_repeat_ngram_size=3,
@@ -86,7 +91,7 @@ def jax_fused(monkeypatch):
 def test_quantize_matches_jax_bit_for_bit(setup):
     params, _, tree_q, _ = setup
     model = tq.quantize_decoder_weights(tq.fuse_qkv_weights(
-        params_from_jax(jax.tree.map(np.asarray, params), CFG)))
+        params_from_jax(jax.tree.map(np.asarray, params), TCFG)))
     got = {name: t.numpy() for name, t in model.state_dict().items()}
     want = dict(_flat(tree_q))
     assert set(got) == set(want)
@@ -100,7 +105,7 @@ def test_quantize_matches_jax_bit_for_bit(setup):
 
 def test_params_from_jax_takes_the_quantised_tree(setup):
     _, _, tree_q, _ = setup
-    model = params_from_jax(tree_q, CFG, dtype=torch.bfloat16)
+    model = params_from_jax(tree_q, TCFG, dtype=torch.bfloat16)
     dec = model.decoder
     assert isinstance(dec.lm_head_q, tm.Int8Weight)
     assert dec.lm_head_q.q.dtype == torch.int8
@@ -132,7 +137,7 @@ def test_greedy_tokens_identical(setup, jax_fused):
     _, params_q, tree_q, xa = setup
     jo, to = _opts()
     ref = jd.decode_greedy(params_q, CFG, jnp.asarray(xa), jo)
-    out = td.decode_greedy(params_from_jax(tree_q, CFG), torch.from_numpy(xa),
+    out = td.decode_greedy(params_from_jax(tree_q, TCFG), torch.from_numpy(xa),
                            to)
     _same(ref, out)
 
@@ -152,7 +157,7 @@ def test_sampled_rung_identical_with_jax_noise(setup, jax_fused):
     ref = jd.decode_greedy(params_q, CFG, jnp.asarray(xa), jo,
                            temperature=temperature,
                            rng=jax.random.PRNGKey(seed))
-    out = td.decode_greedy(params_from_jax(tree_q, CFG), torch.from_numpy(xa),
+    out = td.decode_greedy(params_from_jax(tree_q, TCFG), torch.from_numpy(xa),
                            to, temperature=temperature,
                            gumbel=lambda step: noise[step])
     _same(ref, out)
@@ -164,7 +169,7 @@ def test_beam2_tokens_identical(setup):
     _, params_q, tree_q, xa = setup
     jo, to = _opts(beam_size=2)
     ref = jd.decode_beam(params_q, CFG, jnp.asarray(xa), jo)
-    out = td.decode_beam(params_from_jax(tree_q, CFG), torch.from_numpy(xa),
+    out = td.decode_beam(params_from_jax(tree_q, TCFG), torch.from_numpy(xa),
                          to)
     _same(ref, out)
 
@@ -194,7 +199,7 @@ def test_decode_steps_take_the_fused_blocks(setup, monkeypatch, beam):
     monkeypatch.setattr(td, "decode_step", counting_step)
     opts = td.DecodeOptions(max_new_tokens=4, cross_kv_int8=True,
                             beam_size=beam)
-    td.decode_beam(params_from_jax(tree_q, CFG), torch.from_numpy(xa), opts)
+    td.decode_beam(params_from_jax(tree_q, TCFG), torch.from_numpy(xa), opts)
     assert calls["steps"] >= 1
     for name in ("self", "cross", "mlp"):
         assert calls[name] == CFG.n_text_layer * calls["steps"], name

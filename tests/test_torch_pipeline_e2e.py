@@ -19,12 +19,21 @@ from whisperjav_tpu.modules.audio_io import write_wav
 from whisperjav_tpu.modules.media_discovery import probe
 from whisperjav_tpu.modules.sanitize import SRTPostProcessor
 from whisperjav_tpu.modules.srt import load_srt
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig as TorchWhisperConfig,
+)
 from whisperjav_tpu_torch import cli
+from whisperjav_tpu_torch.modules.media_discovery import probe as torch_probe
+from whisperjav_tpu_torch.modules.sanitize import (
+    SRTPostProcessor as TorchSRTPostProcessor,
+)
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
 
-TINY = WhisperConfig(name="torch-e2e-tiny", n_mels=128, n_audio_state=64,
-                     n_audio_head=4, n_audio_layer=2, n_text_state=64,
-                     n_text_head=4, n_text_layer=2, n_vocab=51866)
+_DIMS = dict(name="torch-e2e-tiny", n_mels=128, n_audio_state=64,
+             n_audio_head=4, n_audio_layer=2, n_text_state=64,
+             n_text_head=4, n_text_layer=2, n_vocab=51866)
+TINY = WhisperConfig(**_DIMS)          # the JAX package's
+TTINY = TorchWhisperConfig(**_DIMS)    # the port's
 SR = 16000
 
 
@@ -98,23 +107,23 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
                  no_speech_threshold=sens.no_speech_threshold,
                  temperatures=(0.0,))
     params = init_params(TINY, jax.random.PRNGKey(7))
-    model = params_from_jax(jax.tree.map(np.asarray, params), TINY)
+    model = params_from_jax(jax.tree.map(np.asarray, params), TTINY)
 
     wav = _wav(tmp_path)
     ref = _jax_pipeline(cfg, params, je.QualityThresholds(**gates),
                         jd.DecodeOptions(**common), int8_weights).process(
         probe(wav), tmp_path / "jax")
     engine = te.TranscriptionEngine(
-        TINY, model, options=td.DecodeOptions(**common),
+        TTINY, model, options=td.DecodeOptions(**common),
         thresholds=te.QualityThresholds(**gates), batch_size=4,
         device="cpu", compute_dtype=torch.float32,
         int8_weights=int8_weights)
     assert hasattr(engine.model.decoder, "lm_head_q") == int8_weights
     out = TranscribePipeline(engine, vad_backend="silero",
                              vad_kwargs=_vad_kwargs(cfg),
-                             postprocessor=SRTPostProcessor(),
+                             postprocessor=TorchSRTPostProcessor(),
                              keep_intermediates=True).process(
-        probe(wav), tmp_path / "torch")
+        torch_probe(wav), tmp_path / "torch")
 
     assert out.srt_path.name == ref.srt_path.name == "clip.ja.whisperjav.srt"
     # several packed windows in one batch, each with decoded text

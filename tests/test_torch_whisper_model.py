@@ -10,15 +10,20 @@ import jax.numpy as jnp
 
 from whisperjav_tpu.models.whisper import model as jm
 from whisperjav_tpu.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig as TorchWhisperConfig,
+)
 from whisperjav_tpu_torch.models.whisper import model as tm
 from whisperjav_tpu_torch.models.whisper.quant import fuse_qkv_weights
 from whisperjav_tpu_torch.models.whisper.weights import (
     init_params, params_from_jax,
 )
 
-CFG = WhisperConfig(name="torch-tiny", n_mels=128, n_audio_state=64,
-                    n_audio_head=4, n_audio_layer=2, n_text_state=64,
-                    n_text_head=4, n_text_layer=2, n_vocab=51866)
+_DIMS = dict(name="torch-tiny", n_mels=128, n_audio_state=64,
+             n_audio_head=4, n_audio_layer=2, n_text_state=64,
+             n_text_head=4, n_text_layer=2, n_vocab=51866)
+CFG = WhisperConfig(**_DIMS)          # the JAX package's
+TCFG = TorchWhisperConfig(**_DIMS)    # the port's
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,7 +61,7 @@ def _flat(tree, prefix=""):
 
 def test_params_from_jax_round_trip(weights):
     _, tree = weights
-    model = params_from_jax(tree, CFG)
+    model = params_from_jax(tree, TCFG)
     got = {name: t.numpy() for name, t in model.state_dict().items()}
     want = dict(_flat(tree))
     assert set(got) == set(want)
@@ -66,7 +71,7 @@ def test_params_from_jax_round_trip(weights):
 
 def test_init_params_has_the_jax_tree_layout(weights):
     _, tree = weights
-    model = init_params(CFG, torch.Generator().manual_seed(0))
+    model = init_params(TCFG, torch.Generator().manual_seed(0))
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
     assert shapes == {n: a.shape for n, a in _flat(tree)}
 
@@ -74,7 +79,7 @@ def test_init_params_has_the_jax_tree_layout(weights):
 def test_encode_matches_jax(weights, encoded):
     _, tree = weights
     ref, mel = encoded
-    out = tm.encode(params_from_jax(tree, CFG),
+    out = tm.encode(params_from_jax(tree, TCFG),
                     torch.from_numpy(mel)).numpy()
     assert out.shape == ref.shape == (2, 1500, 64)
     # f32 through two convs and two blocks; sums in different orders
@@ -85,7 +90,7 @@ def test_int8_cross_kv_matches_jax(weights, encoded):
     params, tree = weights
     xa, _ = encoded
     ref = jm.precompute_cross_kv(params, CFG, jnp.asarray(xa), int8=True)
-    out = tm.precompute_cross_kv(params_from_jax(tree, CFG),
+    out = tm.precompute_cross_kv(params_from_jax(tree, TCFG),
                                  torch.from_numpy(xa))
     for name in ("k_scale", "v_scale"):
         np.testing.assert_allclose(getattr(out, name).numpy(),
@@ -110,12 +115,12 @@ def test_decode_step_matches_jax(weights, encoded, fused):
     xa = jnp.asarray(xa[:, :448])
     cross_j = jm.precompute_cross_kv(params, CFG, xa, int8=True)
     cross_t = tm.CrossKV(*(torch.from_numpy(np.array(x)) for x in cross_j))
-    model = params_from_jax(tree, CFG)
+    model = params_from_jax(tree, TCFG)
     if fused:
         fuse_qkv_weights(model)
     t_max = 12
     cache_j = jm.KVCache.zeros(CFG, 2, t_max, jnp.float32)
-    cache_t = tm.KVCache.zeros(CFG, 2, t_max, torch.float32, "cpu")
+    cache_t = tm.KVCache.zeros(TCFG, 2, t_max, torch.float32, "cpu")
     sot = np.array([[CFG.sot, CFG.sot + 8, CFG.transcribe]] * 2)
     steps = [(sot, 0)] + [
         (np.array([[tok], [tok + 7]]), 3 + i)

@@ -1,9 +1,9 @@
 """``whisperjav-torch``: the ``whisperjav`` command line on the PyTorch port.
 
-Flags and defaults are the JAX package's own (``whisperjav_tpu.cli``
-parses them; it imports no jax), so a flagless run is balanced mode at
-balanced sensitivity: turbo, energy scenes, silero-calibrated VAD,
-batch 32, beam 2 with the temperature ladder. ``--device`` picks the
+Flags and defaults are the JAX package's own (``cli_args`` is the port's
+copy of ``whisperjav_tpu/cli.py``'s parser), so a flagless run is
+balanced mode at balanced sensitivity: turbo, energy scenes,
+silero-calibrated VAD, batch 32, beam 2 with the temperature ladder. ``--device`` picks the
 device (default ``cuda``; a CUDA device that is not there is an error).
 
 ``--int8-weights`` runs the decoder on int8 weights through the fused
@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
-from whisperjav_tpu.cli import (
+from whisperjav_tpu_torch.cli_args import (
     _ASR_TO_MODE, _FEATURE_TO_SCENE, _parse_kv_args, parse_arguments,
 )
 
@@ -99,7 +99,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.output_format = "both"
     output_format = args.output_format or "srt"
 
-    from whisperjav_tpu.utils.logger import setup_logger
+    from whisperjav_tpu_torch.utils.logger import setup_logger
     logger = setup_logger(args.verbosity,
                           Path(args.log_file) if args.log_file else None)
     if args.crash_trace:
@@ -110,7 +110,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                        "all windows decode as one independent batch; "
                        "continuing without it")
 
-    from whisperjav_tpu.config.presets import (
+    from whisperjav_tpu_torch.config.presets import (
         apply_dot_overrides, resolve_pipeline_config,
     )
     task = args.task or (
@@ -156,7 +156,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         }, indent=2))
         return 0
 
-    from whisperjav_tpu.modules.media_discovery import (
+    from whisperjav_tpu_torch.modules.media_discovery import (
         discover, resolve_output_dir,
     )
     media = discover(args.inputs, recursive=args.recursive)
@@ -181,7 +181,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     postprocessor = None
     if not args.no_sanitize:
-        from whisperjav_tpu.modules.sanitize import SRTPostProcessor
+        from whisperjav_tpu_torch.modules.sanitize import SRTPostProcessor
         postprocessor = SRTPostProcessor(
             regroup_preset=args.postprocess_preset)
 
@@ -193,13 +193,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     def finalize(srt_path: Path) -> None:
         """Signatures, then VTT conversion."""
         if args.credit or not args.no_signature:
-            from whisperjav_tpu.modules.srt import add_signatures
+            from whisperjav_tpu_torch.modules.srt import add_signatures
             add_signatures(srt_path, producer_credit=args.credit,
                            add_technical_sig=not args.no_signature,
                            mode=cfg.mode.name,
                            sensitivity=cfg.sensitivity.name)
         if output_format in ("vtt", "both"):
-            from whisperjav_tpu.modules.srt import srt_to_vtt
+            from whisperjav_tpu_torch.modules.srt import srt_to_vtt
             srt_to_vtt(srt_path)
             if output_format == "vtt":
                 srt_path.unlink()

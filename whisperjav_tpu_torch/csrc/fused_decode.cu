@@ -31,11 +31,9 @@
 //
 // What bounds it on the H100. Per layer and step the int8 weights are
 // 23 MB at large-v2 (wqkv 4.9, wo 1.6, cwq 1.6, cwo 1.6, w1 6.6, w2
-// 6.6), read once: ~7 us at 3.35 TB/s. The GEMVs are f32 products on the
-// CUDA cores: 2*R*d*(3d + 3d + 8d) FLOP, 2.9 GFLOP per layer at R = 64,
-// ~44 us at the card's 67 TFLOP/s f32 rate, so at R = 32-64 this design
-// is bound by f32 FMA throughput, not by bytes (the tensor cores, with
-// activations split into bf16 pairs, are the next step). The self cache
+// 6.6), read once: ~7 us at 3.35 TB/s. The GEMVs' products, 2*R*d*(3d +
+// 3d + 8d) FLOP (2.9 GFLOP per layer at R = 64), take a few us on the
+// tensor cores, so the weight bytes are the bound. The self cache
 // (R*pos*d*2 bf16 values per layer, up to 74 MB at R = 64, pos = 227)
 // and the int8 cross K/V (2*B*d*T bytes, 123 MB at B = 32, T = 1500)
 // are streamed once each.
@@ -43,25 +41,40 @@
 // What the design does about it. The TPU grid walks the rows in order on
 // one core and reuses each weight block from VMEM for every row; one
 // block per row here would re-read the weights R times. So each GEMV
-// block holds all rows of a row tile (16, 32 or 64: the smallest that
-// holds R) and 256, 128 or 64 output columns (2048 outputs a block): each
-// weight tile is read from memory once, converted to f32 once into
-// shared memory, and used by every row. Each thread computes 4 rows x 4
-// columns, so a k step costs it two 16-byte shared-memory loads for 16
-// FMAs and the FMA units, not shared memory, set the pace. K is split
-// across blocks when the tiles alone would leave SMs idle (N = d at
-// large-v2 and R = 64 gives 20 tiles); partial sums go to a workspace
-// and the last block of a tile adds them in a fixed order
-// (deterministic) and runs the epilogue. LN is computed inside the first
-// GEMV of each block (each block takes the row statistics itself).
+// block (qgemv_kernel) holds all rows of a row tile (16, 32 or 64: the
+// smallest that holds R) and 128 output columns: each weight tile is read
+// from memory once and used by every row. The products run on the tensor
+// cores (bf16 mma.sync m16n8k16, f32 accumulate): the int8 codes are
+// exact in bf16, and each f32 activation is carried as two bf16 terms,
+// hi = bf16(x) and lo = bf16(x - hi) (about 16 mantissa bits of x), so
+// sum_k x w = sum_k hi w + sum_k lo w with every product exact; the
+// per-channel scale is applied after the sum, as in the Pallas kernels.
+// Weight tiles (64 k x 128 columns of int8, 16-byte cp.async) and the
+// activation terms stream through a 4-stage shared-memory ring; the
+// codes become bf16 B fragments in registers (byte loads from rows
+// padded against bank conflicts), the activations A fragments by
+// ldmatrix; eight warps, 16 columns each. (64-column tiles, with two
+// warps on each 16 columns, were slower on the H100: PERF.md.) K is
+// split across blocks when the tiles alone would leave SMs idle (N = d
+// at large-v2 gives 10 tiles): the blocks of one column tile form a
+// thread block cluster, and each adds its share of the tile's sums from
+// every block's shared memory in a fixed order (deterministic, and no
+// round trip through device memory), then runs the epilogue on that
+// share.
+//
+// The bf16 terms of each GEMV's input are made once, not by every block:
+// a LayerNorm pre-pass (one block per row: the row statistics once per
+// row, then LN(x) split into hi/lo) feeds the first GEMV of each block;
+// the self-attention kernel writes its output split; a split pass applies
+// the cross block's v_scale; W1's epilogue writes GELU(h) split for W2.
 // Attention runs one block per (row, head) for the self cache, streaming
 // the cache slab (never in shared memory: up to 580 KB per row).
 //
-// Launches per entry point, on the caller's stream: self 3 (QKV GEMV,
-// attention, out-projection), cross 3 (q GEMV, Kernel B, out-projection),
-// MLP 2 (W1, W2); each entry also clears its split-K counters with one
-// cudaMemsetAsync. Intermediates (qkv, attention output, the 4d hidden)
-// stay in f32 in the caller's workspace, which stays in L2.
+// Launches per entry point, on the caller's stream: self 4 (LN
+// pre-pass, QKV GEMV, attention, out-projection GEMV), cross 5 (LN
+// pre-pass, q GEMV, Kernel B, v_scale split, out-projection GEMV), MLP 3
+// (LN pre-pass, W1, W2). Intermediates (qkv, q, the attention output,
+// the 4d hidden) stay in the caller's workspace, which stays in L2.
 //
 // Plain C interface, bound with ctypes; nothing is allocated here, and
 // each entry returns the first CUDA error it meets (cudaGetLastError
@@ -84,16 +97,26 @@ namespace {
 
 constexpr int kHd = 64;          // head dim (all Whisper sizes)
 constexpr int kThreads = 256;    // GEMV block: 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kKc = 32;          // k per shared-memory chunk
-constexpr int kMaxTr = 64;       // rows per GEMV block
-constexpr int kMinKSplit = 64;   // least k a split-K block takes
+constexpr int kNt = 128;         // output columns per GEMV block
+constexpr int kKc = 64;          // k per pipeline stage
+constexpr int kStages = 4;       // depth of the shared-memory ring
+constexpr int kWPitch = kNt + 16;    // bytes per int8 weight row in smem
+constexpr int kRunCols = kNt / 4;   // 4-column runs per row of a tile
+static_assert(kNt == 16 * (kThreads / 32), "one 16-column group a warp");
+constexpr int kAPitch = kKc + 8;     // bf16 per activation row in smem
+constexpr int kMinKSplit = 128;  // least k a split-K block takes
+constexpr int kMaxSplits = 8;    // split-K blocks form one cluster (<= 8)
 constexpr int kTargetBlocks = 264;   // 2 blocks on each of 132 SMs
 constexpr int kAttnThreads = 128;
 constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kPrepThreads = 256;    // the split pass
+constexpr int kLnThreads = 128;      // the LayerNorm pre-pass: one row
+constexpr int kLnMaxK = 2048;        // widest row it holds in registers
 constexpr float kAttnScale = 0.125f;  // hd^-0.5 at hd = 64
 
-enum Src { kSrcLn = 0, kSrcF32 = 1, kSrcF32VScale = 2 };
+// Epilogues of the GEMV: f32 store (with the new K/V columns of the
+// fused QKV in bf16), exact GELU written as bf16 hi/lo terms, residual
+// add into bf16, and the cross block's q-fold (hd^-0.5 * k_scale).
 enum Epi { kEpiStore = 0, kEpiGelu = 1, kEpiResidual = 2, kEpiQFold = 3 };
 
 using bf16 = __nv_bfloat16;
@@ -115,234 +138,394 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One int8 GEMV stage: out[r][n] = epilogue(sum_k A[r][k] * W[k][n]).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = hi + lo (+ under 2^-16 |x|): the two bf16 terms of an f32 value
+__device__ __forceinline__ void split_store(float a, float b, bf16* hi,
+                                            bf16* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo) =
+      __floats2bfloat162_rn(a - hf.x, b - hf.y);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// thread block clusters: rank, barrier, a shared address of another rank
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// D = A(16x16, row) * B(16x8, col) + D; bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
+                                          const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// LayerNorm pre-pass: one block per row holds the row in registers,
+// takes its two-pass f32 statistics once, and writes LN(x) as bf16 hi/lo
+// terms, (rows, k); k <= kLnMaxK.
+__global__ void __launch_bounds__(kLnThreads)
+ln_split_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
+                const bf16* __restrict__ ln_b, bf16* __restrict__ hi,
+                bf16* __restrict__ lo, int k) {
+  constexpr int kPairs = kLnMaxK / (2 * kLnThreads);
+  __shared__ float red_s[2][kLnThreads / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t row = (int64_t)blockIdx.x * k;
+  float2 v[kPairs];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = 2 * (tid + j * kLnThreads);
+    v[j] = i < k ? load2(x + row + i) : make_float2(0.f, 0.f);
+    s += v[j].x + v[j].y;
+  }
+  s = warp_sum(s);
+  if (lane == 0) red_s[0][warp] = s;
+  __syncthreads();
+  s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kLnThreads / 32; ++w) s += red_s[0][w];
+  const float mean = s / k;
+  float var = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = 2 * (tid + j * kLnThreads);
+    if (i < k) {
+      const float a = v[j].x - mean, b = v[j].y - mean;
+      var += a * a + b * b;
+    }
+  }
+  var = warp_sum(var);
+  if (lane == 0) red_s[1][warp] = var;
+  __syncthreads();
+  var = 0.f;
+#pragma unroll
+  for (int w = 0; w < kLnThreads / 32; ++w) var += red_s[1][w];
+  const float rstd = rsqrtf(var / k + 1e-5f);
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int i = 2 * (tid + j * kLnThreads);
+    if (i < k) {
+      const float2 gv = load2(ln_s + i), bv = load2(ln_b + i);
+      split_store((v[j].x - mean) * rstd * gv.x + bv.x,
+                  (v[j].y - mean) * rstd * gv.y + bv.y, hi + row + i,
+                  lo + row + i);
+    }
+  }
+}
+
+// Split pass: a (rows, k) f32, times a_scale[(r / group) * n_head + i /
+// 64] when given (the cross block's v_scale), as bf16 hi/lo terms.
+__global__ void __launch_bounds__(kPrepThreads)
+split_kernel(const float* __restrict__ a, const float* __restrict__ a_scale,
+             int group, int n_head, bf16* __restrict__ hi,
+             bf16* __restrict__ lo, int rows, int k) {
+  const int64_t pairs = (int64_t)rows * k / 2;
+  for (int64_t u = blockIdx.x * (int64_t)kPrepThreads + threadIdx.x;
+       u < pairs; u += (int64_t)gridDim.x * kPrepThreads) {
+    const int64_t e = 2 * u;
+    float2 v = load2(a + e);
+    if (a_scale != nullptr) {
+      const int r = (int)(e / k), i = (int)(e % k);
+      const float f = a_scale[(r / group) * n_head + i / kHd];
+      v.x *= f;
+      v.y *= f;
+    }
+    split_store(v.x, v.y, hi + e, lo + e);
+  }
+}
+
+// One int8 GEMV stage: out[r][n] = epilogue(sum_k A[r][k] * W[k][n]),
+// A given as its bf16 terms a_hi + a_lo.
 struct Gemv {
-  const bf16* x;           // kSrcLn: (rows, k) input; kEpiResidual: (rows, n)
-  const bf16* ln_s;        // kSrcLn: (k) LayerNorm scale and bias
-  const bf16* ln_b;
-  const float* a;          // kSrcF32*: (rows, k) f32 input
-  const float* a_scale;    // kSrcF32VScale: (rows / group, k / 64) factors
+  const bf16* a_hi;        // (rows, k)
+  const bf16* a_lo;
   const int8_t* w;         // (k, n) int8 codes
   const float* w_scale;    // (n) per-output-channel scale
   const bf16* bias;        // (n)
-  float* out_f32;          // kEpiStore / kEpiGelu / kEpiQFold: (rows, n)
+  const bf16* x;           // kEpiResidual: (rows, n)
+  float* out_f32;          // kEpiStore / kEpiQFold: (rows, n)
   bf16* out_t;             // kEpiResidual: (rows, n)
+  bf16* out_hi;            // kEpiGelu: (rows, n) terms of GELU(y)
+  bf16* out_lo;
   bf16* k_new;             // kEpiStore on fused QKV: columns [d, 2d) and
   bf16* v_new;             // [2d, 3d) also in bf16, (rows, d); else null
   const float* q_scale;    // kEpiQFold: (rows / group, n / 64) factors
   float q_mult;            // kEpiQFold: hd^-0.5
-  float* partial;          // (splits, rows, n) split-K sums
-  int* counters;           // one per (column tile, row tile), zero on entry
   int rows, k, n, k_per_split, d_model, group, n_head;
 };
 
-// four consecutive elements as f32 (the address is 4-element aligned)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+template <int MT>
+struct GemvSmem {
+  static constexpr int kRows = 16 * MT;
+  static constexpr int kWBytes = kKc * kWPitch;
+  static constexpr int kABytes = kRows * kAPitch * 2;   // one term
+  static constexpr int kStage = kWBytes + 2 * kABytes;
+  static constexpr int kBytes = kStages * kStage;
+};
 
-// Block tile: WR x 16 rows by (8 / WR) x 32 columns; each warp owns 16
-// rows x 32 columns and each thread 4 rows x 4 columns, so a k step
-// costs a thread two 16-byte shared-memory loads (one wavefront each
-// per warp) for 16 FMAs.
-template <int SRC, int EPI, int WR>
-__global__ void __launch_bounds__(kThreads) qgemv_kernel(Gemv p) {
-  constexpr int kTr = 16 * WR;                 // rows of the tile
-  constexpr int kNt = 32 * (kWarps / WR);      // columns of the tile
-  constexpr int kAPitch = kTr + 4;             // [k][r], 16-byte rows
-  __shared__ __align__(16) float a_s[kKc * kAPitch];
-  __shared__ __align__(16) float w_s[kKc * kNt];
-  __shared__ float stat_s[2 * kMaxTr];         // LN mean, rstd per row
-  __shared__ int last_s;
+// Block tile: 16*MT rows x kNt columns; warp w owns columns 16w .. 16w +
+// 15, so its accumulators are MT x 2 n8 tiles of the mma C layout.
+template <int EPI, int MT>
+__global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
+  using S = GemvSmem<MT>;
+  extern __shared__ __align__(16) uint8_t smem[];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int rb = (warp % WR) * 16 + (lane >> 3) * 4;   // thread's rows
-  const int cb = (warp / WR) * 32 + (lane & 7) * 4;    // thread's columns
+  const int g = lane >> 2, tg = lane & 3;
   const int n0 = blockIdx.x * kNt;
-  const int r0 = blockIdx.z * kTr;
-  const int rows = min(kTr, p.rows - r0);
+  const int r0 = blockIdx.z * S::kRows;
+  const int rows = min(S::kRows, p.rows - r0);
   const int k_begin = blockIdx.y * p.k_per_split;
   const int k_end = min(p.k, k_begin + p.k_per_split);
+  const int n_chunks = (k_end - k_begin) / kKc;   // k % 64 == 0
 
-  if (SRC == kSrcLn) {
-    // two-pass f32 statistics of each row over the whole of k
-    for (int r = warp; r < rows; r += kWarps) {
-      const bf16* xr = p.x + (int64_t)(r0 + r) * p.k;
-      float s = 0.f;
-      for (int i = lane; i < p.k; i += 32) s += to_f32(xr[i]);
-      const float mean = warp_sum(s) / p.k;
-      float v = 0.f;
-      for (int i = lane; i < p.k; i += 32) {
-        const float c = to_f32(xr[i]) - mean;
-        v += c * c;
-      }
-      v = warp_sum(v) / p.k;
-      if (lane == 0) {
-        stat_s[2 * r] = mean;
-        stat_s[2 * r + 1] = rsqrtf(v + 1e-5f);
-      }
-    }
-    __syncthreads();
-  }
-  // A staging: each thread keeps one row and walks k in groups of 4
-  const int ar = tid % kTr;
-  float mean = 0.f, rstd = 0.f;
-  if (SRC == kSrcLn && ar < rows) {
-    mean = stat_s[2 * ar];
-    rstd = stat_s[2 * ar + 1];
-  }
-
-  float acc[4][4];
+  auto load = [&](int c) {
+    uint8_t* st = smem + (c % kStages) * S::kStage;
+    const int kc = k_begin + c * kKc;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int u = tid; u < kKc * kNt / 16; u += kThreads) {
+      // weights: 64 rows of kNt bytes in 16-byte copies
+      const int kk = u / (kNt / 16), cc = (u % (kNt / 16)) * 16;
+      cp_async16(st + kk * kWPitch + cc,
+                 p.w + (int64_t)(kc + kk) * p.n + n0 + cc, true);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {  // hi, then lo: 16*MT rows of 128 bytes
+      const int u = tid + i * kThreads;
+      const int term = u / (S::kRows * 8);
+      const int rem = u % (S::kRows * 8);
+      const int r = rem >> 3, cc = (rem & 7) * 8;
+      const bool ok = r < rows;
+      const bf16* src = (term ? p.a_lo : p.a_hi) +
+                        (ok ? (int64_t)(r0 + r) * p.k + kc + cc : 0);
+      cp_async16(
+          st + S::kWBytes + term * S::kABytes + (r * kAPitch + cc) * 2, src,
+          ok);
+    }
+  };
 
-  for (int kc = k_begin; kc < k_end; kc += kKc) {
-    const int kn = min(kKc, k_end - kc);
-    __syncthreads();  // the previous chunk is consumed
-    // A chunk, f32, transposed to [k][r]; zeros outside the tile
-    for (int q = tid / kTr; q < kKc / 4; q += kThreads / kTr) {
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (4 * q < kn && ar < rows) {
-        const int kg = kc + 4 * q;
-        const int64_t idx = (int64_t)(r0 + ar) * p.k + kg;
-        if (SRC == kSrcLn) {
-          const float4 xv = load4(p.x + idx);
-          const float4 g = load4(p.ln_s + kg);
-          const float4 b = load4(p.ln_b + kg);
-          val.x = (xv.x - mean) * rstd * g.x + b.x;
-          val.y = (xv.y - mean) * rstd * g.y + b.y;
-          val.z = (xv.z - mean) * rstd * g.z + b.z;
-          val.w = (xv.w - mean) * rstd * g.w + b.w;
-        } else {
-          val = load4(p.a + idx);
-          if (SRC == kSrcF32VScale) {
-            const float f =
-                p.a_scale[((r0 + ar) / p.group) * p.n_head + kg / kHd];
-            val.x *= f; val.y *= f; val.z *= f; val.w *= f;
-          }
+  float acc[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_chunks) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk c landed; chunk c - 1's stage is free
+    if (c + kStages - 1 < n_chunks) load(c + kStages - 1);
+    cp_async_commit();
+    const uint8_t* st = smem + (c % kStages) * S::kStage;
+    const int8_t* ws = reinterpret_cast<const int8_t*>(st);
+    const bf16* ah = reinterpret_cast<const bf16*>(st + S::kWBytes);
+    const bf16* al = ah + S::kRows * kAPitch;
+#pragma unroll
+    for (int ss = 0; ss < kKc / 16; ++ss) {
+      const int k_off = ss * 16;
+      // B fragments: codes W[k_off + 2tg + {0, 1, 8, 9}][column g of the
+      // n8 tile], exact in bf16
+      uint32_t bfr[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int8_t* wp =
+            ws + (k_off + 2 * tg) * kWPitch + warp * 16 + j * 8 + g;
+        bfr[j][0] = pack_bf16x2((float)wp[0], (float)wp[kWPitch]);
+        bfr[j][1] =
+            pack_bf16x2((float)wp[8 * kWPitch], (float)wp[9 * kWPitch]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t ahf[4], alf[4];
+        const int off =
+            (mt * 16 + (lane & 15)) * kAPitch + k_off + (lane >> 4) * 8;
+        ldmatrix_x4(ahf, ah + off);
+        ldmatrix_x4(alf, al + off);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_16816(acc[mt][j], ahf, bfr[j]);
+          mma_16816(acc[mt][j], alf, bfr[j]);
         }
       }
-      a_s[(4 * q + 0) * kAPitch + ar] = val.x;
-      a_s[(4 * q + 1) * kAPitch + ar] = val.y;
-      a_s[(4 * q + 2) * kAPitch + ar] = val.z;
-      a_s[(4 * q + 3) * kAPitch + ar] = val.w;
-    }
-    // W chunk: kKc rows of k x kNt int8 columns -> f32, 8 bytes a step
-    for (int u = tid; u < kKc * kNt / 8; u += kThreads) {
-      const int kk = u / (kNt / 8);
-      const int c = (u % (kNt / 8)) * 8;
-      float4 lo4 = make_float4(0.f, 0.f, 0.f, 0.f), hi4 = lo4;
-      if (kk < kn && n0 + c < p.n) {
-        const char4* src = reinterpret_cast<const char4*>(
-            p.w + (int64_t)(kc + kk) * p.n + n0 + c);
-        const char4 lo = src[0], hi = src[1];
-        lo4 = make_float4(lo.x, lo.y, lo.z, lo.w);
-        hi4 = make_float4(hi.x, hi.y, hi.z, hi.w);
-      }
-      float4* dst = reinterpret_cast<float4*>(&w_s[kk * kNt + c]);
-      dst[0] = lo4;
-      dst[1] = hi4;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKc; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk * kAPitch + rb]);
-      const float4 wv = *reinterpret_cast<const float4*>(&w_s[kk * kNt + cb]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(a4[i], wv.x, acc[i][0]);
-        acc[i][1] = fmaf(a4[i], wv.y, acc[i][1]);
-        acc[i][2] = fmaf(a4[i], wv.z, acc[i][2]);
-        acc[i][3] = fmaf(a4[i], wv.w, acc[i][3]);
-      }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const bool col_ok = n0 + cb < p.n;   // n % 32 == 0: all 4 or none
+  // the block's sums into a shared (rows x kNt) f32 tile: element (mt, j,
+  // e) of a warp sits at row mt*16 + g + 8 (e >> 1), column warp*16 + j*8
+  // + 2tg + (e & 1)
+  constexpr int kTP = kNt + 4;
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            &tile[(mt * 16 + g + 8 * h) * kTP + warp * 16 + j * 8 + 2 * tg]) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+  __syncthreads();
+
+  // from here each thread owns runs of 4 columns: run u is row u /
+  // kRunCols, columns 4 (u % kRunCols) .. +3 of the tile
+  constexpr int kRuns = S::kRows * kRunCols;
+  constexpr int kMine = kRuns / kThreads;   // runs a thread, unsplit
+  auto run_at = [&](int u) {
+    return &tile[(u / kRunCols) * kTP + (u % kRunCols) * 4];
+  };
+  float4 y[kMine];
+  int n_mine = kMine;                   // runs tid + i * kThreads, i < kMine
   if (gridDim.y > 1) {
-    // split-K: publish this split's sums; the tile's last block adds all
-    // splits in order 0..S-1 and finishes
-    float* part = p.partial + (int64_t)blockIdx.y * p.rows * p.n;
+    // split-K: the gridDim.y blocks of a column tile form one cluster;
+    // each holds its k-slice's sums in shared memory, and rank r adds the
+    // runs [r * per, (r + 1) * per) of every rank's tile, in rank order
+    // (deterministic), through distributed shared memory
+    const int n_split = gridDim.y;
+    const int rank = (int)cluster_ctarank();
+    const int per = (kRuns + n_split - 1) / n_split;
+    cluster_sync();                     // every rank's tile is complete
+    n_mine = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (rb + i < rows && col_ok)
-        *reinterpret_cast<float4*>(
-            &part[(int64_t)(r0 + rb + i) * p.n + n0 + cb]) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int i = 0; i < kMine; ++i) {
+      const int v = tid + i * kThreads;
+      if (v < per && rank * per + v < kRuns) n_mine = i + 1;
     }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-      last_s = atomicAdd(&p.counters[tile], 1) == (int)gridDim.y - 1;
-    }
-    __syncthreads();
-    if (!last_s) return;
-    __threadfence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int s = 0; s < (int)gridDim.y; ++s) {
-      const float* ps = p.partial + (int64_t)s * p.rows * p.n;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (rb + i < rows && col_ok) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(
-              &ps[(int64_t)(r0 + rb + i) * p.n + n0 + cb]));
-          acc[i][0] += v.x; acc[i][1] += v.y; acc[i][2] += v.z; acc[i][3] += v.w;
-        }
+    for (int i = 0; i < kMine; ++i) {
+      y[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i >= n_mine) continue;
+      const int u = rank * per + tid + i * kThreads;
+      const uint32_t local =
+          static_cast<uint32_t>(__cvta_generic_to_shared(run_at(u)));
+      for (int s = 0; s < n_split; ++s) {
+        const float4 v = ld_cluster_f4(map_rank(local, s));
+        y[i].x += v.x; y[i].y += v.y; y[i].z += v.z; y[i].w += v.w;
       }
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMine; ++i)
+      y[i] = *reinterpret_cast<const float4*>(run_at(tid + i * kThreads));
   }
-  if (!col_ok) return;
+  const int run0 = gridDim.y > 1
+      ? (int)cluster_ctarank() * ((kRuns + gridDim.y - 1) / gridDim.y) : 0;
+  auto run_of = [&](int i) { return run0 + tid + i * kThreads; };
+  auto gofs = [&](int i) {   // offset of run i in a (rows, n) array
+    const int u = run_of(i);
+    return (int64_t)(r0 + u / kRunCols) * p.n + n0 + (u % kRunCols) * 4;
+  };
+  auto row_ok = [&](int i) {
+    return i < n_mine && run_of(i) / kRunCols < rows;
+  };
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (rb + i >= rows) continue;
-    const int rg = r0 + rb + i;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + cb + c;
-      const int64_t o = (int64_t)rg * p.n + n;
-      const float y = acc[i][c] * p.w_scale[n] + to_f32(p.bias[n]);
-      if (EPI == kEpiStore) {
-        p.out_f32[o] = y;
-        if (p.k_new != nullptr && n >= p.d_model) {
-          const int d = p.d_model;
-          const bf16 yb = __float2bfloat16_rn(y);
-          if (n < 2 * d) p.k_new[(int64_t)rg * d + n - d] = yb;
-          else p.v_new[(int64_t)rg * d + n - 2 * d] = yb;
-        }
-      } else if (EPI == kEpiGelu) {
-        p.out_f32[o] = y * 0.5f * (1.f + erff(y * 0.70710678118654752f));
-      } else if (EPI == kEpiResidual) {
-        p.out_t[o] = __float2bfloat16_rn(to_f32(p.x[o]) + y);
-      } else {  // kEpiQFold
-        p.out_f32[o] =
-            y * (p.q_mult * p.q_scale[(rg / p.group) * p.n_head + n / kHd]);
+  for (int i = 0; i < kMine; ++i) {
+    if (!row_ok(i)) continue;
+    const int rg = r0 + run_of(i) / kRunCols;
+    const int n = n0 + (run_of(i) % kRunCols) * 4;
+    const int64_t o = gofs(i);
+    const float4 sc = *reinterpret_cast<const float4*>(p.w_scale + n);
+    const float2 b01 = load2(p.bias + n), b23 = load2(p.bias + n + 2);
+    float v[4] = {y[i].x * sc.x + b01.x, y[i].y * sc.y + b01.y,
+                  y[i].z * sc.z + b23.x, y[i].w * sc.w + b23.y};
+    if (EPI == kEpiStore) {
+      *reinterpret_cast<float4*>(p.out_f32 + o) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      if (p.k_new != nullptr && n >= p.d_model) {
+        const int d = p.d_model;
+        bf16* dst = n < 2 * d ? p.k_new + (int64_t)rg * d + n - d
+                              : p.v_new + (int64_t)rg * d + n - 2 * d;
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
       }
+    } else if (EPI == kEpiGelu) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = v[e] * 0.5f * (1.f + erff(v[e] * 0.70710678118654752f));
+      split_store(v[0], v[1], p.out_hi + o, p.out_lo + o);
+      split_store(v[2], v[3], p.out_hi + o + 2, p.out_lo + o + 2);
+    } else if (EPI == kEpiResidual) {
+      const float2 x01 = load2(p.x + o), x23 = load2(p.x + o + 2);
+      *reinterpret_cast<uint2*>(p.out_t + o) =
+          make_uint2(pack_bf16x2(x01.x + v[0], x01.y + v[1]),
+                     pack_bf16x2(x23.x + v[2], x23.y + v[3]));
+    } else {  // kEpiQFold
+      const float f =
+          p.q_mult * p.q_scale[(rg / p.group) * p.n_head + n / kHd];
+      *reinterpret_cast<float4*>(p.out_f32 + o) =
+          make_float4(v[0] * f, v[1] * f, v[2] * f, v[3] * f);
     }
   }
+  // a rank's shared memory must outlive the other ranks' reads of it
+  if (gridDim.y > 1) cluster_sync();
 }
 
 // Decode-step self-attention of one (row, head) over the cache slots
-// t < pos plus the new key, whose logit and value come from the f32 qkv.
+// t < pos plus the new key, whose logit and value come from the f32 qkv;
+// the output goes out as bf16 hi/lo terms, the out-projection's input.
 __global__ void __launch_bounds__(kAttnThreads)
 self_attention_kernel(const float* __restrict__ qkv,
                       const bf16* __restrict__ ck,
-                      const bf16* __restrict__ cv, float* __restrict__ out,
-                      int d, int n_head, int t_cache, int pos, float scale) {
+                      const bf16* __restrict__ cv, bf16* __restrict__ out_hi,
+                      bf16* __restrict__ out_lo, int d, int n_head,
+                      int t_cache, int pos, float scale) {
   extern __shared__ float p_s[];          // [pos] logits, then exp
   __shared__ float q_s[kHd];
   __shared__ float red_s[kAttnWarps][kHd];
@@ -404,8 +587,10 @@ self_attention_kernel(const float* __restrict__ qkv,
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w) o += red_s[w][tid];
-    o = fmaf(e_new, qrow[2 * d + h * kHd + tid], o);
-    out[(int64_t)r * d + h * kHd + tid] = o / denom;
+    o = fmaf(e_new, qrow[2 * d + h * kHd + tid], o) / denom;
+    const int64_t i = (int64_t)r * d + h * kHd + tid;
+    out_hi[i] = __float2bfloat16_rn(o);
+    out_lo[i] = __float2bfloat16_rn(o - to_f32(out_hi[i]));
   }
 }
 
@@ -414,78 +599,98 @@ self_attention_kernel(const float* __restrict__ qkv,
 // ---------------------------------------------------------------------------
 
 struct Plan {
-  int wr, tiles_x, tiles_z, splits, k_per;
+  int mt, tiles_x, tiles_z, splits, k_per;
   int tiles() const { return tiles_x * tiles_z; }
 };
 
-// Grid of one GEMV: the row tile (16, 32 or 64 rows: WR warps down, the
-// other warps across columns) is the smallest that holds the rows; then
-// column tiles x row tiles, and K split until there are about
-// kTargetBlocks blocks (each split keeps >= kMinKSplit of k). A fixed
-// target, not the device's SM count, so that the workspace size is a
-// function of the shapes alone.
+// Grid of one GEMV: the row tile (16, 32 or 64 rows) is the smallest that
+// holds the rows; then column tiles x row tiles, and K split until there
+// are at most kTargetBlocks blocks, one wave (each split keeps >=
+// kMinKSplit of k; at most kMaxSplits, the blocks of one cluster). A
+// fixed target, not the device's SM count, so that the workspace size is
+// a function of the shapes alone.
 Plan plan(int rows, int k, int n) {
   Plan pl;
-  pl.wr = rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
-  const int nt = 32 * (kWarps / pl.wr);
-  pl.tiles_x = (n + nt - 1) / nt;
-  pl.tiles_z = (rows + 16 * pl.wr - 1) / (16 * pl.wr);
-  const int want = (kTargetBlocks + pl.tiles() - 1) / pl.tiles();
+  pl.mt = rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
+  pl.tiles_x = n / kNt;
+  pl.tiles_z = (rows + 16 * pl.mt - 1) / (16 * pl.mt);
+  const int want = std::min(kTargetBlocks / pl.tiles(), kMaxSplits);
   const int s = std::max(1, std::min(want, k / kMinKSplit));
   pl.k_per = ((k + s - 1) / s + kKc - 1) / kKc * kKc;
   pl.splits = (k + pl.k_per - 1) / pl.k_per;
   return pl;
 }
 
-int64_t partial_floats(int rows, int k, int n) {
-  const Plan pl = plan(rows, k, n);
-  return pl.splits > 1 ? (int64_t)pl.splits * rows * n : 0;
+template <int EPI, int MT>
+int launch_gemv(const Plan& pl, const Gemv& p, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qgemv_kernel<EPI, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        GemvSmem<MT>::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  // the splits of a column tile are one cluster along y
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.tiles_x, pl.splits, pl.tiles_z);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = GemvSmem<MT>::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = pl.splits;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qgemv_kernel<EPI, MT>, p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int SRC, int EPI>
+template <int EPI>
 int run_gemv(Gemv p, cudaStream_t stream) {
   const Plan pl = plan(p.rows, p.k, p.n);
   p.k_per_split = pl.k_per;
-  dim3 grid(pl.tiles_x, pl.splits, pl.tiles_z);
-  if (pl.wr == 1)
-    qgemv_kernel<SRC, EPI, 1><<<grid, kThreads, 0, stream>>>(p);
-  else if (pl.wr == 2)
-    qgemv_kernel<SRC, EPI, 2><<<grid, kThreads, 0, stream>>>(p);
-  else
-    qgemv_kernel<SRC, EPI, 4><<<grid, kThreads, 0, stream>>>(p);
+  if (pl.mt == 1) return launch_gemv<EPI, 1>(pl, p, stream);
+  if (pl.mt == 2) return launch_gemv<EPI, 2>(pl, p, stream);
+  return launch_gemv<EPI, 4>(pl, p, stream);
+}
+
+int run_ln_split(const void* x, const bf16* ln_s, const bf16* ln_b, bf16* hi,
+                 bf16* lo, int rows, int k, cudaStream_t stream) {
+  if (k > kLnMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  ln_split_kernel<<<rows, kLnThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), ln_s, ln_b, hi, lo, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Workspace of one entry, carved in this order: f32 intermediates, the
-// split-K partial sums (shared by the entry's GEMVs, which run in stream
-// order), then the int32 counters.
+// bf16 hi/lo terms of the first GEMV's input (s0, rows x d), and those of
+// the second's where it differs (s1, rows x hidden, MLP only).
 struct Work {
   float* f;
-  float* partial;
-  int* counters;
-  int n_counters;
+  bf16 *s0_hi, *s0_lo, *s1_hi, *s1_lo;
 };
 
 enum Kind { kSelf = 0, kCross = 1, kMlp = 2 };
 
+// f32 intermediates of an entry, and the elements of each s1 term
 struct Shapes {
-  int n_gemv;
-  int k[2], n[2];
   int64_t inter_floats;
+  int64_t s1_elems;
 };
 
 Shapes shapes(int kind, int rows, int d, int hidden) {
   Shapes s;
-  s.n_gemv = 2;
+  s.s1_elems = 0;
   if (kind == kSelf) {
-    s.k[0] = d; s.n[0] = 3 * d; s.k[1] = d; s.n[1] = d;
-    s.inter_floats = (int64_t)rows * 4 * d;          // qkv, attention out
+    s.inter_floats = (int64_t)rows * 3 * d;          // qkv
   } else if (kind == kCross) {
-    s.k[0] = d; s.n[0] = d; s.k[1] = d; s.n[1] = d;
     s.inter_floats = (int64_t)rows * 2 * d;          // q, attention out
   } else {
-    s.k[0] = d; s.n[0] = hidden; s.k[1] = hidden; s.n[1] = d;
-    s.inter_floats = (int64_t)rows * hidden;         // GELU(h W1)
+    s.inter_floats = 0;
+    s.s1_elems = (int64_t)rows * hidden;             // GELU(h W1) terms
   }
   return s;
 }
@@ -493,30 +698,27 @@ Shapes shapes(int kind, int rows, int d, int hidden) {
 int64_t workspace_bytes(int kind, int rows, int d, int hidden, Work* w,
                         void* base) {
   const Shapes s = shapes(kind, rows, d, hidden);
-  int64_t part = 0;
-  int counters = 0;
-  for (int i = 0; i < s.n_gemv; ++i) {
-    part = std::max(part, partial_floats(rows, s.k[i], s.n[i]));
-    counters += plan(rows, s.k[i], s.n[i]).tiles();
-  }
-  const int64_t floats = s.inter_floats + part;
+  const int64_t s0 = (int64_t)rows * d;
+  // every piece is a multiple of 16 bytes (d, hidden % 128 == 0)
+  const int64_t bytes_f = s.inter_floats * 4;
   if (w != nullptr) {
-    w->f = static_cast<float*>(base);
-    w->partial = w->f + s.inter_floats;
-    w->counters = reinterpret_cast<int*>(w->f + floats);
-    w->n_counters = counters;
+    uint8_t* b = static_cast<uint8_t*>(base);
+    w->f = reinterpret_cast<float*>(b);
+    w->s0_hi = reinterpret_cast<bf16*>(b + bytes_f);
+    w->s0_lo = w->s0_hi + s0;
+    w->s1_hi = w->s0_lo + s0;
+    w->s1_lo = w->s1_hi + s.s1_elems;
   }
-  return floats * (int64_t)sizeof(float) + (int64_t)counters * sizeof(int);
+  return bytes_f + (2 * s0 + 2 * s.s1_elems) * 2;
 }
 
-Gemv gemv_base(int rows, int k, int n, int d, const int8_t* w,
-               const float* ws, const void* bias, const Work& work,
-               int* counters) {
+Gemv gemv_base(int rows, int k, int n, int d, const bf16* a_hi,
+               const bf16* a_lo, const int8_t* w, const float* ws,
+               const void* bias) {
   Gemv p = {};
   p.rows = rows; p.k = k; p.n = n; p.d_model = d;
+  p.a_hi = a_hi; p.a_lo = a_lo;
   p.w = w; p.w_scale = ws; p.bias = static_cast<const bf16*>(bias);
-  p.partial = work.partial;
-  p.counters = counters;
   p.group = 1;
   p.n_head = 1;
   return p;
@@ -537,43 +739,41 @@ int self_block(const void* x, const void* ln_s, const void* ln_b,
                cudaStream_t stream) {
   Work wk;
   workspace_bytes(kSelf, rows, d, 0, &wk, work);
-  WJT_TRY(static_cast<int>(cudaMemsetAsync(
-      wk.counters, 0, wk.n_counters * sizeof(int), stream)));
   float* qkv = wk.f;
-  float* attn = wk.f + (int64_t)rows * 3 * d;
   const int64_t L = layer;
   const bf16* xt = static_cast<const bf16*>(x);
 
+  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
+                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
+                       wk.s0_lo, rows, d, stream));
   Gemv g1 = gemv_base(
-      rows, d, 3 * d, d, static_cast<const int8_t*>(wqkv) + L * d * 3 * d,
+      rows, d, 3 * d, d, wk.s0_hi, wk.s0_lo,
+      static_cast<const int8_t*>(wqkv) + L * d * 3 * d,
       static_cast<const float*>(wqkv_s) + L * 3 * d,
-      static_cast<const bf16*>(bqkv) + L * 3 * d, wk, wk.counters);
-  g1.x = xt;
-  g1.ln_s = static_cast<const bf16*>(ln_s) + L * d;
-  g1.ln_b = static_cast<const bf16*>(ln_b) + L * d;
+      static_cast<const bf16*>(bqkv) + L * 3 * d);
   g1.out_f32 = qkv;
   g1.k_new = static_cast<bf16*>(k_new);
   g1.v_new = static_cast<bf16*>(v_new);
-  WJT_TRY((run_gemv<kSrcLn, kEpiStore>(g1, stream)));
+  WJT_TRY(run_gemv<kEpiStore>(g1, stream));
 
+  // the attention output's terms reuse s0: the QKV GEMV has read it
   const int64_t slab = L * rows * t_cache * d;
   self_attention_kernel<<<rows * n_head, kAttnThreads,
                           (size_t)(pos > 0 ? pos : 1) * sizeof(float),
                           stream>>>(
       qkv, static_cast<const bf16*>(cache_k) + slab,
-      static_cast<const bf16*>(cache_v) + slab, attn, d, n_head, t_cache, pos,
-      kAttnScale);
+      static_cast<const bf16*>(cache_v) + slab, wk.s0_hi, wk.s0_lo, d,
+      n_head, t_cache, pos, kAttnScale);
   WJT_TRY(static_cast<int>(cudaGetLastError()));
 
   Gemv g2 = gemv_base(
-      rows, d, d, d, static_cast<const int8_t*>(wo) + L * d * d,
+      rows, d, d, d, wk.s0_hi, wk.s0_lo,
+      static_cast<const int8_t*>(wo) + L * d * d,
       static_cast<const float*>(wo_s) + L * d,
-      static_cast<const bf16*>(bo) + L * d, wk,
-      wk.counters + plan(rows, d, 3 * d).tiles());
-  g2.a = attn;
+      static_cast<const bf16*>(bo) + L * d);
   g2.x = xt;
   g2.out_t = static_cast<bf16*>(x_out);
-  return run_gemv<kSrcF32, kEpiResidual>(g2, stream);
+  return run_gemv<kEpiResidual>(g2, stream);
 }
 
 int cross_block(const void* x, const void* ln_s, const void* ln_b,
@@ -585,44 +785,46 @@ int cross_block(const void* x, const void* ln_s, const void* ln_b,
                 cudaStream_t stream) {
   Work wk;
   workspace_bytes(kCross, rows, d, 0, &wk, work);
-  WJT_TRY(static_cast<int>(cudaMemsetAsync(
-      wk.counters, 0, wk.n_counters * sizeof(int), stream)));
   float* q = wk.f;
   float* attn = wk.f + (int64_t)rows * d;
   const int64_t L = layer;
   const int group = rows / batch;
   const bf16* xt = static_cast<const bf16*>(x);
 
+  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
+                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
+                       wk.s0_lo, rows, d, stream));
   Gemv g1 = gemv_base(
-      rows, d, d, d, static_cast<const int8_t*>(cwq) + L * d * d,
+      rows, d, d, d, wk.s0_hi, wk.s0_lo,
+      static_cast<const int8_t*>(cwq) + L * d * d,
       static_cast<const float*>(cwq_s) + L * d,
-      static_cast<const bf16*>(cbq) + L * d, wk, wk.counters);
-  g1.x = xt;
-  g1.ln_s = static_cast<const bf16*>(ln_s) + L * d;
-  g1.ln_b = static_cast<const bf16*>(ln_b) + L * d;
+      static_cast<const bf16*>(cbq) + L * d);
   g1.out_f32 = q;
   g1.q_scale = static_cast<const float*>(k_scale) + L * batch * n_head;
   g1.q_mult = kAttnScale;
   g1.group = group;
   g1.n_head = n_head;
-  WJT_TRY((run_gemv<kSrcLn, kEpiQFold>(g1, stream)));
+  WJT_TRY(run_gemv<kEpiQFold>(g1, stream));
 
   // q (B, g, H, 64) = (rows, d): g query rows per cross-K/V row
   WJT_TRY(wjt_decode_cross_attention(q, ck, cv, attn, layer, batch, group,
                                      n_head, t_cross, stream));
+  // attention output times v_scale, as terms in s0 (the q GEMV has read it)
+  split_kernel<<<std::min((rows * d / 2 + kPrepThreads - 1) / kPrepThreads,
+                          1024),
+                 kPrepThreads, 0, stream>>>(
+      attn, static_cast<const float*>(v_scale) + L * batch * n_head, group,
+      n_head, wk.s0_hi, wk.s0_lo, rows, d);
+  WJT_TRY(static_cast<int>(cudaGetLastError()));
 
   Gemv g2 = gemv_base(
-      rows, d, d, d, static_cast<const int8_t*>(cwo) + L * d * d,
+      rows, d, d, d, wk.s0_hi, wk.s0_lo,
+      static_cast<const int8_t*>(cwo) + L * d * d,
       static_cast<const float*>(cwo_s) + L * d,
-      static_cast<const bf16*>(cbo) + L * d, wk,
-      wk.counters + plan(rows, d, d).tiles());
-  g2.a = attn;
-  g2.a_scale = static_cast<const float*>(v_scale) + L * batch * n_head;
-  g2.group = group;
-  g2.n_head = n_head;
+      static_cast<const bf16*>(cbo) + L * d);
   g2.x = xt;
   g2.out_t = static_cast<bf16*>(x_out);
-  return run_gemv<kSrcF32VScale, kEpiResidual>(g2, stream);
+  return run_gemv<kEpiResidual>(g2, stream);
 }
 
 int mlp_block(const void* x, const void* ln_s, const void* ln_b,
@@ -632,34 +834,32 @@ int mlp_block(const void* x, const void* ln_s, const void* ln_b,
               cudaStream_t stream) {
   Work wk;
   workspace_bytes(kMlp, rows, d, hidden, &wk, work);
-  WJT_TRY(static_cast<int>(cudaMemsetAsync(
-      wk.counters, 0, wk.n_counters * sizeof(int), stream)));
   const int64_t L = layer;
   const bf16* xt = static_cast<const bf16*>(x);
 
+  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
+                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
+                       wk.s0_lo, rows, d, stream));
   Gemv g1 = gemv_base(
-      rows, d, hidden, d, static_cast<const int8_t*>(w1) + L * d * hidden,
+      rows, d, hidden, d, wk.s0_hi, wk.s0_lo,
+      static_cast<const int8_t*>(w1) + L * d * hidden,
       static_cast<const float*>(w1_s) + L * hidden,
-      static_cast<const bf16*>(b1) + L * hidden, wk, wk.counters);
-  g1.x = xt;
-  g1.ln_s = static_cast<const bf16*>(ln_s) + L * d;
-  g1.ln_b = static_cast<const bf16*>(ln_b) + L * d;
-  g1.out_f32 = wk.f;
-  WJT_TRY((run_gemv<kSrcLn, kEpiGelu>(g1, stream)));
+      static_cast<const bf16*>(b1) + L * hidden);
+  g1.out_hi = wk.s1_hi;
+  g1.out_lo = wk.s1_lo;
+  WJT_TRY(run_gemv<kEpiGelu>(g1, stream));
 
   Gemv g2 = gemv_base(
-      rows, hidden, d, d, static_cast<const int8_t*>(w2) + L * hidden * d,
+      rows, hidden, d, d, wk.s1_hi, wk.s1_lo,
+      static_cast<const int8_t*>(w2) + L * hidden * d,
       static_cast<const float*>(w2_s) + L * d,
-      static_cast<const bf16*>(b2) + L * d, wk,
-      wk.counters + plan(rows, d, hidden).tiles());
-  g2.a = wk.f;
+      static_cast<const bf16*>(b2) + L * d);
   g2.x = xt;
   g2.out_t = static_cast<bf16*>(x_out);
-  return run_gemv<kSrcF32, kEpiResidual>(g2, stream);
+  return run_gemv<kEpiResidual>(g2, stream);
 }
 
 }  // namespace
-
 // x, the LayerNorm parameters, the biases, the self cache and the
 // outputs are bf16; weights are int8 with f32 scales; stacked pointers
 // are offset to `layer` here.

@@ -22,8 +22,12 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from whisperjav_tpu.models.whisper.config import WhisperConfig, language_token
-from whisperjav_tpu.models.whisper.tokenizer import DEFAULT_NONSPEECH_TOKENS
+from whisperjav_tpu_torch.models.whisper.config import (
+    WhisperConfig, language_token,
+)
+from whisperjav_tpu_torch.models.whisper.tokenizer import (
+    DEFAULT_NONSPEECH_TOKENS,
+)
 from whisperjav_tpu_torch.models.whisper.model import (
     KVCache, Whisper, decode_step, precompute_cross_kv,
 )

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperjav_tpu.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.ops.cuda.decode_attention import (
     decode_cross_attention,
 )

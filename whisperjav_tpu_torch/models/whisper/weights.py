@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from whisperjav_tpu.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.models.whisper.model import (
     Whisper, sinusoid_positions,
 )
@@ -125,7 +125,8 @@ def init_params(config: WhisperConfig, generator: torch.Generator,
 def load_checkpoint(path: str, dtype: Optional[torch.dtype] = None,
                     device="cpu"):
     """Local Hugging Face Whisper checkpoint -> (config, :class:`Whisper`),
-    through the JAX package's jax-free ``convert.load_pretrained``."""
-    from whisperjav_tpu.models.whisper.convert import load_pretrained
+    through ``convert.load_pretrained`` (the port's copy of the JAX
+    package's converter, numpy only)."""
+    from whisperjav_tpu_torch.models.whisper.convert import load_pretrained
     config, tree = load_pretrained(path, dtype=np.float32)
     return config, params_from_jax(tree, config, dtype=dtype, device=device)

@@ -40,35 +40,39 @@ def _nvcc() -> str:
                        "need the CUDA toolkit")
 
 
-def sources() -> List[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(csrc_dir: Path = CSRC_DIR) -> List[Path]:
+    return sorted(Path(csrc_dir).glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(csrc_dir: Path = CSRC_DIR,
+                 build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(csrc_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libwjt_kernels_{h.hexdigest()[:16]}.so"
+    return Path(build_dir) / f"libwjt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Tuple[Path, float, str]:
-    """Compile the kernels unless this exact build exists.
+def build(csrc_dir: Path = CSRC_DIR,
+          build_dir: Path = BUILD_DIR) -> Tuple[Path, float, str]:
+    """Compile the kernels of ``csrc_dir`` (the package's own by
+    default; another tree's, such as an older version kept for a
+    comparison, when given) unless this exact build exists.
 
     Returns (library path, build seconds, nvcc's ptxas report); the
     seconds are 0.0 and the report empty when the library was there.
     """
-    out = library_path()
+    out = library_path(csrc_dir, build_dir)
     if out.exists():
         return out, 0.0, ""
-    tmp_dir = BUILD_DIR / f"objects.{os.getpid()}"
+    tmp_dir = Path(build_dir) / f"objects.{os.getpid()}"
     tmp_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
         jobs = []
-        for src in sources():
+        for src in sources(csrc_dir):
             obj = tmp_dir / f"{src.stem}.o"
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
@@ -100,10 +104,9 @@ def build() -> Tuple[Path, float, str]:
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare every signature."""
-    path, _, _ = build()
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare every signature of the C
+    interface (the same in every version of the kernels)."""
     lib = ctypes.CDLL(str(path))
     lib.wjt_encoder_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,
@@ -125,6 +128,12 @@ def load_library() -> ctypes.CDLL:
     lib.wjt_error_string.argtypes = [_I]
     lib.wjt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load once per process."""
+    return open_library(build()[0])
 
 
 def check(err: int, what: str) -> None:

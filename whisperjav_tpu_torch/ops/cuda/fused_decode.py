@@ -16,13 +16,20 @@ cache's). The cross block also takes the beam fold: R = B*g query rows,
 row r reading cross-K/V row r // g.
 
 On CPU tensors each block runs its plain version; on CUDA tensors it
-launches ``csrc/fused_decode.cu`` (hd = 64, bf16 activations) or
-raises. Each wrapper counts its launches in ``<function>.launches``.
+launches ``csrc/fused_decode.cu`` (hd = 64, bf16 activations, widths a
+multiple of 128) or raises. Each wrapper counts its launches in
+``<function>.launches``. The kernels inside the blocks have no entry
+point of their own; ``inner`` counts their launches by name: every
+entry launches the int8 GEMV (``qgemv``) twice and the LayerNorm
+pre-pass (``ln_split``) once, the self block its attention kernel
+(``self_attention``), the cross block Kernel B (``decode_cross_attention``)
+and the v_scale split (``v_split``).
 """
 
 from __future__ import annotations
 
 import functools
+import types
 from typing import Tuple
 
 import torch
@@ -140,8 +147,8 @@ def _check_common(what: str, x: torch.Tensor, n_layer: int, layer: int,
         raise ValueError(f"{what}: the kernels take bfloat16 activations, "
                          f"got {x.dtype}")
     d = x.shape[1]
-    if d % 32:
-        raise ValueError(f"{what}: d must be a multiple of 32, got {d}")
+    if d % 128:
+        raise ValueError(f"{what}: d must be a multiple of 128, got {d}")
     if n_head and d != 64 * n_head:
         raise ValueError(f"{what}: the kernel takes hd = 64, got d = {d} "
                          f"with {n_head} heads")
@@ -211,6 +218,7 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
             int(layer), int(pos), r, d, n_head, t_cache, _stream(x.device))
     _build.check(err, "self_block kernels")
     self_block.launches += 1
+    _count(qgemv=2, ln_split=1, self_attention=1)
     return x_out, k_new, v_new
 
 
@@ -262,6 +270,7 @@ def cross_block(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv, k_scale, v_scale,
             int(layer), r, b, d, n_head, t, _stream(x.device))
     _build.check(err, "cross_block kernels")
     cross_block.launches += 1
+    _count(qgemv=2, ln_split=1, decode_cross_attention=1, v_split=1)
     return x_out
 
 
@@ -275,9 +284,9 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
     _check_common(what, x, n_layer, layer)
     r, d = x.shape
     hidden = b1.shape[-1]
-    if hidden % 32:
+    if hidden % 128:
         raise ValueError(f"{what}: the hidden width must be a multiple of "
-                         f"32, got {hidden}")
+                         f"128, got {hidden}")
     dt = x.dtype
     for name, t, n in (("ln_s", ln_s, d), ("ln_b", ln_b, d),
                        ("b1", b1, hidden), ("b2", b2, d)):
@@ -297,8 +306,19 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
             _stream(x.device))
     _build.check(err, "mlp_block kernels")
     mlp_block.launches += 1
+    _count(qgemv=2, ln_split=1)
     return x_out
 
+
+# launches of the kernels inside the blocks, by name
+inner = {name: types.SimpleNamespace(launches=0)
+         for name in ("qgemv", "ln_split", "self_attention",
+                      "decode_cross_attention", "v_split")}
+
+
+def _count(**launches: int) -> None:
+    for name, n in launches.items():
+        inner[name].launches += n
 
 self_block.launches = 0
 cross_block.launches = 0

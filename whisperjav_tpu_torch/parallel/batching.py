@@ -15,11 +15,11 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from whisperjav_tpu.modules.scene_detection.base import Scene
-from whisperjav_tpu.modules.segmentation.base import (
+from whisperjav_tpu_torch.modules.scene_detection.base import Scene
+from whisperjav_tpu_torch.modules.segmentation.base import (
     SegmentationResult, SpeechGroup,
 )
-from whisperjav_tpu.modules.audio_io import WHISPER_SAMPLE_RATE
+from whisperjav_tpu_torch.modules.audio_io import WHISPER_SAMPLE_RATE
 from whisperjav_tpu_torch.ops.mel import N_SAMPLES
 
 

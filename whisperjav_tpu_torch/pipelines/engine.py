@@ -18,9 +18,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from whisperjav_tpu.models.whisper.config import WhisperConfig
-from whisperjav_tpu.models.whisper.tokenizer import WhisperTokenizer
-from whisperjav_tpu.utils.logger import logger
+from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
+from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.models.whisper.decode import (
     DecodeOptions, DecodeResult, DecodedSegment, decode_beam, decode_greedy,
     extract_segments,

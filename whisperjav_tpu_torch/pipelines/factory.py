@@ -8,17 +8,17 @@ from typing import Optional
 
 import torch
 
-from whisperjav_tpu.config.presets import (
+from whisperjav_tpu_torch.config.presets import (
     PipelineConfig, resolve_pipeline_config,
 )
-from whisperjav_tpu.models.whisper.alignment_heads import (
+from whisperjav_tpu_torch.models.whisper.alignment_heads import (
     resolve_alignment_heads,
 )
-from whisperjav_tpu.models.whisper.config import WHISPER_SIZES
-from whisperjav_tpu.models.whisper.tokenizer import (
+from whisperjav_tpu_torch.models.whisper.config import WHISPER_SIZES
+from whisperjav_tpu_torch.models.whisper.tokenizer import (
     WhisperTokenizer, find_tokenizer_files,
 )
-from whisperjav_tpu.utils.logger import logger
+from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
 from whisperjav_tpu_torch.models.whisper.weights import (
     init_params, load_checkpoint,

@@ -3,8 +3,8 @@ sanitize -> SRT, over the port's engine.
 
 The same host orchestration as ``whisperjav_tpu/pipelines/transcribe.py``
 (which imports the JAX engine). Scene detection, VAD, audio extraction,
-stitching and SRT writing are the JAX package's jax-free modules, used
-as they are. Speech enhancement and chunked (transformers-mode) windows
+stitching and SRT writing are the port's copies of the JAX package's
+host modules. Speech enhancement and chunked (transformers-mode) windows
 are not ported.
 """
 
@@ -18,16 +18,16 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from whisperjav_tpu.modules.audio_extraction import AudioExtractor
-from whisperjav_tpu.modules.audio_io import WHISPER_SAMPLE_RATE
-from whisperjav_tpu.modules.media_discovery import MediaInfo
-from whisperjav_tpu.modules.scene_detection import create_scene_detector
-from whisperjav_tpu.modules.segmentation import create_segmenter
-from whisperjav_tpu.modules.segmentation.energy_vad import (
+from whisperjav_tpu_torch.modules.audio_extraction import AudioExtractor
+from whisperjav_tpu_torch.modules.audio_io import WHISPER_SAMPLE_RATE
+from whisperjav_tpu_torch.modules.media_discovery import MediaInfo
+from whisperjav_tpu_torch.modules.scene_detection import create_scene_detector
+from whisperjav_tpu_torch.modules.segmentation import create_segmenter
+from whisperjav_tpu_torch.modules.segmentation.energy_vad import (
     NullSegmenter, vad_failover_check,
 )
-from whisperjav_tpu.modules.srt import Subtitle, save_srt, stitch
-from whisperjav_tpu.utils.logger import logger
+from whisperjav_tpu_torch.modules.srt import Subtitle, save_srt, stitch
+from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.parallel.batching import (
     Window, pack_windows, unpack_segments, windows_from_segmentation,
 )
@@ -196,7 +196,7 @@ class TranscribePipeline:
                     / f"{media.basename}.{self.language}.whisperjav.srt")
         save_srt(srt_path, subtitles)
         if artifacts:
-            from whisperjav_tpu.modules.sanitize.sanitizer import (
+            from whisperjav_tpu_torch.modules.sanitize.sanitizer import (
                 write_artifacts_srt,
             )
             write_artifacts_srt(output_dir / (f"{media.basename}."
