@@ -15,9 +15,14 @@ Phases, in order; any failure exits non-zero before the result line:
    median device time per call of kernel and plain version (CUDA events
    around back-to-back calls held behind a spin kernel, so host time
    does not count; the fused blocks also print one call's wall): Kernel
-   A (encoder attention), Kernel B (int8 decode cross-attention, L=32 at
-   layer 31), and the three fused decode blocks at large-v2 widths
-   (self, cross with the fold g = 1, 2 at T = 448/960/1500, MLP);
+   A (encoder attention), Kernel B (int8 decode cross-attention, L=32,
+   in its three output forms: f32, bf16 of out * v_scale, and its hi/lo
+   terms; B=32 with R = 1, 2, 3, 6 and B=64 with R = 1, at T = 448, 960,
+   1500 and 37), and the three fused decode blocks at large-v2 widths
+   (self, cross with the fold g = 1, 2 at T = 448/960/1500, MLP, one MLP
+   input with a large mean offset); then one layer-step under the
+   profiler, which must launch the 8 kernels of the design (self 3, cross
+   3, MLP 2);
 3. small-input references: a narrow Whisper (hd = 64, so the kernels
    run) encodes and decodes on the GPU in bf16 and on the CPU in f32 (the
    plain versions) from the same seed, once with bf16 decoder weights and
@@ -36,9 +41,11 @@ Phases, in order; any failure exits non-zero before the result line:
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, and every kernel
-of that path must have launched (A and B on the flagless path; A, B,
-the three fused blocks and the kernels inside them on the int8 path).
-The last two lines of standard output are the kernels' JSON record and
+of that path must have launched (A and Kernel B's bf16 form on the
+flagless path; on the int8 path also the three fused blocks and the
+kernels inside them: the LN-mode GEMVs, the residual GEMVs, self
+attention and Kernel B's terms form, 8 launches a layer-step). The last
+two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits with an error, and prints no
 result, where no CUDA GPU is visible.
 
@@ -51,8 +58,9 @@ beside Kernel A; null elsewhere), and the launches on the large-v2 int8
 path. The kernels inside the fused blocks are timed by the profiler at
 the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
 holds an older version of the kernels (an unpacked earlier commit), it
-is built too, and Kernel A and the fused blocks of both versions are
-timed in turns in this run (``v1_ms``).
+is built too, and Kernel A, Kernel B (f32 form, every case), the fused
+blocks and their inner kernels of both versions are timed in turns in
+this run (``v1_ms``).
 """
 
 from __future__ import annotations
@@ -197,9 +205,10 @@ def turn_kernels(turn: str, v1_lib):
     return kernels_from(v1_lib) if turn == "v1" else contextlib.nullcontext()
 
 
-def kernel_device_ms(fn, reps: int = 10) -> dict:
-    """Device ms per call of ``fn`` of each CUDA kernel it launches, by
-    short name (``qgemv_kernel<2, 4>``), from torch.profiler."""
+def kernel_device_ms(fn, reps: int = 10) -> tuple:
+    """Device ms per call of ``fn`` of each CUDA kernel it launches, and
+    its launches per call, by short name (``qgemv_kernel<2, 4>``), from
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -208,14 +217,16 @@ def kernel_device_ms(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out: dict = {}
+    out, counts = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         m = re.search(r"(\w+_kernel)(<[^>]*>)?", e.name)
         name = m.group(0) if m else e.name[:40]
         out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return out
+        if m:
+            counts[name] = counts.get(name, 0) + 1 / reps
+    return out, {k: round(v) for k, v in counts.items()}
 
 
 def check_encoder_attention(dev, gen, v1_lib):
@@ -273,56 +284,122 @@ def check_encoder_attention(dev, gen, v1_lib):
     return rec
 
 
-def check_decode_attention(dev, gen, prompt_len: int):
-    from whisperjav_tpu_torch.ops.cuda.decode_attention import (
-        decode_cross_attention, decode_cross_attention_plain,
-    )
-    # large-v2's 32 decoder layers at B=32, read at the last layer (turbo
-    # has 4 of the same width)
-    n_layer, b, h, hd, layer = LV2_L, 32, 20, 64, LV2_L - 1
-    worst = 0.0
-    timed = {}
-    for t in (448, 960, 1500):
-        k8, v8 = (torch.randint(-127, 128, (n_layer, b, h, hd, t),
-                                generator=gen, device=dev, dtype=torch.int8)
-                  for _ in range(2))
-        # sampled rung: step and prefill; beam-2 rung: step and prefill
-        for rows in (1, prompt_len, 2, 2 * prompt_len):
-            q = torch.randn(b, rows, h, hd, generator=gen, device=dev) * 0.01
-            out = decode_cross_attention(q, k8, v8, layer)
-            ref = decode_cross_attention_plain(q, k8, v8, layer)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise RuntimeError("decode_cross_attention: non-finite")
-            max_err = (out - ref).abs().max().item()
-            tol = B_TOL_REL_MAX * ref.abs().max().item()
-            ms = device_ms(
-                lambda: decode_cross_attention(q, k8, v8, layer), 50)
-            plain_ms = device_ms(
-                lambda: decode_cross_attention_plain(q, k8, v8, layer), 20)
-            gbs = 2 * b * h * hd * t / ms / 1e6
-            log(f"kernel B decode_cross_attention L={n_layer} layer={layer} "
-                f"T={t} R={rows}: "
-                f"max_abs_err {max_err:.6g} (tol {tol:.6g}); {ms:.4f} ms "
-                f"per layer ({gbs:.0f} GB/s of int8 K/V), plain "
-                f"{plain_ms:.4f} ms")
-            if max_err > tol:
-                raise RuntimeError("decode_cross_attention disagrees with "
-                                   "its plain version")
-            worst = max(worst, max_err)
-            timed[(t, rows)] = (ms, plain_ms)
-        del k8, v8
-    ms, plain_ms = timed[(1500, 2)]       # the beam step at a 30 s bucket
-    # int8 K and V of one layer, f32 q and out; 4 FLOP per (row, key, dim)
-    rows, t = 2, 1500
+def _bf16_step(ref) -> float:
+    """One bf16 step at the largest magnitude of ``ref``."""
+    return 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+
+
+# Kernel B's cases: (B, R) at each T; R = g * q_len (sampled and beam-2
+# steps, the beam-1 and beam-2 prefills of the 3-token prompt); R=1 at B=64
+# is the greedy headline's step
+B_CASES = ((32, 1), (32, 2), (32, 3), (32, 6), (64, 1))
+B_TS = (448, 960, 1500, 37)
+
+
+def check_decode_attention(dev, gen, v1_lib):
+    """Kernel B against its plain versions in all three output forms (f32;
+    bf16 of out * v_scale; its hi/lo terms) at large-v2 widths (L=32, H=20),
+    every case of B_CASES x B_TS; device times of each form, of the plain
+    version and, in turns, of the older version (f32 form). Timed calls
+    walk the 32 layers, so K/V arrive from device memory as in a decode
+    step, not from L2."""
+    import itertools
+    from whisperjav_tpu_torch.ops.cuda import decode_attention as da
+    n_layer, h, hd, layer = LV2_L, LV2_H, 64, LV2_L - 1
+    worst, cases = 0.0, []
+    for b in sorted({b for b, _ in B_CASES}):
+        for t in B_TS:
+            k8, v8 = (torch.randint(-127, 128, (n_layer, b, h, hd, t),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            vs = torch.rand(n_layer, b, h, generator=gen, device=dev) * 0.02
+            for rows in (r for bb, r in B_CASES if bb == b):
+                q = torch.randn(b, rows, h, hd, generator=gen,
+                                device=dev) * 0.01
+                args = (q, k8, v8, layer)
+                out = da.decode_cross_attention(*args)
+                ref = da.decode_cross_attention_plain(*args)
+                o16 = da.decode_cross_attention_bf16(*args, vs).float()
+                r16 = da.decode_cross_attention_bf16_plain(*args, vs).float()
+                hi, lo = da.decode_cross_attention_terms(*args, vs)
+                rhi, rlo = da.decode_cross_attention_terms_plain(*args, vs)
+                torch.cuda.synchronize()
+                for o in (out, o16, hi, lo):
+                    if not torch.isfinite(o.float()).all():
+                        raise RuntimeError("decode_cross_attention: "
+                                           "non-finite output")
+                y = rhi.float() + rlo.float()
+                errs = {
+                    "f32": ((out - ref).abs().max().item(),
+                            B_TOL_REL_MAX * ref.abs().max().item()),
+                    "bf16": ((o16 - r16).abs().max().item(),
+                             _bf16_step(r16)),
+                    "terms hi": ((hi.float() - rhi.float()).abs().max()
+                                 .item(), _bf16_step(r16)),
+                    "terms hi+lo": (((hi.float() + lo.float()) - y).abs()
+                                    .max().item(),
+                                    (B_TOL_REL_MAX + 2.0 ** -16)
+                                    * y.abs().max().item())}
+                bad = {k: e for k, e in errs.items() if e[0] > e[1]}
+                label = f"B={b} T={t} R={rows}"
+                if bad:
+                    raise RuntimeError(f"decode_cross_attention {label} "
+                                       f"disagrees with its plain version: "
+                                       f"{bad}")
+                worst = max(worst, errs["f32"][0])
+                del out, ref, o16, r16, hi, lo, rhi, rlo, y
+
+                def walk(fn, *extra):
+                    layers = itertools.cycle(range(n_layer))
+                    return lambda: fn(q, k8, v8, next(layers), *extra)
+                times = {"kernel": [], "v1": []}
+                for turn in ("kernel", "v1", "v1", "kernel"):
+                    if turn == "v1" and v1_lib is None:
+                        continue
+                    with turn_kernels(turn, v1_lib):
+                        times[turn].append(device_ms(
+                            walk(da.decode_cross_attention), 40))
+                ms = statistics.median(times["kernel"])
+                v1_ms = statistics.median(times["v1"]) if times["v1"] \
+                    else None
+                bf16_ms = device_ms(walk(da.decode_cross_attention_bf16,
+                                         vs), 40)
+                terms_ms = device_ms(walk(da.decode_cross_attention_terms,
+                                          vs), 40)
+                plain_ms = device_ms(
+                    walk(da.decode_cross_attention_plain), 10)
+                # int8 K and V of one layer, f32 q and out; 4 FLOP per
+                # (row, key, dim)
+                bnd = bound(2 * b * h * hd * t + 2 * 4 * b * rows * h * hd,
+                            4 * b * rows * h * hd * t, PEAK_F32)
+                gbs = 2 * b * h * hd * t / ms / 1e6
+                log(f"kernel B decode_cross_attention L={n_layer} {label}: "
+                    f"max_abs_err " + ", ".join(
+                        f"{k} {e:.6g} (tol {tol:.6g})"
+                        for k, (e, tol) in errs.items())
+                    + f"; f32 {ms:.4f} ms ({gbs:.0f} GB/s of int8 K/V, "
+                    f"{100 * bnd[0] / ms:.1f}% of the {bnd[0]:.4f} ms "
+                    f"bound), bf16 {bf16_ms:.4f} ms, terms {terms_ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms"
+                    + (f", older version {v1_ms:.4f} ms" if v1_ms else "")
+                    + f"; turns {json.dumps(times)}")
+                cases.append({"b": b, "t": t, "r": rows, "ms": ms,
+                              "v1_ms": v1_ms, "bf16_ms": bf16_ms,
+                              "terms_ms": terms_ms, "plain_ms": plain_ms,
+                              "bound_ms": bnd[0],
+                              "max_abs_err": errs["f32"][0]})
+            del k8, v8, vs
+            torch.cuda.empty_cache()
+    main = next(c for c in cases if (c["b"], c["t"], c["r"]) == (32, 1500, 2))
+    rows, t, b = 2, 1500, 32
     bnd = bound(2 * b * h * hd * t + 2 * 4 * b * rows * h * hd,
                 4 * b * rows * h * hd * t, PEAK_F32)
-    log(f"kernel B at T=1500 R=2: bound {bnd[0]:.4f} ms ({bnd[1]}), "
-        f"{100 * bnd[0] / ms:.1f}% of it")
     return record("decode_cross_attention",
                   "whisperjav_tpu_torch/csrc/decode_cross_attention.cu",
                   "whisperjav_tpu/ops/pallas/decode_attention.py:57", worst,
-                  ms, plain_ms, bnd)
+                  main["ms"], main["plain_ms"], bnd, v1_ms=main["v1_ms"],
+                  per="one layer, L=32, B=32, R=2, T=1500, f32 form",
+                  cases=cases)
 
 
 def _int8_stack(gen, dev, k: int, n: int):
@@ -352,8 +429,7 @@ def _fused_case(name, fn, plain, args, label, iters=20):
         if o.shape != r.shape or not torch.isfinite(o).all():
             raise RuntimeError(f"{name}: bad output {tuple(o.shape)}")
         err = (o - r).abs()
-        tol = FUSED_TOL_STEPS * 2.0 ** (
-            torch.floor(torch.log2(r.abs().max())).item() - 7)
+        tol = FUSED_TOL_STEPS * _bf16_step(r)
         if err.max().item() > tol:
             raise RuntimeError(f"{name} {label}: max_abs_err "
                                f"{err.max().item():.6g} > tol {tol:.6g}")
@@ -370,11 +446,13 @@ def _fused_case(name, fn, plain, args, label, iters=20):
 
 
 # qgemv_kernel<EPI, MT>: its epilogue, and the GEMVs of a layer-step
-# that use it
+# that use it; all but the residual one take LayerNorm(x) inside (LN mode)
 GEMV_EPILOGUES = {"0": "LN -> wqkv, store with the k/v columns",
                   "1": "LN -> w1, GELU (hi/lo terms out)",
                   "2": "wo / cwo / w2 + residual",
                   "3": "LN -> cwq, q-fold (hd^-0.5 k_scale)"}
+# kernels a large-v2 int8 layer-step launches: self 3, cross 3, MLP 2
+LAUNCHES_PER_LAYER_STEP = 8
 
 
 def check_fused_blocks(dev, gen, v1_lib):
@@ -469,6 +547,13 @@ def check_fused_blocks(dev, gen, v1_lib):
             timed[(rows, layer)] = (ms, plain_ms)
             if (rows, layer) == (64, LV2_L - 1):
                 main["mlp"] = args
+    # a large mean offset: the LN-mode GEMV combines the split-K ranks'
+    # row statistics
+    args = dict(x=_bf16(gen, dev, 64, d, scale=1.0, base=50.0), **ln, w1=w1,
+                b1=b1, w2=w2, b2=b2, layer=LV2_L - 1)
+    worst = max(worst, _fused_case("mlp_block", fd.mlp_block,
+                                   fd.mlp_block_plain, args,
+                                   "R=64 x = 50 + N(0, 1)")[0])
     rows = 64
     mlp_bytes = 2 * rows * d * 2 + 2 * d * 2 + 8 * d * d + 5 * d * 6
     results.append(record(
@@ -498,8 +583,10 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
     """One decode layer-step of large-v2 at R=64 (the three blocks at
     their main shapes) under the profiler: the device time of each kernel
     inside the blocks, beside its bound and its plain version; the older
-    version's where it is built. The inner kernels' outputs are checked
-    through the blocks' (``block_err``, the blocks' worst error)."""
+    version's where it is built. The step must launch exactly the
+    LAUNCHES_PER_LAYER_STEP kernels of this design. The inner kernels'
+    outputs are checked through the blocks' (``block_err``, the blocks'
+    worst error)."""
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
     d, h, rows, pos, layer = LV2_D, LV2_H, 64, 100, LV2_L - 1
     sa, ca, ma = main["self"], main["cross"], main["mlp"]
@@ -515,13 +602,17 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
             continue
         with turn_kernels(turn, v1_lib):
             turns[turn].append(device_ms(step, iters=20))
-    prof = kernel_device_ms(step)
+    prof, counts = kernel_device_ms(step)
+    if sum(counts.values()) != LAUNCHES_PER_LAYER_STEP:
+        raise RuntimeError(f"a layer-step launched {counts}, not the "
+                           f"{LAUNCHES_PER_LAYER_STEP} kernels of the design")
     v1_prof = None
     if v1_lib is not None:
         with kernels_from(v1_lib):
-            v1_prof = kernel_device_ms(step)
+            v1_prof = kernel_device_ms(step)[0]
     log(f"large-v2 layer-step (self + cross + MLP, R=64, T=1500, pos 100): "
-        f"device {statistics.median(turns['kernel']):.4f} ms per step"
+        f"device {statistics.median(turns['kernel']):.4f} ms per step, "
+        f"{sum(counts.values())} launches"
         + (f", older version {statistics.median(turns['v1']):.4f} ms"
            if turns["v1"] else "") + f"; turns {json.dumps(turns)}")
     for label, pr in (("kernels", prof), ("older version", v1_prof)):
@@ -530,20 +621,37 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
                 f"{k} {v:.4f} ms" for k, v in sorted(pr.items(),
                                                      key=lambda kv: -kv[1])))
 
-    # the six GEMVs: weights, scales and biases, f32 input and output
-    gemvs = {"0": [(d, 3 * d)], "1": [(d, 4 * d)],
-             "2": [(d, d), (d, d), (4 * d, d)], "3": [(d, d)]}
-    qg_ms, qg_bytes, qg_flop = 0.0, 0, 0
-    for epi, shapes in gemvs.items():
-        name = f"qgemv_kernel<{epi}, 4>"
-        ms = prof.get(name, 0.0)
-        by = sum(k * n + n * 6 + rows * (k + n) * 4 for k, n in shapes)
-        fl = sum(2 * rows * k * n for k, n in shapes)
-        bnd = bound(by, 2 * fl, PEAK_BF16)
+    # the GEMVs' bytes: int8 weights, f32 scale and bf16 bias per column;
+    # LN mode reads bf16 x and the LN parameters, the others bf16 terms
+    # (and x for the residual); outputs as each epilogue writes them
+    def gemv_bytes(k, n, ln, out_bytes):
+        a_in = rows * k * 2 + 2 * k * 2 if ln else 2 * rows * k * 2
+        return k * n + n * 6 + a_in + out_bytes
+    gemvs = {
+        "0": [gemv_bytes(d, 3 * d, True, rows * 3 * d * 4
+                         + 2 * rows * d * 2)],
+        "1": [gemv_bytes(d, 4 * d, True, 2 * rows * 4 * d * 2)],
+        "3": [gemv_bytes(d, d, True, rows * d * 4)],
+        "2": [gemv_bytes(k, d, False, 2 * rows * d * 2)
+              for k in (d, d, 4 * d)]}
+    flop = {"0": 2 * rows * d * 3 * d, "1": 2 * rows * d * 4 * d,
+            "3": 2 * rows * d * d, "2": 2 * rows * 6 * d * d}
+    for epi in ("0", "3", "1", "2"):
+        ms = prof.get(f"qgemv_kernel<{epi}, 4>", 0.0)
+        bnd = bound(sum(gemvs[epi]), 2 * flop[epi], PEAK_BF16)
         log(f"  qgemv_kernel<{epi}, 4> ({GEMV_EPILOGUES[epi]}, "
-            f"{len(shapes)} a layer-step): {ms:.4f} ms, bound {bnd[0]:.4f} "
-            f"ms ({bnd[1]})")
-        qg_ms, qg_bytes, qg_flop = qg_ms + ms, qg_bytes + by, qg_flop + fl
+            f"{len(gemvs[epi])} a layer-step): {ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})"
+            + (f", older version "
+               f"{v1_prof.get(f'qgemv_kernel<{epi}, 4>', 0.0):.4f} ms"
+               if v1_prof else ""))
+    kb = sum(v for k, v in prof.items()
+             if k.startswith("decode_cross_attention_kernel"))
+    log(f"  Kernel B in the cross block (B=32, g=2, T=1500, terms form): "
+        f"{kb:.4f} ms" + (
+            f"; older version {v1_prof.get('decode_cross_attention_kernel<2>', 0.0):.4f}"
+            f" ms + its v_scale split "
+            f"{v1_prof.get('split_kernel', 0.0):.4f} ms" if v1_prof else ""))
 
     # plain versions of the inner kernels, on f32 inputs of the shapes
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -551,10 +659,16 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
     a_d, a_h = f32(rows, d), f32(rows, 4 * d)
     ws = [(w.q[layer], w.s[layer], torch.zeros(w.q.shape[-1], device="cuda"))
           for w in (*selfw, *crossw, *mlpw)]
+    x = sa["x"]
 
-    def plain_gemvs():
-        for (q, s, bias), a in zip(ws, (a_d, a_d, a_d, a_d, a_d, a_h)):
-            fd._qdense(a, q, s, bias)
+    def plain_ln_gemvs():       # wqkv, cwq, w1 on LN(x)
+        a = fd._ln(x.float(), sa["ln_s"][layer], sa["ln_b"][layer])
+        for q, s_, bias in (ws[0], ws[2], ws[4]):
+            fd._qdense(a, q, s_, bias)
+
+    def plain_gemvs():          # wo, cwo, w2
+        for (q, s_, bias), a in zip((ws[1], ws[3], ws[5]), (a_d, a_d, a_h)):
+            fd._qdense(a, q, s_, bias)
 
     qkv = f32(rows, 3 * d)
 
@@ -568,29 +682,30 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
         return (torch.einsum("rht,rthd->rhd", lg[..., :-1], cv)
                 + lg[..., -1:] * qkv[:, 2 * d:].reshape(rows, h, 64))
 
-    def split(y):
-        hi = y.bfloat16()
-        return hi, (y - hi.float()).bfloat16()
-
-    x = sa["x"]
-
-    def plain_ln_split():
-        return split(fd._ln(x.float(), sa["ln_s"][layer], sa["ln_b"][layer]))
-
-    vs = ca["v_scale"][layer].reshape(32, 1, h, 1)
-
-    def plain_v_split():
-        return split((a_d.reshape(32, 2, h, 64) * vs).reshape(rows, d))
-
     v1 = v1_prof or {}
-    v1_qgemv = sum(v for k, v in v1.items() if k.startswith("qgemv_kernel"))
+    sum_v1 = lambda *names: sum(v1.get(n, 0.0) for n in names) or None  # noqa
+    ln_epis = ("0", "3", "1")
     recs = [
+        record("qgemv_ln", "whisperjav_tpu_torch/csrc/fused_decode.cu",
+               "whisperjav_tpu/ops/pallas/fused_decode.py:88,185,265",
+               block_err, sum(prof.get(f"qgemv_kernel<{e}, 4>", 0.0)
+                              for e in ln_epis),
+               device_ms(plain_ln_gemvs, iters=10),
+               bound(sum(sum(gemvs[e]) for e in ln_epis),
+                     2 * sum(flop[e] for e in ln_epis), PEAK_BF16),
+               v1_ms=sum_v1(*(f"qgemv_kernel<{e}, 4>" for e in ln_epis),
+                            "ln_split_kernel"),
+               per="the three LN-mode int8 GEMVs of one large-v2 "
+                   "layer-step (wqkv, cwq, w1), R=64; older version: the "
+                   "same GEMVs plus the three LN pre-passes they replace"),
         record("qgemv", "whisperjav_tpu_torch/csrc/fused_decode.cu",
                "whisperjav_tpu/ops/pallas/fused_decode.py:166,248,323",
-               block_err, qg_ms, device_ms(plain_gemvs, iters=10),
-               bound(qg_bytes, 2 * qg_flop, PEAK_BF16),
-               v1_ms=v1_qgemv or None,
-               per="the six int8 GEMVs of one large-v2 layer-step, R=64"),
+               block_err, prof.get("qgemv_kernel<2, 4>", 0.0),
+               device_ms(plain_gemvs, iters=10),
+               bound(sum(gemvs["2"]), 2 * flop["2"], PEAK_BF16),
+               v1_ms=sum_v1("qgemv_kernel<2, 4>"),
+               per="the three residual int8 GEMVs of one large-v2 "
+                   "layer-step (wo, cwo, w2), R=64"),
         record("self_attention", "whisperjav_tpu_torch/csrc/fused_decode.cu",
                "whisperjav_tpu/ops/pallas/fused_decode.py:88", block_err,
                prof.get("self_attention_kernel", 0.0),
@@ -598,18 +713,6 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
                bound(2 * rows * pos * d * 2 + rows * 3 * d * 4
                      + 2 * rows * d * 2, 4 * rows * pos * d, PEAK_F32),
                v1_ms=v1.get("self_attention_kernel")),
-        record("ln_split", "whisperjav_tpu_torch/csrc/fused_decode.cu",
-               "whisperjav_tpu/ops/pallas/fused_decode.py:88,185,265",
-               block_err, prof.get("ln_split_kernel", 0.0) / 3,
-               device_ms(plain_ln_split, iters=10),
-               bound(rows * d * 2 + 2 * d * 2 + 2 * rows * d * 2,
-                     8 * rows * d, PEAK_F32)),
-        record("v_split", "whisperjav_tpu_torch/csrc/fused_decode.cu",
-               "whisperjav_tpu/ops/pallas/fused_decode.py:185", block_err,
-               prof.get("split_kernel", 0.0),
-               device_ms(plain_v_split, iters=10),
-               bound(rows * d * 4 + 2 * rows * d * 2, 3 * rows * d,
-                     PEAK_F32)),
     ]
     for r in recs:
         log(f"  {r['name']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -764,23 +867,41 @@ def srt_cues(path: Path) -> list:
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each counts its launches
-    in ``.launches``)."""
+    in ``.launches``), and the kernels inside the fused blocks
+    (``<name>_in_block``)."""
+    from whisperjav_tpu_torch.ops.cuda import decode_attention as da
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
-    from whisperjav_tpu_torch.ops.cuda.decode_attention import (
-        decode_cross_attention,
-    )
     from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
         encoder_attention,
     )
     counters = {"encoder_attention": encoder_attention,
-                "decode_cross_attention": decode_cross_attention,
+                "decode_cross_attention": da.decode_cross_attention,
+                "decode_cross_attention_bf16": da.decode_cross_attention_bf16,
+                "decode_cross_attention_terms":
+                    da.decode_cross_attention_terms,
                 "self_block": fd.self_block, "cross_block": fd.cross_block,
                 "mlp_block": fd.mlp_block}
-    # Kernel B inside the cross block counts apart from its own wrapper's
-    counters.update({("decode_cross_attention_in_block"
-                      if k == "decode_cross_attention" else k): v
-                     for k, v in fd.inner.items()})
+    counters.update({f"{k}_in_block": v for k, v in fd.inner.items()})
     return counters
+
+
+# the counters of each kernel of the JSON record (Kernel B in every form,
+# called alone or inside the cross block)
+RECORD_COUNTERS = {
+    "decode_cross_attention": ("decode_cross_attention",
+                               "decode_cross_attention_bf16",
+                               "decode_cross_attention_terms",
+                               "decode_cross_attention_terms_in_block"),
+    "qgemv_ln": ("qgemv_ln_in_block",), "qgemv": ("qgemv_in_block",),
+    "self_attention": ("self_attention_in_block",)}
+# the kernels each CLI path must launch: the flagless path's unfused
+# decoder takes Kernel B's bf16 form; the int8 path prefills the same way
+# and runs every single step through the fused blocks
+TURBO_NEEDS = ("encoder_attention", "decode_cross_attention_bf16")
+INT8_NEEDS = TURBO_NEEDS + ("self_block", "cross_block", "mlp_block",
+                            "qgemv_ln_in_block", "qgemv_in_block",
+                            "self_attention_in_block",
+                            "decode_cross_attention_terms_in_block")
 
 
 def run_cli_path(tmp: Path, label: str, seconds: float, flags: list,
@@ -826,6 +947,13 @@ def run_cli_path(tmp: Path, label: str, seconds: float, flags: list,
     if missing:
         raise RuntimeError(f"{label}: kernels of the path never launched: "
                            f"{missing} ({launches})")
+    steps = launches["self_block"]       # fused layer-steps
+    inner = sum(n for k, n in launches.items() if k.endswith("_in_block"))
+    if inner != LAUNCHES_PER_LAYER_STEP * steps \
+            or launches["qgemv_ln_in_block"] != 3 * steps:
+        raise RuntimeError(f"{label}: {inner} kernels in {steps} fused "
+                           f"layer-steps, not {LAUNCHES_PER_LAYER_STEP} "
+                           f"each with 3 in LN mode ({launches})")
     log(f"{label} path ({' '.join(flags) or 'flagless'}): clip "
         f"{duration:.3f} s, wall {wall:.3f} s, file RTF "
         f"{duration / wall:.3f}x (e2e_wall_s {stats['e2e_wall_s']}, asr_s "
@@ -976,7 +1104,7 @@ def main(argv=None) -> int:
     kernels = []
     if "kernels" in only:
         kernels = [check_encoder_attention(dev, gen, v1_lib),
-                   check_decode_attention(dev, gen, prompt_len=3),
+                   check_decode_attention(dev, gen, v1_lib),
                    *check_fused_blocks(dev, gen, v1_lib)]
         torch.cuda.empty_cache()
     if "reference" in only:
@@ -986,16 +1114,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if "turbo" in only:
             launches["turbo_flagless"] = run_cli_path(
-                Path(tmp), "turbo flagless", 120.0, [],
-                ("encoder_attention", "decode_cross_attention"))
+                Path(tmp), "turbo flagless", 120.0, [], TURBO_NEEDS)
             torch.cuda.empty_cache()
             breakdown(dev)
             torch.cuda.empty_cache()
         if "large-v2" in only:
             launches["large_v2_int8"] = run_cli_path(
                 Path(tmp), "large-v2 int8", 60.0,
-                ["--model", "large-v2", "--int8-weights"],
-                tuple(kernel_counters()))
+                ["--model", "large-v2", "--int8-weights"], INT8_NEEDS)
             torch.cuda.empty_cache()
             breakdown_large_v2_greedy(dev)
     if only != set(PHASES):
@@ -1003,8 +1129,8 @@ def main(argv=None) -> int:
         return 3
 
     for k in kernels:
-        by_path = {path: counts[k["name"]]
-                   + counts.get(f"{k['name']}_in_block", 0)
+        names = RECORD_COUNTERS.get(k["name"], (k["name"],))
+        by_path = {path: sum(counts[n] for n in names)
                    for path, counts in launches.items()}
         k["launches"] = by_path["large_v2_int8"]
         k["launches_by_path"] = by_path

@@ -12,6 +12,9 @@ from whisperjav_tpu.models.whisper.quant import _quantize
 from whisperjav_tpu.ops.pallas import fused_decode as jfd
 from whisperjav_tpu_torch.models.whisper.model import Int8
 from whisperjav_tpu_torch.ops.cuda import fused_decode as tfd
+from whisperjav_tpu_torch.ops.cuda.decode_attention import (
+    decode_cross_attention_terms_plain,
+)
 
 L, B, D, H, T_SELF, T_CROSS = 3, 2, 256, 4, 16, 64
 # f32 on both sides; sums in other orders, and the Pallas GELU's A&S erf
@@ -124,6 +127,42 @@ def test_mlp_block_plain_matches_pallas(layer):
                               _t(b2), layer)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+def test_cross_terms_through_out_projection_match_pallas(layer):
+    """The fused cross block as the kernels run it (Kernel B's terms form
+    feeding the out-projection) against the Pallas kernel: LN, the q
+    projection and its fold as in the plain block, then hi + lo of the
+    attention output times v_scale through cwo."""
+    ln_s, ln_b = _vec(61, D, base=1.0), _vec(62, D)
+    jwq, twq = _int8_weight(63, D, D)
+    jwo, two = _int8_weight(64, D, D)
+    bq, bo = _vec(65, D), _vec(66, D)
+    ck, ks = _int8_kv(67)
+    cv, vs = _int8_kv(68)
+    x = _x(69, B)
+    ref = np.asarray(jfd.cross_block_stacked(
+        jnp.asarray(x), jnp.asarray(ln_s), jnp.asarray(ln_b), jwq,
+        jnp.asarray(bq), jwo, jnp.asarray(bo), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray(ks), jnp.asarray(vs), layer, H,
+        interpret=True))
+    x32 = _t(x)
+    q = tfd._qdense(tfd._ln(x32, _t(ln_s)[layer], _t(ln_b)[layer]),
+                    twq.q[layer], twq.s[layer], _t(bq)[layer])
+    qf = (q.reshape(B, 1, H, 64) * (0.125 * _t(ks)[layer].reshape(
+        B, 1, H, 1))).contiguous()
+    hi, lo = decode_cross_attention_terms_plain(
+        qf, _t(ck).reshape(L, B, H, 64, T_CROSS),
+        _t(cv).reshape(L, B, H, 64, T_CROSS), layer, _t(vs))
+    a = (hi.float() + lo.float()).reshape(B, D)
+    out = (x32 + tfd._qdense(a, two.q[layer], two.s[layer],
+                             _t(bo)[layer])).numpy()
+    # the terms hold a within 2^-16 of each element; through the
+    # out-projection that is at most 2^-16 (|a| |W_q|) s per output
+    drop = 2.0 ** -16 * (a.abs() @ two.q[layer].float().abs()
+                         * two.s[layer]).numpy()
+    assert (np.abs(out - ref) <= ATOL + RTOL * np.abs(ref) + drop).all()
 
 
 def _cross_args(seed, rows):
@@ -308,3 +347,51 @@ def test_split_k_sums_are_deterministic_on_gpu(cuda_device, rows):
     first = tfd.mlp_block(**args)
     for _ in range(3):
         assert torch.equal(tfd.mlp_block(**args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0.0, 50.0])
+@pytest.mark.parametrize("d", [384, 1280])
+@pytest.mark.parametrize("rows", [1, 2, 17, 64])
+def test_ln_mode_gemvs_match_plain_on_gpu(cuda_device, rows, d, offset):
+    """The three LN-mode GEMVs (wqkv, cwq, w1: LayerNorm statistics
+    combined across the split-K cluster) through their blocks, x = offset
+    + N(0, 1): a large mean offset tests the combination of the ranks'
+    statistics."""
+    dev, n_layer, h, t = cuda_device, 2, d // 64, 64
+    gen = torch.Generator(device=dev).manual_seed(rows * 10 + d)
+
+    def bf(*shape, scale=0.1, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen,
+                                           device=dev)).bfloat16()
+
+    x = bf(rows, d, scale=1.0, base=offset)
+    ln = dict(ln_s=bf(n_layer, d, base=1.0), ln_b=bf(n_layer, d))
+    slf = dict(x=x, **ln, wqkv=_gpu_int8(gen, dev, d, 3 * d, n_layer),
+               bqkv=bf(n_layer, 3 * d), wo=_gpu_int8(gen, dev, d, d, n_layer),
+               bo=bf(n_layer, d), cache_k=bf(n_layer, rows, 8, d, scale=1.0),
+               cache_v=bf(n_layer, rows, 8, d, scale=1.0), layer=1, pos=5,
+               n_head=h)
+    for o, r, what in zip(tfd.self_block(**slf), tfd.self_block_plain(**slf),
+                          ("x_out", "k_new", "v_new")):
+        _assert_bf16_close(o, r, f"self {what}")
+    crs = dict(x=x, **ln, cwq=_gpu_int8(gen, dev, d, d, n_layer),
+               cbq=bf(n_layer, d), cwo=_gpu_int8(gen, dev, d, d, n_layer),
+               cbo=bf(n_layer, d),
+               ck=torch.randint(-127, 128, (n_layer, rows, d, t),
+                                generator=gen, device=dev, dtype=torch.int8),
+               cv=torch.randint(-127, 128, (n_layer, rows, d, t),
+                                generator=gen, device=dev, dtype=torch.int8),
+               k_scale=torch.rand(n_layer, rows, h, generator=gen,
+                                  device=dev) * 0.02,
+               v_scale=torch.rand(n_layer, rows, h, generator=gen,
+                                  device=dev) * 0.02,
+               layer=1, n_head=h)
+    _assert_bf16_close(tfd.cross_block(**crs), tfd.cross_block_plain(**crs),
+                       "cross x_out")
+    mlp = dict(x=x, **ln, w1=_gpu_int8(gen, dev, d, 4 * d, n_layer),
+               b1=bf(n_layer, 4 * d), w2=_gpu_int8(gen, dev, 4 * d, d,
+                                                   n_layer),
+               b2=bf(n_layer, d), layer=1)
+    _assert_bf16_close(tfd.mlp_block(**mlp), tfd.mlp_block_plain(**mlp),
+                       "mlp x_out")

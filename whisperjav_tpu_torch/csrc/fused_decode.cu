@@ -62,19 +62,26 @@
 // round trip through device memory), then runs the epilogue on that
 // share.
 //
-// The bf16 terms of each GEMV's input are made once, not by every block:
-// a LayerNorm pre-pass (one block per row: the row statistics once per
-// row, then LN(x) split into hi/lo) feeds the first GEMV of each block;
-// the self-attention kernel writes its output split; a split pass applies
-// the cross block's v_scale; W1's epilogue writes GELU(h) split for W2.
-// Attention runs one block per (row, head) for the self cache, streaming
-// the cache slab (never in shared memory: up to 580 KB per row).
+// The first GEMV of each block (wqkv, cwq, w1) takes the LayerNorm
+// itself (LN mode): each block reads bf16 x for its own k-slice, takes
+// per-row partial statistics over it (count, mean, and the sum of squares
+// about that mean), combines those of the split-K cluster in rank order
+// over distributed shared memory (Chan's parallel combination, which
+// matches the two-pass mean and variance to f32 rounding; one split takes
+// the whole row), and writes LN(x) * s + b as bf16 hi/lo terms into a
+// slice of its own shared memory that the products read for the whole
+// k loop; only the weights stream through the ring. The other GEMVs read
+// terms their producer wrote: the self-attention kernel writes its output
+// split, Kernel B writes the cross attention times v_scale as terms (its
+// terms form), and W1's epilogue writes GELU(h) split for W2. Attention
+// runs one block per (row, head) for the self cache, streaming the cache
+// slab (never in shared memory: up to 580 KB per row).
 //
-// Launches per entry point, on the caller's stream: self 4 (LN
-// pre-pass, QKV GEMV, attention, out-projection GEMV), cross 5 (LN
-// pre-pass, q GEMV, Kernel B, v_scale split, out-projection GEMV), MLP 3
-// (LN pre-pass, W1, W2). Intermediates (qkv, q, the attention output,
-// the 4d hidden) stay in the caller's workspace, which stays in L2.
+// Launches per entry point, on the caller's stream: self 3 (QKV GEMV,
+// attention, out-projection GEMV), cross 3 (q GEMV, Kernel B,
+// out-projection GEMV), MLP 2 (W1, W2): 8 a layer-step. Intermediates
+// (qkv, q, the attention output, the 4d hidden) stay in the caller's
+// workspace, which stays in L2.
 //
 // Plain C interface, bound with ctypes; nothing is allocated here, and
 // each entry returns the first CUDA error it meets (cudaGetLastError
@@ -87,11 +94,13 @@
 
 #include <algorithm>
 
-// Kernel B, in decode_cross_attention.cu of the same library.
-extern "C" int wjt_decode_cross_attention(const void* q, const void* k,
-                                          const void* v, void* o, int layer,
-                                          int batch, int n_rows, int n_head,
-                                          int t_len, void* stream);
+// Kernel B, in decode_cross_attention.cu of the same library; form 2
+// writes the hi/lo terms of out * v_scale.
+extern "C" int wjt_decode_cross_attention_scaled(
+    const void* q, const void* k, const void* v, const void* v_scale,
+    void* o, void* o_lo, int form, int layer, int batch, int n_rows,
+    int n_head, int t_len, void* stream);
+constexpr int kCrossTerms = 2;
 
 namespace {
 
@@ -107,17 +116,20 @@ constexpr int kAPitch = kKc + 8;     // bf16 per activation row in smem
 constexpr int kMinKSplit = 128;  // least k a split-K block takes
 constexpr int kMaxSplits = 8;    // split-K blocks form one cluster (<= 8)
 constexpr int kTargetBlocks = 264;   // 2 blocks on each of 132 SMs
+constexpr int kLnMaxKPer = 256;  // widest k-slice an LN-mode block holds
+constexpr int kResPitch = kLnMaxKPer + 8;   // bf16 per resident A row
 constexpr int kAttnThreads = 128;
 constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kPrepThreads = 256;    // the split pass
-constexpr int kLnThreads = 128;      // the LayerNorm pre-pass: one row
-constexpr int kLnMaxK = 2048;        // widest row it holds in registers
 constexpr float kAttnScale = 0.125f;  // hd^-0.5 at hd = 64
 
 // Epilogues of the GEMV: f32 store (with the new K/V columns of the
 // fused QKV in bf16), exact GELU written as bf16 hi/lo terms, residual
-// add into bf16, and the cross block's q-fold (hd^-0.5 * k_scale).
+// add into bf16, and the cross block's q-fold (hd^-0.5 * k_scale). All but
+// the residual one take LayerNorm(x) as their input (LN mode).
 enum Epi { kEpiStore = 0, kEpiGelu = 1, kEpiResidual = 2, kEpiQFold = 3 };
+__host__ __device__ constexpr bool ln_mode(int epi) {
+  return epi != kEpiResidual;
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -190,6 +202,12 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
                : "memory");
   return v;
 }
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
   asm volatile(
@@ -208,86 +226,15 @@ __device__ __forceinline__ void mma_16816(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// LayerNorm pre-pass: one block per row holds the row in registers,
-// takes its two-pass f32 statistics once, and writes LN(x) as bf16 hi/lo
-// terms, (rows, k); k <= kLnMaxK.
-__global__ void __launch_bounds__(kLnThreads)
-ln_split_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
-                const bf16* __restrict__ ln_b, bf16* __restrict__ hi,
-                bf16* __restrict__ lo, int k) {
-  constexpr int kPairs = kLnMaxK / (2 * kLnThreads);
-  __shared__ float red_s[2][kLnThreads / 32];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int64_t row = (int64_t)blockIdx.x * k;
-  float2 v[kPairs];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int i = 2 * (tid + j * kLnThreads);
-    v[j] = i < k ? load2(x + row + i) : make_float2(0.f, 0.f);
-    s += v[j].x + v[j].y;
-  }
-  s = warp_sum(s);
-  if (lane == 0) red_s[0][warp] = s;
-  __syncthreads();
-  s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kLnThreads / 32; ++w) s += red_s[0][w];
-  const float mean = s / k;
-  float var = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int i = 2 * (tid + j * kLnThreads);
-    if (i < k) {
-      const float a = v[j].x - mean, b = v[j].y - mean;
-      var += a * a + b * b;
-    }
-  }
-  var = warp_sum(var);
-  if (lane == 0) red_s[1][warp] = var;
-  __syncthreads();
-  var = 0.f;
-#pragma unroll
-  for (int w = 0; w < kLnThreads / 32; ++w) var += red_s[1][w];
-  const float rstd = rsqrtf(var / k + 1e-5f);
-#pragma unroll
-  for (int j = 0; j < kPairs; ++j) {
-    const int i = 2 * (tid + j * kLnThreads);
-    if (i < k) {
-      const float2 gv = load2(ln_s + i), bv = load2(ln_b + i);
-      split_store((v[j].x - mean) * rstd * gv.x + bv.x,
-                  (v[j].y - mean) * rstd * gv.y + bv.y, hi + row + i,
-                  lo + row + i);
-    }
-  }
-}
-
-// Split pass: a (rows, k) f32, times a_scale[(r / group) * n_head + i /
-// 64] when given (the cross block's v_scale), as bf16 hi/lo terms.
-__global__ void __launch_bounds__(kPrepThreads)
-split_kernel(const float* __restrict__ a, const float* __restrict__ a_scale,
-             int group, int n_head, bf16* __restrict__ hi,
-             bf16* __restrict__ lo, int rows, int k) {
-  const int64_t pairs = (int64_t)rows * k / 2;
-  for (int64_t u = blockIdx.x * (int64_t)kPrepThreads + threadIdx.x;
-       u < pairs; u += (int64_t)gridDim.x * kPrepThreads) {
-    const int64_t e = 2 * u;
-    float2 v = load2(a + e);
-    if (a_scale != nullptr) {
-      const int r = (int)(e / k), i = (int)(e % k);
-      const float f = a_scale[(r / group) * n_head + i / kHd];
-      v.x *= f;
-      v.y *= f;
-    }
-    split_store(v.x, v.y, hi + e, lo + e);
-  }
-}
-
 // One int8 GEMV stage: out[r][n] = epilogue(sum_k A[r][k] * W[k][n]),
-// A given as its bf16 terms a_hi + a_lo.
+// A given as its bf16 terms a_hi + a_lo, or in LN mode as LN(x) * ln_s +
+// ln_b.
 struct Gemv {
   const bf16* a_hi;        // (rows, k)
   const bf16* a_lo;
+  const bf16* x_ln;        // LN mode: (rows, k)
+  const bf16* ln_s;        // LN mode: (k)
+  const bf16* ln_b;
   const int8_t* w;         // (k, n) int8 codes
   const float* w_scale;    // (n) per-output-channel scale
   const bf16* bias;        // (n)
@@ -303,21 +250,164 @@ struct Gemv {
   int rows, k, n, k_per_split, d_model, group, n_head;
 };
 
-template <int MT>
+// Shared memory of a GEMV block: the ring of weight chunks (with the
+// chunks' activation terms, unless in LN mode), then in LN mode the
+// resident terms of LN(x) over the block's k-slice and the row statistics
+// the cluster's ranks read from one another.
+template <int MT, bool LN>
 struct GemvSmem {
   static constexpr int kRows = 16 * MT;
   static constexpr int kWBytes = kKc * kWPitch;
   static constexpr int kABytes = kRows * kAPitch * 2;   // one term
-  static constexpr int kStage = kWBytes + 2 * kABytes;
-  static constexpr int kBytes = kStages * kStage;
+  static constexpr int kStage = LN ? kWBytes : kWBytes + 2 * kABytes;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kResBytes = LN ? kRows * kResPitch * 2 : 0;
+  static constexpr int kStatBytes = LN ? kRows * 4 * 4 : 0;
+  static constexpr int kBytes = kRing + 2 * kResBytes + kStatBytes;
+  static_assert(kRows * (kNt + 4) * 4 <= kRing, "the sums' tile fits");
 };
+
+// LN mode: the block's rows of x over its k-slice [k_begin, k_end), and
+// the LayerNorm parameters of its columns, in registers: warp w holds rows
+// w, w + 8, ..., its lanes pairs of columns. Loaded before the weights are
+// requested, so they are not queued behind them.
+template <int MT>
+struct LnSlice {
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRowsPerWarp = 16 * MT / kWarps;
+  static constexpr int kPairs = kLnMaxKPer / 64;   // pairs a lane holds
+  __nv_bfloat162 x[kRowsPerWarp][kPairs];
+  __nv_bfloat162 s[kPairs], b[kPairs];
+
+  __device__ __forceinline__ void load(const Gemv& p, int r0, int rows,
+                                       int k_begin, int k_len) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int col = 2 * (lane + 32 * j);
+      const bool ok = col < k_len;
+      s[j] = ok ? *reinterpret_cast<const __nv_bfloat162*>(
+                      p.ln_s + k_begin + col) : zero;
+      b[j] = ok ? *reinterpret_cast<const __nv_bfloat162*>(
+                      p.ln_b + k_begin + col) : zero;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = warp + kWarps * i;
+        x[i][j] = (ok && r < rows)
+            ? *reinterpret_cast<const __nv_bfloat162*>(
+                  p.x_ln + (int64_t)(r0 + r) * p.k + k_begin + col)
+            : zero;
+      }
+    }
+  }
+};
+
+// LN mode: LayerNorm of the slice as hi/lo terms in shared memory
+// (res_hi, res_lo; kResPitch a row): the rows' partial statistics (mean
+// and sum of squares about it), one thread a row to combine the cluster's
+// ranks, then the terms from the registers.
+template <int MT>
+__device__ __forceinline__ void ln_terms(const Gemv& p, const LnSlice<MT>& xs,
+                                         int rows, int k_len, float* stats,
+                                         bf16* res_hi, bf16* res_lo) {
+  using X = LnSlice<MT>;
+  constexpr int kRows = 16 * MT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // partial statistics of the slice: mean, and sum of squares about it
+#pragma unroll
+  for (int i = 0; i < X::kRowsPerWarp; ++i) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < X::kPairs; ++j) {
+      const float2 v = __bfloat1622float2(xs.x[i][j]);
+      sum += v.x + v.y;
+    }
+    const float mean = warp_sum(sum) / k_len;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < X::kPairs; ++j) {
+      if (2 * (lane + 32 * j) < k_len) {
+        const float2 v = __bfloat1622float2(xs.x[i][j]);
+        const float a = v.x - mean, b = v.y - mean;
+        q += a * a + b * b;
+      }
+    }
+    const float m2 = warp_sum(q);
+    if (lane == 0) {
+      const int r = warp + X::kWarps * i;
+      stats[2 * r] = mean;
+      stats[2 * r + 1] = m2;
+    }
+  }
+  const int n_split = gridDim.y;
+  if (n_split > 1) cluster_sync(); else __syncthreads();
+  // the ranks' statistics in rank order, one thread a row (Chan's
+  // combination; the same result in every rank)
+  float* row_norm = stats + 2 * kRows;      // mean, 1/std of each row
+  if (tid < rows) {
+    const uint32_t local = static_cast<uint32_t>(
+        __cvta_generic_to_shared(stats + 2 * tid));
+    float2 st[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      st[s] = s >= n_split ? make_float2(0.f, 0.f)
+            : n_split > 1 ? ld_cluster_f2(map_rank(local, s))
+                          : make_float2(stats[2 * tid], stats[2 * tid + 1]);
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      if (s >= n_split) break;
+      const float nb = (float)(min(p.k, (s + 1) * p.k_per_split)
+                               - s * p.k_per_split);
+      if (s == 0) {
+        n = nb; mean = st[s].x; m2 = st[s].y;
+      } else {
+        const float nab = n + nb;
+        const float delta = st[s].x - mean;
+        mean += delta * (nb / nab);
+        m2 += st[s].y + delta * delta * (n * nb / nab);
+        n = nab;
+      }
+    }
+    row_norm[2 * tid] = mean;
+    row_norm[2 * tid + 1] = rsqrtf(m2 / n + 1e-5f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < X::kRowsPerWarp; ++i) {
+    const int r = warp + X::kWarps * i;
+    const float mean = row_norm[2 * r], rstd = row_norm[2 * r + 1];
+#pragma unroll
+    for (int j = 0; j < X::kPairs; ++j) {
+      const int col = 2 * (lane + 32 * j);
+      if (col >= k_len) continue;
+      bf16* hi = res_hi + r * kResPitch + col;
+      bf16* lo = res_lo + r * kResPitch + col;
+      if (r >= rows) {   // rows past the end: zero terms
+        *reinterpret_cast<uint32_t*>(hi) = 0u;
+        *reinterpret_cast<uint32_t*>(lo) = 0u;
+        continue;
+      }
+      const float2 x = __bfloat1622float2(xs.x[i][j]);
+      const float2 g = __bfloat1622float2(xs.s[j]);
+      const float2 b = __bfloat1622float2(xs.b[j]);
+      split_store((x.x - mean) * rstd * g.x + b.x,
+                  (x.y - mean) * rstd * g.y + b.y, hi, lo);
+    }
+  }
+}
 
 // Block tile: 16*MT rows x kNt columns; warp w owns columns 16w .. 16w +
 // 15, so its accumulators are MT x 2 n8 tiles of the mma C layout.
 template <int EPI, int MT>
 __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
-  using S = GemvSmem<MT>;
+  constexpr bool LN = ln_mode(EPI);
+  using S = GemvSmem<MT, LN>;
   extern __shared__ __align__(16) uint8_t smem[];
+  bf16* res_hi = reinterpret_cast<bf16*>(smem + S::kRing);
+  bf16* res_lo = res_hi + S::kRows * kResPitch;
+  float* stats = reinterpret_cast<float*>(smem + S::kRing + 2 * S::kResBytes);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -339,18 +429,20 @@ __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
       cp_async16(st + kk * kWPitch + cc,
                  p.w + (int64_t)(kc + kk) * p.n + n0 + cc, true);
     }
+    if (!LN) {   // in LN mode A is resident
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {  // hi, then lo: 16*MT rows of 128 bytes
-      const int u = tid + i * kThreads;
-      const int term = u / (S::kRows * 8);
-      const int rem = u % (S::kRows * 8);
-      const int r = rem >> 3, cc = (rem & 7) * 8;
-      const bool ok = r < rows;
-      const bf16* src = (term ? p.a_lo : p.a_hi) +
-                        (ok ? (int64_t)(r0 + r) * p.k + kc + cc : 0);
-      cp_async16(
-          st + S::kWBytes + term * S::kABytes + (r * kAPitch + cc) * 2, src,
-          ok);
+      for (int i = 0; i < MT; ++i) {  // hi, then lo: 16*MT rows of 128 B
+        const int u = tid + i * kThreads;
+        const int term = u / (S::kRows * 8);
+        const int rem = u % (S::kRows * 8);
+        const int r = rem >> 3, cc = (rem & 7) * 8;
+        const bool ok = r < rows;
+        const bf16* src = (term ? p.a_lo : p.a_hi) +
+                          (ok ? (int64_t)(r0 + r) * p.k + kc + cc : 0);
+        cp_async16(
+            st + S::kWBytes + term * S::kABytes + (r * kAPitch + cc) * 2,
+            src, ok);
+      }
     }
   };
 
@@ -361,11 +453,16 @@ __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
     for (int j = 0; j < 2; ++j)
       acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
 
+  // LN mode: x and the LN parameters first, then the first weight
+  // chunks, which arrive while the terms of LN(x) are made
+  LnSlice<MT> xs;
+  if (LN) xs.load(p, r0, rows, k_begin, k_end - k_begin);
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) {
     if (c < n_chunks) load(c);
     cp_async_commit();
   }
+  if (LN) ln_terms<MT>(p, xs, rows, k_end - k_begin, stats, res_hi, res_lo);
   for (int c = 0; c < n_chunks; ++c) {
     cp_async_wait<kStages - 2>();
     __syncthreads();   // chunk c landed; chunk c - 1's stage is free
@@ -373,8 +470,10 @@ __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
     cp_async_commit();
     const uint8_t* st = smem + (c % kStages) * S::kStage;
     const int8_t* ws = reinterpret_cast<const int8_t*>(st);
-    const bf16* ah = reinterpret_cast<const bf16*>(st + S::kWBytes);
-    const bf16* al = ah + S::kRows * kAPitch;
+    constexpr int kPitch = LN ? kResPitch : kAPitch;
+    const bf16* ah = LN ? res_hi + c * kKc
+                        : reinterpret_cast<const bf16*>(st + S::kWBytes);
+    const bf16* al = LN ? res_lo + c * kKc : ah + S::kRows * kAPitch;
 #pragma unroll
     for (int ss = 0; ss < kKc / 16; ++ss) {
       const int k_off = ss * 16;
@@ -393,7 +492,7 @@ __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t ahf[4], alf[4];
         const int off =
-            (mt * 16 + (lane & 15)) * kAPitch + k_off + (lane >> 4) * 8;
+            (mt * 16 + (lane & 15)) * kPitch + k_off + (lane >> 4) * 8;
         ldmatrix_x4(ahf, ah + off);
         ldmatrix_x4(alf, al + off);
 #pragma unroll
@@ -607,27 +706,32 @@ struct Plan {
 // holds the rows; then column tiles x row tiles, and K split until there
 // are at most kTargetBlocks blocks, one wave (each split keeps >=
 // kMinKSplit of k; at most kMaxSplits, the blocks of one cluster). A
-// fixed target, not the device's SM count, so that the workspace size is
-// a function of the shapes alone.
-Plan plan(int rows, int k, int n) {
+// fixed target, not the device's SM count, so that the grid is a function
+// of the shapes alone. In LN mode each split holds at most kLnMaxKPer of
+// k in shared memory, so k may be at most kMaxSplits * kLnMaxKPer there;
+// splits == 0 when it is not.
+Plan plan(int rows, int k, int n, bool ln) {
   Plan pl;
   pl.mt = rows <= 16 ? 1 : rows <= 32 ? 2 : 4;
   pl.tiles_x = n / kNt;
   pl.tiles_z = (rows + 16 * pl.mt - 1) / (16 * pl.mt);
   const int want = std::min(kTargetBlocks / pl.tiles(), kMaxSplits);
-  const int s = std::max(1, std::min(want, k / kMinKSplit));
+  int s = std::max(1, std::min(want, k / kMinKSplit));
+  if (ln) s = std::max(s, (k + kLnMaxKPer - 1) / kLnMaxKPer);
   pl.k_per = ((k + s - 1) / s + kKc - 1) / kKc * kKc;
   pl.splits = (k + pl.k_per - 1) / pl.k_per;
+  if (pl.splits > kMaxSplits || (ln && pl.k_per > kLnMaxKPer)) pl.splits = 0;
   return pl;
 }
 
 template <int EPI, int MT>
 int launch_gemv(const Plan& pl, const Gemv& p, cudaStream_t stream) {
+  using S = GemvSmem<MT, ln_mode(EPI)>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         qgemv_kernel<EPI, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        GemvSmem<MT>::kBytes);
+        S::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
@@ -635,7 +739,7 @@ int launch_gemv(const Plan& pl, const Gemv& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.tiles_x, pl.splits, pl.tiles_z);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = GemvSmem<MT>::kBytes;
+  cfg.dynamicSmemBytes = S::kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -650,24 +754,17 @@ int launch_gemv(const Plan& pl, const Gemv& p, cudaStream_t stream) {
 
 template <int EPI>
 int run_gemv(Gemv p, cudaStream_t stream) {
-  const Plan pl = plan(p.rows, p.k, p.n);
+  const Plan pl = plan(p.rows, p.k, p.n, ln_mode(EPI));
+  if (pl.splits == 0) return static_cast<int>(cudaErrorInvalidValue);
   p.k_per_split = pl.k_per;
   if (pl.mt == 1) return launch_gemv<EPI, 1>(pl, p, stream);
   if (pl.mt == 2) return launch_gemv<EPI, 2>(pl, p, stream);
   return launch_gemv<EPI, 4>(pl, p, stream);
 }
 
-int run_ln_split(const void* x, const bf16* ln_s, const bf16* ln_b, bf16* hi,
-                 bf16* lo, int rows, int k, cudaStream_t stream) {
-  if (k > kLnMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  ln_split_kernel<<<rows, kLnThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), ln_s, ln_b, hi, lo, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Workspace of one entry, carved in this order: f32 intermediates, the
-// bf16 hi/lo terms of the first GEMV's input (s0, rows x d), and those of
-// the second's where it differs (s1, rows x hidden, MLP only).
+// bf16 hi/lo terms of the second GEMV's input: s0 (rows x d) for the self
+// and cross blocks, s1 (rows x hidden) for the MLP.
 struct Work {
   float* f;
   bf16 *s0_hi, *s0_lo, *s1_hi, *s1_lo;
@@ -687,7 +784,7 @@ Shapes shapes(int kind, int rows, int d, int hidden) {
   if (kind == kSelf) {
     s.inter_floats = (int64_t)rows * 3 * d;          // qkv
   } else if (kind == kCross) {
-    s.inter_floats = (int64_t)rows * 2 * d;          // q, attention out
+    s.inter_floats = (int64_t)rows * d;              // q
   } else {
     s.inter_floats = 0;
     s.s1_elems = (int64_t)rows * hidden;             // GELU(h W1) terms
@@ -698,7 +795,7 @@ Shapes shapes(int kind, int rows, int d, int hidden) {
 int64_t workspace_bytes(int kind, int rows, int d, int hidden, Work* w,
                         void* base) {
   const Shapes s = shapes(kind, rows, d, hidden);
-  const int64_t s0 = (int64_t)rows * d;
+  const int64_t s0 = kind == kMlp ? 0 : (int64_t)rows * d;
   // every piece is a multiple of 16 bytes (d, hidden % 128 == 0)
   const int64_t bytes_f = s.inter_floats * 4;
   if (w != nullptr) {
@@ -724,6 +821,17 @@ Gemv gemv_base(int rows, int k, int n, int d, const bf16* a_hi,
   return p;
 }
 
+// an LN-mode GEMV of x (rows, k) with layer L's LayerNorm parameters
+Gemv gemv_ln(int rows, int k, int n, int d, const void* x, const void* ln_s,
+             const void* ln_b, int64_t L, const int8_t* w, const float* ws,
+             const void* bias) {
+  Gemv p = gemv_base(rows, k, n, d, nullptr, nullptr, w, ws, bias);
+  p.x_ln = static_cast<const bf16*>(x);
+  p.ln_s = static_cast<const bf16*>(ln_s) + L * k;
+  p.ln_b = static_cast<const bf16*>(ln_b) + L * k;
+  return p;
+}
+
 #define WJT_TRY(expr)                  \
   do {                                 \
     const int err_ = (expr);           \
@@ -743,11 +851,8 @@ int self_block(const void* x, const void* ln_s, const void* ln_b,
   const int64_t L = layer;
   const bf16* xt = static_cast<const bf16*>(x);
 
-  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
-                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
-                       wk.s0_lo, rows, d, stream));
-  Gemv g1 = gemv_base(
-      rows, d, 3 * d, d, wk.s0_hi, wk.s0_lo,
+  Gemv g1 = gemv_ln(
+      rows, d, 3 * d, d, x, ln_s, ln_b, L,
       static_cast<const int8_t*>(wqkv) + L * d * 3 * d,
       static_cast<const float*>(wqkv_s) + L * 3 * d,
       static_cast<const bf16*>(bqkv) + L * 3 * d);
@@ -756,7 +861,7 @@ int self_block(const void* x, const void* ln_s, const void* ln_b,
   g1.v_new = static_cast<bf16*>(v_new);
   WJT_TRY(run_gemv<kEpiStore>(g1, stream));
 
-  // the attention output's terms reuse s0: the QKV GEMV has read it
+  // the attention output, as terms in s0
   const int64_t slab = L * rows * t_cache * d;
   self_attention_kernel<<<rows * n_head, kAttnThreads,
                           (size_t)(pos > 0 ? pos : 1) * sizeof(float),
@@ -786,16 +891,12 @@ int cross_block(const void* x, const void* ln_s, const void* ln_b,
   Work wk;
   workspace_bytes(kCross, rows, d, 0, &wk, work);
   float* q = wk.f;
-  float* attn = wk.f + (int64_t)rows * d;
   const int64_t L = layer;
   const int group = rows / batch;
   const bf16* xt = static_cast<const bf16*>(x);
 
-  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
-                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
-                       wk.s0_lo, rows, d, stream));
-  Gemv g1 = gemv_base(
-      rows, d, d, d, wk.s0_hi, wk.s0_lo,
+  Gemv g1 = gemv_ln(
+      rows, d, d, d, x, ln_s, ln_b, L,
       static_cast<const int8_t*>(cwq) + L * d * d,
       static_cast<const float*>(cwq_s) + L * d,
       static_cast<const bf16*>(cbq) + L * d);
@@ -806,16 +907,11 @@ int cross_block(const void* x, const void* ln_s, const void* ln_b,
   g1.n_head = n_head;
   WJT_TRY(run_gemv<kEpiQFold>(g1, stream));
 
-  // q (B, g, H, 64) = (rows, d): g query rows per cross-K/V row
-  WJT_TRY(wjt_decode_cross_attention(q, ck, cv, attn, layer, batch, group,
-                                     n_head, t_cross, stream));
-  // attention output times v_scale, as terms in s0 (the q GEMV has read it)
-  split_kernel<<<std::min((rows * d / 2 + kPrepThreads - 1) / kPrepThreads,
-                          1024),
-                 kPrepThreads, 0, stream>>>(
-      attn, static_cast<const float*>(v_scale) + L * batch * n_head, group,
-      n_head, wk.s0_hi, wk.s0_lo, rows, d);
-  WJT_TRY(static_cast<int>(cudaGetLastError()));
+  // q (B, g, H, 64) = (rows, d): g query rows per cross-K/V row; the
+  // attention output times v_scale, as terms in s0
+  WJT_TRY(wjt_decode_cross_attention_scaled(
+      q, ck, cv, v_scale, wk.s0_hi, wk.s0_lo, kCrossTerms, layer, batch,
+      group, n_head, t_cross, stream));
 
   Gemv g2 = gemv_base(
       rows, d, d, d, wk.s0_hi, wk.s0_lo,
@@ -837,11 +933,8 @@ int mlp_block(const void* x, const void* ln_s, const void* ln_b,
   const int64_t L = layer;
   const bf16* xt = static_cast<const bf16*>(x);
 
-  WJT_TRY(run_ln_split(x, static_cast<const bf16*>(ln_s) + L * d,
-                       static_cast<const bf16*>(ln_b) + L * d, wk.s0_hi,
-                       wk.s0_lo, rows, d, stream));
-  Gemv g1 = gemv_base(
-      rows, d, hidden, d, wk.s0_hi, wk.s0_lo,
+  Gemv g1 = gemv_ln(
+      rows, d, hidden, d, x, ln_s, ln_b, L,
       static_cast<const int8_t*>(w1) + L * d * hidden,
       static_cast<const float*>(w1_s) + L * hidden,
       static_cast<const bf16*>(b1) + L * hidden);

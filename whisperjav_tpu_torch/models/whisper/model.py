@@ -31,7 +31,7 @@ from torch import nn
 
 from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.ops.cuda.decode_attention import (
-    decode_cross_attention,
+    decode_cross_attention, decode_cross_attention_bf16,
 )
 from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
     attention, encoder_attention,
@@ -244,7 +244,8 @@ def cross_attention(q: torch.Tensor, cross: CrossKV,
     beams of a row attend the same audio), the g beams fold into the
     query axis, q (B*g, Tq) -> (B, g*Tq), so one cross-K/V row serves all
     of them. The attention scale and k_scale are folded into q in f32;
-    v_scale multiplies the kernel's output.
+    v_scale multiplies the kernel's f32 output, before the one rounding to
+    q's dtype (in the kernel's epilogue for bf16).
     """
     bq, tq, h, hd = q.shape
     b = cross.k.shape[1]
@@ -255,9 +256,13 @@ def cross_attention(q: torch.Tensor, cross: CrossKV,
     scale = (hd ** -0.25) * (hd ** -0.25)
     qf = (q.reshape(b, g * tq, h, hd).float() * scale
           * cross.k_scale[layer].reshape(b, 1, h, 1)).contiguous()
-    a = decode_cross_attention(qf, cross.k, cross.v, layer)
-    a = a * cross.v_scale[layer].reshape(b, 1, h, 1)
-    return a.to(q.dtype).reshape(bq, tq, h, hd)
+    if q.dtype == torch.bfloat16:
+        a = decode_cross_attention_bf16(qf, cross.k, cross.v, layer,
+                                        cross.v_scale)
+    else:
+        a = decode_cross_attention(qf, cross.k, cross.v, layer)
+        a = (a * cross.v_scale[layer].reshape(b, 1, h, 1)).to(q.dtype)
+    return a.reshape(bq, tq, h, hd)
 
 
 def _self_attention_column(q, k_new, v_new, cache_k, cache_v, col_bias,

@@ -106,7 +106,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 def open_library(path: Path) -> ctypes.CDLL:
     """Load a built library and declare every signature of the C
-    interface (the same in every version of the kernels)."""
+    interface (the same in every version of the kernels; an older
+    version may lack the scaled forms of Kernel B)."""
     lib = ctypes.CDLL(str(path))
     lib.wjt_encoder_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,
@@ -115,6 +116,10 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.wjt_decode_cross_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.wjt_decode_cross_attention.restype = _I
+    if hasattr(lib, "wjt_decode_cross_attention_scaled"):
+        lib.wjt_decode_cross_attention_scaled.argtypes = [_P] * 6 + [_I] * 6 \
+            + [_P]
+        lib.wjt_decode_cross_attention_scaled.restype = _I
     lib.wjt_decode_cross_attention_max_t.argtypes = []
     lib.wjt_decode_cross_attention_max_t.restype = _I
     lib.wjt_fused_workspace_bytes.argtypes = [_I, _I, _I, _I]

@@ -1,4 +1,4 @@
-"""Decode-step int8 cross-attention: the Hopper kernel and its plain version.
+"""Decode-step int8 cross-attention: the Hopper kernel and its plain versions.
 
 :func:`decode_cross_attention` computes, for each of R query rows that
 share one cross-K/V row (R = g*q_len under the beam fold of
@@ -8,16 +8,26 @@ share one cross-K/V row (R = g*q_len under the beam fold of
     K, V (L, B, H, hd, T) int8, one layer selected by ``layer``
     -> (B, R, H, hd) f32, before v_scale
 
-as ``whisperjav_tpu.ops.pallas.decode_attention`` does for R = 1. On
-CUDA tensors it launches ``csrc/decode_cross_attention.cu`` or raises;
-on CPU tensors it runs :func:`decode_cross_attention_plain`.
+as ``whisperjav_tpu.ops.pallas.decode_attention`` does for R = 1. The
+same kernel also writes two scaled forms, y = out * v_scale[layer, b, h]
+(v_scale: L*B*H f32 values, (L, B, H) or (L, B, H, 1, 1)):
+:func:`decode_cross_attention_bf16` returns bf16(y), the unfused layers'
+cross-attention output; :func:`decode_cross_attention_terms` returns
+(hi, lo) = (bf16(y), bf16(y - hi)), the fused cross block's out-projection
+input. On CUDA tensors each wrapper launches
+``csrc/decode_cross_attention.cu`` or raises; on CPU tensors it runs its
+plain version, built on :func:`decode_cross_attention_plain`.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from whisperjav_tpu_torch.ops.cuda import _build
+
+_BF16, _TERMS = 1, 2      # the kernel's scaled forms
 
 
 def decode_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -31,54 +41,128 @@ def decode_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).contiguous()
 
 
-def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, layer: int) -> torch.Tensor:
-    """One decode step of cross-attention over layer ``layer`` of int8 K/V."""
-    devices = {q.device, k.device, v.device}
-    if devices == {torch.device("cpu")}:
-        return decode_cross_attention_plain(q, k, v, layer)
+def _scaled_plain(q, k, v, layer, v_scale) -> torch.Tensor:
+    n_layer, b, h = k.shape[:3]
+    vs = v_scale.reshape(n_layer, b, h)[layer].reshape(b, 1, h, 1)
+    return decode_cross_attention_plain(q, k, v, layer) * vs.float()
+
+
+def decode_cross_attention_bf16_plain(q, k, v, layer: int,
+                                      v_scale) -> torch.Tensor:
+    """bf16(out * v_scale): the f32 product, rounded once."""
+    return _scaled_plain(q, k, v, layer, v_scale).to(torch.bfloat16)
+
+
+def decode_cross_attention_terms_plain(q, k, v, layer: int, v_scale
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) bf16 terms of y = out * v_scale: hi = bf16(y), lo =
+    bf16(y - hi); hi + lo is within 2^-16 of y, relative."""
+    y = _scaled_plain(q, k, v, layer, v_scale)
+    hi = y.to(torch.bfloat16)
+    return hi, (y - hi.float()).to(torch.bfloat16)
+
+
+def _launch(what: str, form: int, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, layer: int, v_scale: Optional[torch.Tensor]):
+    """Checks the operands, then launches the kernel in ``form`` (0 f32,
+    1 bf16, 2 terms); returns the output tensors."""
+    tensors = (q, k, v) if v_scale is None else (q, k, v, v_scale)
+    devices = {t.device for t in tensors}
     if len(devices) != 1 or not q.is_cuda:
-        raise ValueError(f"decode_cross_attention: q, k, v must share one "
-                         f"CUDA device or all lie on the CPU, got {devices}")
+        raise ValueError(f"{what}: q, k, v{', v_scale' if form else ''} must "
+                         f"share one CUDA device or all lie on the CPU, got "
+                         f"{devices}")
     if k.dim() != 5 or k.shape != v.shape:
-        raise ValueError(f"decode_cross_attention: K and V must be one "
-                         f"(L, B, H, hd, T) shape, got {tuple(k.shape)} "
-                         f"and {tuple(v.shape)}")
+        raise ValueError(f"{what}: K and V must be one (L, B, H, hd, T) "
+                         f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
     n_layer, b, h, hd, t = k.shape
     if q.dim() != 4 or q.shape[0] != b or q.shape[2:] != (h, hd):
-        raise ValueError(f"decode_cross_attention: q must be (B, R, H, hd) "
-                         f"= ({b}, R, {h}, {hd}), got {tuple(q.shape)}")
+        raise ValueError(f"{what}: q must be (B, R, H, hd) = ({b}, R, {h}, "
+                         f"{hd}), got {tuple(q.shape)}")
     if hd != 64:
-        raise ValueError(f"decode_cross_attention: the kernel takes hd = "
-                         f"64, got {hd}")
+        raise ValueError(f"{what}: the kernel takes hd = 64, got {hd}")
     if q.dtype != torch.float32 or k.dtype != torch.int8 \
             or v.dtype != torch.int8:
-        raise ValueError(f"decode_cross_attention: needs f32 q and int8 "
-                         f"K/V, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{what}: needs f32 q and int8 K/V, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("decode_cross_attention: q, K and V must be "
-                         "contiguous")
+        raise ValueError(f"{what}: q, K and V must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{what}: K and V must start 16-byte aligned")
+    if v_scale is not None and (
+            v_scale.numel() != n_layer * b * h
+            or v_scale.dtype != torch.float32
+            or not v_scale.is_contiguous()):
+        raise ValueError(f"{what}: v_scale must be {n_layer * b * h} "
+                         f"contiguous f32 values (L, B, H), got "
+                         f"{tuple(v_scale.shape)} {v_scale.dtype}")
     if not 0 <= layer < n_layer:
-        raise ValueError(f"decode_cross_attention: layer {layer} outside "
-                         f"[0, {n_layer})")
+        raise ValueError(f"{what}: layer {layer} outside [0, {n_layer})")
     lib = _build.load_library()
     max_t = lib.wjt_decode_cross_attention_max_t()
     if not 0 < t <= max_t:
-        raise ValueError(f"decode_cross_attention: T = {t} outside "
-                         f"(0, {max_t}]")
+        raise ValueError(f"{what}: T = {t} outside (0, {max_t}]")
     rows = q.shape[1]
-    out = torch.empty((b, rows, h, hd), dtype=torch.float32,
-                      device=q.device)
-    if out.numel() == 0:
-        return out
+    dtype = torch.float32 if form == 0 else torch.bfloat16
+    outs = [torch.empty((b, rows, h, hd), dtype=dtype, device=q.device)
+            for _ in range(2 if form == _TERMS else 1)]
+    if outs[0].numel() == 0:
+        return outs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.wjt_decode_cross_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(layer), b, rows, h, t, stream)
-    _build.check(err, "decode_cross_attention kernel")
+        if form == 0:
+            err = lib.wjt_decode_cross_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[0].data_ptr(),
+                int(layer), b, rows, h, t, stream)
+        else:
+            err = lib.wjt_decode_cross_attention_scaled(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
+                outs[0].data_ptr(), outs[-1].data_ptr(), form, int(layer), b,
+                rows, h, t, stream)
+    _build.check(err, f"{what} kernel")
+    return outs
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return {t.device for t in tensors} == {torch.device("cpu")}
+
+
+def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, layer: int) -> torch.Tensor:
+    """One decode step of cross-attention over layer ``layer`` of int8
+    K/V: f32, before v_scale."""
+    if _on_cpu(q, k, v):
+        return decode_cross_attention_plain(q, k, v, layer)
+    (out,) = _launch("decode_cross_attention", 0, q, k, v, layer, None)
     decode_cross_attention.launches += 1
     return out
 
 
+def decode_cross_attention_bf16(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, layer: int,
+                                v_scale: torch.Tensor) -> torch.Tensor:
+    """bf16(out * v_scale) of one decode step over layer ``layer``."""
+    if _on_cpu(q, k, v, v_scale):
+        return decode_cross_attention_bf16_plain(q, k, v, layer, v_scale)
+    (out,) = _launch("decode_cross_attention_bf16", _BF16, q, k, v, layer,
+                     v_scale)
+    decode_cross_attention_bf16.launches += 1
+    return out
+
+
+def decode_cross_attention_terms(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, layer: int,
+                                 v_scale: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 (hi, lo) terms of out * v_scale over layer ``layer``."""
+    if _on_cpu(q, k, v, v_scale):
+        return decode_cross_attention_terms_plain(q, k, v, layer, v_scale)
+    hi, lo = _launch("decode_cross_attention_terms", _TERMS, q, k, v, layer,
+                     v_scale)
+    decode_cross_attention_terms.launches += 1
+    return hi, lo
+
+
 decode_cross_attention.launches = 0
+decode_cross_attention_bf16.launches = 0
+decode_cross_attention_terms.launches = 0

@@ -20,10 +20,12 @@ launches ``csrc/fused_decode.cu`` (hd = 64, bf16 activations, widths a
 multiple of 128) or raises. Each wrapper counts its launches in
 ``<function>.launches``. The kernels inside the blocks have no entry
 point of their own; ``inner`` counts their launches by name: every
-entry launches the int8 GEMV (``qgemv``) twice and the LayerNorm
-pre-pass (``ln_split``) once, the self block its attention kernel
-(``self_attention``), the cross block Kernel B (``decode_cross_attention``)
-and the v_scale split (``v_split``).
+entry launches the int8 GEMV once in LN mode (``qgemv_ln``: LayerNorm of
+x taken inside it, for wqkv, cwq and w1) and once on precomputed terms
+(``qgemv``: wo, cwo, w2), the self block its attention kernel
+(``self_attention``), and the cross block Kernel B in its terms form
+(``decode_cross_attention_terms``, v_scale applied in its epilogue): 3 +
+3 + 2 launches a layer-step.
 """
 
 from __future__ import annotations
@@ -218,7 +220,7 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
             int(layer), int(pos), r, d, n_head, t_cache, _stream(x.device))
     _build.check(err, "self_block kernels")
     self_block.launches += 1
-    _count(qgemv=2, ln_split=1, self_attention=1)
+    _count(qgemv_ln=1, self_attention=1, qgemv=1)
     return x_out, k_new, v_new
 
 
@@ -270,7 +272,7 @@ def cross_block(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv, k_scale, v_scale,
             int(layer), r, b, d, n_head, t, _stream(x.device))
     _build.check(err, "cross_block kernels")
     cross_block.launches += 1
-    _count(qgemv=2, ln_split=1, decode_cross_attention=1, v_split=1)
+    _count(qgemv_ln=1, decode_cross_attention_terms=1, qgemv=1)
     return x_out
 
 
@@ -306,14 +308,14 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
             _stream(x.device))
     _build.check(err, "mlp_block kernels")
     mlp_block.launches += 1
-    _count(qgemv=2, ln_split=1)
+    _count(qgemv_ln=1, qgemv=1)
     return x_out
 
 
 # launches of the kernels inside the blocks, by name
 inner = {name: types.SimpleNamespace(launches=0)
-         for name in ("qgemv", "ln_split", "self_attention",
-                      "decode_cross_attention", "v_split")}
+         for name in ("qgemv_ln", "qgemv", "self_attention",
+                      "decode_cross_attention_terms")}
 
 
 def _count(**launches: int) -> None:
