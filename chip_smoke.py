@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
-                                          # turbo, large-v2 (comma list)
+                                          # turbo, large-v2, fidelity
+                                          # (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -25,26 +26,38 @@ Phases, in order; any failure exits non-zero before the result line:
    3, MLP 2);
 3. small-input references: a narrow Whisper (hd = 64, so the kernels
    run) encodes and decodes on the GPU in bf16 and on the CPU in f32 (the
-   plain versions) from the same seed, once with bf16 decoder weights and
+   plain versions) from the same seed, once with bf16 decoder weights,
    once with int8 decoder weights (single steps through the fused
-   blocks); the logits must agree;
-4. the flagless path: a synthetic ~120 s clip through
+   blocks) and once with bf16 weights on a synthetic vocabulary slice;
+   the logits must agree;
+4. the flagless path: a synthetic ~60 s clip through
    ``whisperjav_tpu_torch.cli.main`` with flagless defaults (balanced
    mode and sensitivity, turbo at full width from a seeded random init,
    batch 32, beam 2, temperature ladder, int8 cross-K/V, bf16), then a
    breakdown of one B=32 batch (encode, the beam rung, one sampled
    best-of-2 rung);
-5. the int8 path: a synthetic ~60 s clip through ``cli.main`` with
+5. the int8 path: a synthetic ~30 s clip through ``cli.main`` with
    ``--model large-v2 --int8-weights`` (the same balanced defaults at
    large-v2 full width and depth), then a greedy large-v2 breakdown: one
-   B=64 batch of 30 s windows, 128 new tokens.
+   B=64 batch of 30 s windows, 128 new tokens;
+6. the fidelity phase: the ZipEnhancer at its published width (ZIP_BASE)
+   denoises one 10 s chunk on the GPU and, with the same weights, on the
+   CPU (the waveforms must agree; the chunk's device time, peak memory
+   and FLOP bound are printed); then ``--mode fidelity --enhancer-weights
+   <seeded ZIP_BASE .npz> --word-timestamps`` on a ~25 s clip (large-v2
+   on bf16 decoder weights at full width and depth, B=32, beam 2, the
+   ladder; every scene must be enhanced and at least one word-alignment
+   pass must run) and ``--mode transformers --int8-weights --vocab-slice
+   16384`` on the same clip (overlapped 30 s chunks, the fused int8
+   blocks against an int8 lm head at the subset's size).
 
 Before each CLI run every kernel's launch count is zeroed, and read just
-after it; the SRT and metadata must exist and parse, and every kernel
-of that path must have launched (A and Kernel B's bf16 form on the
-flagless path; on the int8 path also the three fused blocks and the
-kernels inside them: the LN-mode GEMVs, the residual GEMVs, self
-attention and Kernel B's terms form, 8 launches a layer-step). The last
+after it; the SRT and metadata must exist and parse, every cue must lie
+inside the clip, and every kernel of that path must have launched (A and
+Kernel B's bf16 form on the flagless and fidelity paths; on the int8 and
+transformers paths also the three fused blocks and the kernels inside
+them: the LN-mode GEMVs, the residual GEMVs, self attention and Kernel
+B's terms form, 8 launches a layer-step). The last
 two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Exits with an error, and prints no
 result, where no CUDA GPU is visible.
@@ -94,6 +107,9 @@ B_TOL_REL_MAX = 2e-5
 FUSED_TOL_STEPS = 1.0
 # Small references: GPU bf16 vs CPU f32 logits, relative to their scale.
 REF_TOL_REL = 0.05
+# ZipEnhancer: f32 on both sides (no TF32), sums in other orders ->
+# waveforms within 1e-3 of the chunk's largest input magnitude.
+ZIP_TOL_REL = 1e-3
 # large-v2 at full width: 80 mels, d = 1280, 20 heads x 64, 32 + 32
 # layers; the self cache holds the 3-token prompt and 224 new tokens
 LV2_D, LV2_H, LV2_L, SELF_T = 1280, 20, 32, 3 + 224
@@ -101,6 +117,12 @@ LV2_D, LV2_H, LV2_L, SELF_T = 1280, 20, 32, 3 + 224
 HBM_BYTES_S = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+# the synthetic clips of the flagless and int8 CLI paths, in seconds
+TURBO_CLIP_S = 60.0
+INT8_CLIP_S = 30.0
+# the fidelity and transformers paths' clip (bursts are added until the
+# clip reaches it, so it comes out a few seconds longer)
+FIDELITY_CLIP_S = 20.0
 # an older version of the kernels, when present, is timed beside these
 V1_CSRC = Path(__file__).resolve().parent / "build" / "v1" / \
     "whisperjav_tpu_torch" / "csrc"
@@ -817,6 +839,157 @@ def check_small_int8_reference(dev):
         raise RuntimeError("GPU int8 path disagrees with the CPU f32 path")
 
 
+def check_small_vocab_reference(dev):
+    """The narrow Whisper on bf16 decoder weights and a synthetic 4000-id
+    vocabulary slice, each side's engine slicing its own embedding (GPU
+    bf16, CPU f32 plain versions): prefill and two steps must give the
+    same logits over the subset within REF_TOL_REL; then one greedy
+    decode on the GPU, whose tokens must come back as full-vocab ids of
+    the subset."""
+    from whisperjav_tpu_torch.models.whisper import model as tm
+    from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
+    from whisperjav_tpu_torch.models.whisper.vocab_subset import (
+        synthetic_text_ids,
+    )
+    from whisperjav_tpu_torch.models.whisper.weights import init_params
+    from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
+    cfg = tm.WhisperConfig(name="smoke-narrow-vocab", n_mels=80,
+                           n_audio_state=256, n_audio_head=4,
+                           n_audio_layer=2, n_text_state=256, n_text_head=4,
+                           n_text_layer=2, n_vocab=51865)
+    keep = synthetic_text_ids(cfg, 4000)
+    opts = DecodeOptions(max_new_tokens=24, cross_kv_int8=True)
+    engines = {
+        side: TranscriptionEngine(
+            cfg, init_params(cfg, torch.Generator().manual_seed(4)),
+            options=opts, batch_size=2, device=device, compute_dtype=dtype,
+            vocab_subset=keep)
+        for side, device, dtype in (("cpu", "cpu", torch.float32),
+                                    ("gpu", dev, torch.bfloat16))}
+    xa = torch.randn(2, 448, 256, generator=torch.Generator().manual_seed(5))
+    sub = engines["gpu"].model.config
+    with torch.inference_mode():
+        logits = {}
+        for side, eng in engines.items():
+            m = eng.model
+            x = xa.to(eng.device, eng.compute_dtype)
+            cross = tm.precompute_cross_kv(m, x)
+            cache = tm.KVCache.zeros(sub, 4, 8, eng.compute_dtype,
+                                     eng.device)
+            steps = [(torch.tensor([[sub.sot, sub.sot + 8,
+                                     sub.transcribe]] * 4), 0),
+                     (torch.full((4, 1), sub.timestamp_begin), 3),
+                     (torch.tensor([[5], [77], [300], [3999]]), 4)]
+            out = []
+            for tokens, pos in steps:
+                lg, cache = tm.decode_step(m, tokens.to(eng.device), pos,
+                                           cache, cross)
+                out.append(lg.float().cpu())
+            logits[side] = out
+        err = 0.0
+        for lg, lc in zip(logits["gpu"], logits["cpu"]):
+            if lg.shape != lc.shape or lg.shape[-1] != sub.n_vocab \
+                    or not torch.isfinite(lg).all():
+                raise RuntimeError("small vocab reference: bad logits "
+                                   f"{tuple(lg.shape)}")
+            err = max(err, ((lg - lc).abs().max() / lc.abs().max()).item())
+        eng = engines["gpu"]
+        res = eng.decode_encoded(xa.to(dev, torch.bfloat16), 0.0, 0)
+    kept = set(keep.tolist()) | set(range(cfg.eot, cfg.n_vocab))
+    bad = set(res.tokens.ravel().tolist()) - kept
+    log(f"small vocab-slice reference (d=256, 2+2 layers, bf16 decoder, "
+        f"{len(keep)} text ids + {cfg.n_vocab - cfg.eot} specials = "
+        f"{sub.n_vocab} logits): max rel err {err:.4g} (tol {REF_TOL_REL}); "
+        f"GPU greedy decode {int(res.length.max())} tokens, all in the "
+        f"subset: {not bad}")
+    if bad or not np.isfinite(res.avg_logprob).all():
+        raise RuntimeError(f"small vocab reference: tokens outside the "
+                           f"subset {sorted(bad)[:5]}")
+    if not err <= REF_TOL_REL:
+        raise RuntimeError("GPU vocab-sliced path disagrees with the CPU "
+                           "f32 path")
+
+
+def zip_flops(cfg, frames: int) -> float:
+    """Operations of one ZipEnhancer forward pass over ``frames`` STFT
+    frames: the convolutions (dense blocks, 1x1 and frequency convs), the
+    attention (projections, logits, weighted sums) and the FFNs of every
+    dual-path block; 2 per multiply-add. Norms and activations are left
+    out (a few operations per element)."""
+    c, f, fd, t = cfg.width, cfg.n_freqs, cfg.down_freqs, frames
+    dense = sum(2 * c * (i + 1) * 9 * c for i in range(cfg.dense_depth))
+    ops = 2 * 2 * c * t * f + dense * t * f            # encoder
+    ops += 2 * c * c * 3 * t * fd
+    for n, seq in ((fd, t), (t, fd)):                  # time, freq paths
+        ops += cfg.n_blocks * (8 * n * seq * c * c + 4 * n * seq * seq * c
+                               + 4 * n * seq * c * c * cfg.ffn_mult)
+    ops += 2 * (dense * t * fd + 2 * c * c * 3 * t * fd)   # two decoders
+    ops += 3 * 2 * c * t * f                           # 1x1 heads
+    return float(ops)
+
+
+def check_zipenhancer(dev) -> dict:
+    """ZIP_BASE denoise of one 10 s chunk of synthetic speech (its first
+    0.25 s silent, so the chunk's first STFT frame is exact zeros and the
+    network's phase input there does not hang on rounding) on the GPU and,
+    with the same weights, on the CPU; waveforms within ZIP_TOL_REL of the
+    input's largest magnitude. The chunk's device time (CUDA events, the
+    median of three), its peak memory and its FLOP bound."""
+    import copy
+    from whisperjav_tpu_torch.models.enhancement import zipenhancer as zz
+    n = 160000
+    cpu_model = zz.init_params(zz.ZIP_BASE, torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    audio = np.concatenate([np.zeros(n // 40, np.float32),
+                            speech_like(10.0, 7)[:n - n // 40]])[None]
+    x = torch.from_numpy(audio)
+    t0 = time.perf_counter()
+    want = zz.denoise(cpu_model, x, n)
+    cpu_s = time.perf_counter() - t0
+    xg = x.to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = zz.denoise(gpu_model, xg, n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = got.cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError("zipenhancer: bad output on the GPU")
+    err = (got - want).abs().max().item()
+    tol = ZIP_TOL_REL * x.abs().max().item()
+    # the network's inputs on both sides: phase flips are atan2 rounding
+    mag_c, pha_c = zz.mag_pha_stft(x)
+    mag_g, pha_g = zz.mag_pha_stft(xg)
+    flips = int(((pha_g.cpu() - pha_c).abs() > 1.0).sum())
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        zz.denoise(gpu_model, xg, n)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    frames = n // zz.HOP + 1
+    flop = zip_flops(zz.ZIP_BASE, frames)
+    bnd = bound(2 * 4 * n, flop, PEAK_F32)
+    log(f"zipenhancer ZIP_BASE denoise, one 10 s chunk ({frames} frames): "
+        f"max_abs_err GPU vs CPU {err:.6g} (tol {tol:.6g}), phase-input "
+        f"flips {flips}; device {ms:.3f} ms (median of "
+        f"{[round(t, 3) for t in times]}), bound {bnd[0]:.3f} ms "
+        f"({flop / 1e12:.4f} TFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s f32, "
+        f"{100 * bnd[0] / ms:.1f}% of it), peak memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB) over {base} resident; CPU {cpu_s:.3f} s")
+    if err > tol:
+        raise RuntimeError("zipenhancer on the GPU disagrees with the CPU")
+    del gpu_model, xg
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bnd[0], "peak_bytes": peak,
+            "max_abs_err": err}
+
+
 def speech_like(duration_s: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     t = np.arange(int(duration_s * SR)) / SR
@@ -867,14 +1040,19 @@ def srt_cues(path: Path) -> list:
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name (each counts its launches
-    in ``.launches``), and the kernels inside the fused blocks
-    (``<name>_in_block``)."""
+    in ``.launches``), the kernels inside the fused blocks
+    (``<name>_in_block``), and the word-alignment pass (plain PyTorch,
+    counted alike)."""
     from whisperjav_tpu_torch.ops.cuda import decode_attention as da
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
+    from whisperjav_tpu_torch.models.whisper.word_align import (
+        cross_attention_maps,
+    )
     from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
         encoder_attention,
     )
     counters = {"encoder_attention": encoder_attention,
+                "word_alignment_pass": cross_attention_maps,
                 "decode_cross_attention": da.decode_cross_attention,
                 "decode_cross_attention_bf16": da.decode_cross_attention_bf16,
                 "decode_cross_attention_terms":
@@ -902,13 +1080,17 @@ INT8_NEEDS = TURBO_NEEDS + ("self_block", "cross_block", "mlp_block",
                             "qgemv_ln_in_block", "qgemv_in_block",
                             "self_attention_in_block",
                             "decode_cross_attention_terms_in_block")
+# the fidelity path's bf16 decoder takes the unfused layers, and
+# --word-timestamps runs at least one alignment pass
+FIDELITY_NEEDS = TURBO_NEEDS + ("word_alignment_pass",)
 
 
 def run_cli_path(tmp: Path, label: str, seconds: float, flags: list,
                  needed: tuple):
     """One CLI run on a synthetic clip; the launch counts of every kernel
     are zeroed just before and read just after; the kernels in
-    ``needed`` must have launched."""
+    ``needed`` must have launched. Returns the launches and the
+    metadata's stats."""
     from whisperjav_tpu_torch import cli
     wav = tmp / "smoke.wav"
     duration = synthetic_clip(wav, seconds)
@@ -964,6 +1146,37 @@ def run_cli_path(tmp: Path, label: str, seconds: float, flags: list,
     log(f"{label} path stages (s): {json.dumps(stats['stage_s'])}")
     log(f"{label} path peak device memory: {peak} bytes "
         f"({peak / 2**30:.3f} GiB); launches {json.dumps(launches)}")
+    return launches, stats
+
+
+def run_fidelity_paths(tmp: Path) -> dict:
+    """The fidelity CLI path (seeded ZIP_BASE weights written with the
+    port's save_params, word timestamps) and the transformers path (int8
+    weights, a 16384-id vocabulary slice) on one ~25 s clip."""
+    from whisperjav_tpu_torch.models.enhancement import zipenhancer as zz
+    npz = tmp / "zip_base.npz"
+    zz.save_params(str(npz), zz.init_params(
+        zz.ZIP_BASE, torch.Generator().manual_seed(1)))
+    launches = {}
+    launches["fidelity"], stats = run_cli_path(
+        tmp, "fidelity", FIDELITY_CLIP_S,
+        ["--mode", "fidelity", "--enhancer-weights", str(npz),
+         "--word-timestamps"], FIDELITY_NEEDS)
+    log(f"fidelity path: {stats['enhanced_scenes']} of {stats['scenes']} "
+        f"scenes enhanced, {launches['fidelity']['word_alignment_pass']} "
+        f"word-alignment passes")
+    if not stats["enhanced_scenes"] == stats["scenes"] > 0:
+        raise RuntimeError(f"fidelity: {stats['enhanced_scenes']} of "
+                           f"{stats['scenes']} scenes enhanced")
+    torch.cuda.empty_cache()
+    launches["transformers_int8"], stats = run_cli_path(
+        tmp, "transformers int8", FIDELITY_CLIP_S,
+        ["--mode", "transformers", "--int8-weights", "--vocab-slice",
+         "16384"], INT8_NEEDS)
+    if stats["scene_backend"] != "chunked":
+        raise RuntimeError(f"transformers: scene backend "
+                           f"{stats['scene_backend']!r}, not chunked")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1057,7 +1270,7 @@ def profile_decode(engine, xa, label: str, tokens: int = 16) -> None:
                     for name, (n, t) in top))
 
 
-PHASES = ("kernels", "reference", "turbo", "large-v2")
+PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity")
 
 
 def main(argv=None) -> int:
@@ -1110,20 +1323,26 @@ def main(argv=None) -> int:
     if "reference" in only:
         check_small_reference(dev)
         check_small_int8_reference(dev)
+        check_small_vocab_reference(dev)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         if "turbo" in only:
             launches["turbo_flagless"] = run_cli_path(
-                Path(tmp), "turbo flagless", 120.0, [], TURBO_NEEDS)
+                Path(tmp), "turbo flagless", TURBO_CLIP_S, [],
+                TURBO_NEEDS)[0]
             torch.cuda.empty_cache()
             breakdown(dev)
             torch.cuda.empty_cache()
         if "large-v2" in only:
             launches["large_v2_int8"] = run_cli_path(
-                Path(tmp), "large-v2 int8", 60.0,
-                ["--model", "large-v2", "--int8-weights"], INT8_NEEDS)
+                Path(tmp), "large-v2 int8", INT8_CLIP_S,
+                ["--model", "large-v2", "--int8-weights"], INT8_NEEDS)[0]
             torch.cuda.empty_cache()
             breakdown_large_v2_greedy(dev)
+            torch.cuda.empty_cache()
+        if "fidelity" in only:
+            check_zipenhancer(dev)
+            launches.update(run_fidelity_paths(Path(tmp)))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host modules give the same
 results on the same inputs: scene detection and VAD, the sanitizer, the
-preset resolution, the argument parser and the SRT reader and writer;
-and the two packages' loggers share one handler."""
+preset resolution, the argument parser, the SRT reader and writer, the
+enhancement framework (base, DSP enhancer), the vocabulary subset and
+the monotonic aligner; and the two packages' loggers share one
+handler."""
 
 import dataclasses
 import json
@@ -207,3 +209,114 @@ def test_both_packages_log_through_one_handler(order):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     assert out.strip() == "1"
+
+
+@pytest.mark.parametrize("n,chunk,fade", [(0, 100, 10), (95, 100, 10),
+                                          (1000, 100, 10), (1234, 300, 0),
+                                          (777, 50, 60)])
+def test_chunked_crossfade_matches(n, chunk, fade):
+    from whisperjav_tpu.modules.enhancement.base import (
+        chunked_crossfade as j_fade,
+    )
+    from whisperjav_tpu_torch.modules.enhancement.base import (
+        chunked_crossfade as t_fade,
+    )
+    audio = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+
+    def apply(clip):            # a position-dependent map of each chunk
+        return clip * np.linspace(0.5, 1.5, len(clip)) + 0.01
+
+    np.testing.assert_array_equal(t_fade(audio, chunk, fade, apply),
+                                  j_fade(audio, chunk, fade, apply))
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"deess": True},
+                                    {"highpass_hz": None, "lowpass_hz": 4000,
+                                     "compress_threshold_db": None},
+                                    {"loudnorm_target_db": None}])
+def test_dsp_enhancer_matches(kwargs):
+    from whisperjav_tpu.modules.enhancement import create_enhancer as j_enh
+    from whisperjav_tpu_torch.modules.enhancement import (
+        create_enhancer as t_enh,
+    )
+    audio = _clip(2)[:5 * SR]
+    ref = j_enh("dsp", **kwargs).enhance(audio, SR)
+    out = t_enh("dsp", **kwargs).enhance(audio, SR)
+    np.testing.assert_array_equal(out.audio, ref.audio)
+    assert (out.success, out.backend, out.stats) == \
+        (ref.success, ref.backend, ref.stats)
+
+
+def test_enhancement_framework_matches():
+    from whisperjav_tpu.modules import enhancement as jenh
+    from whisperjav_tpu_torch.modules import enhancement as tenh
+    for b in ("none", "NULL", "", None, "passthrough", "dsp", "zip"):
+        assert tenh.is_passthrough_backend(b) == jenh.is_passthrough_backend(b)
+    for b in ("none", "dsp", "zipenhancer"):
+        assert tenh.get_extraction_sample_rate(b) == \
+            jenh.get_extraction_sample_rate(b)
+    for b in ("bs-roformer", "clearvoice"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tenh.create_enhancer(b)
+
+    class Failing:
+        name = "failing"
+
+        def enhance(self, audio, sample_rate):
+            raise RuntimeError("device lost")
+
+    audio = _clip(3)[:SR]
+    for mod in (jenh, tenh):
+        (res,) = mod.enhance_scenes(Failing(), [audio], SR)
+        assert res.audio is audio and not res.success
+        assert res.stats == {"error": "device lost"}
+
+
+def test_vocab_subset_matches():
+    from whisperjav_tpu.models.whisper import vocab_subset as jvs
+    from whisperjav_tpu.models.whisper.config import WHISPER_SIZES as JS
+    from whisperjav_tpu.models.whisper.decode import DecodeOptions as JOpts
+    from whisperjav_tpu_torch.models.whisper import vocab_subset as tvs
+    from whisperjav_tpu_torch.models.whisper.config import (
+        WHISPER_SIZES as TS,
+    )
+    from whisperjav_tpu_torch.models.whisper.decode import (
+        DecodeOptions as TOpts,
+    )
+    for name in ("large-v2", "turbo"):
+        keep = np.asarray([3, 10, 220, 999, 5000], np.int32)
+        ref, out = jvs.VocabSubset(JS[name], keep), tvs.VocabSubset(TS[name],
+                                                                  keep)
+        np.testing.assert_array_equal(out.sub_ids, ref.sub_ids)
+        assert dataclasses.asdict(out.config) == dataclasses.asdict(ref.config)
+        for prop in ("eot", "sot", "translate", "transcribe", "sot_prev",
+                     "no_speech", "no_timestamps", "timestamp_begin",
+                     "vocab_shift"):
+            assert getattr(out.config, prop) == getattr(ref.config, prop)
+        ids = [10, 11, 220, JS[name].timestamp_begin + 3, JS[name].eot]
+        assert out.to_subset(ids) == ref.to_subset(ids)
+        np.testing.assert_array_equal(out.to_full([0, 4, 6]),
+                                      ref.to_full([0, 4, 6]))
+        r_opts = ref.remap_options(JOpts(suppress_tokens=(10, 11, 999)))
+        o_opts = out.remap_options(TOpts(suppress_tokens=(10, 11, 999)))
+        assert (o_opts.suppress_tokens, o_opts.blank_token) == \
+            (r_opts.suppress_tokens, r_opts.blank_token)
+        np.testing.assert_array_equal(
+            tvs.synthetic_text_ids(TS[name], 777),
+            jvs.synthetic_text_ids(JS[name], 777))
+
+    class Tok:                  # a "real" tokenizer over a few ids
+        is_real = True
+
+        def decode(self, ids):
+            return {0: "a", 1: "\u3042", 2: "\u0416", 3: "\ufffd",
+                    4: "\u30ab\u30ca"}.get(ids[0], "x")
+
+    cfg_j = dataclasses.replace(JS["large-v2"])
+    cfg_t = dataclasses.replace(TS["large-v2"])
+    np.testing.assert_array_equal(tvs.ja_text_ids(Tok(), cfg_t),
+                                  jvs.ja_text_ids(Tok(), cfg_j))
+    assert tvs.ja_text_ids(object(), cfg_t) is None
+    adapter = tvs.SubsetTokenizerAdapter(
+        tvs.VocabSubset(cfg_t, [2, 4]), Tok())
+    assert adapter.decode([1]) == "\u30ab\u30ca" and adapter.is_real

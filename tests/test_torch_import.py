@@ -22,7 +22,13 @@ def test_every_module_is_listed():
     for name in ("whisperjav_tpu_torch.cli",
                  "whisperjav_tpu_torch.ops.cuda.encoder_attention",
                  "whisperjav_tpu_torch.ops.cuda.decode_attention",
-                 "whisperjav_tpu_torch.pipelines.factory"):
+                 "whisperjav_tpu_torch.pipelines.factory",
+                 "whisperjav_tpu_torch.ops.stft",
+                 "whisperjav_tpu_torch.models.enhancement.zipenhancer",
+                 "whisperjav_tpu_torch.models.enhancement.zipnet",
+                 "whisperjav_tpu_torch.modules.enhancement.zipenhancer",
+                 "whisperjav_tpu_torch.models.whisper.word_align",
+                 "whisperjav_tpu_torch.models.whisper.vocab_subset"):
         assert name in mods
 
 
@@ -107,6 +113,16 @@ with tempfile.TemporaryDirectory() as tmp:
                 probe(wav), Path(tmp) / f"out{int(int8)}")
         assert out.srt_path.exists() and out.metadata["stats"]["windows"] >= 1
     assert cli.main([str(wav), "--int8-weights", "--dump-params"]) == 0
+    from whisperjav_tpu_torch.models.enhancement import zipenhancer
+    zip_path = str(Path(tmp) / "zip.npz")
+    zipenhancer.save_params(zip_path, zipenhancer.init_params(
+        zipenhancer.ZIP_TEST, torch.Generator().manual_seed(0)))
+    assert cli.main([str(wav), "--output-dir", str(Path(tmp) / "fid"),
+                     "--device", "cpu", "--model", "tiny", "--batch-size",
+                     "1", "--logprob-threshold", "-100", "--mode",
+                     "fidelity", "--enhancer-weights", zip_path,
+                     "--word-timestamps", "--vocab-slice", "4000"]) == 0
+    assert (Path(tmp) / "fid" / "clip.ja.whisperjav.srt").exists()
 bad = sorted(m for m in sys.modules
              if m == "whisperjav_tpu" or m.startswith("whisperjav_tpu."))
 print("LOADED:" + ",".join(bad))
@@ -115,8 +131,9 @@ print("LOADED:" + ",".join(bad))
 
 def test_port_pipeline_and_cli_leave_the_jax_package_out():
     """The port's file pipeline (silero VAD, sanitizer, bf16 and int8
-    decoder weights) and its CLI run on the CPU without loading a single
-    module of ``whisperjav_tpu``."""
+    decoder weights) and its CLI (a fidelity run with the ZipEnhancer,
+    word timestamps and a sliced vocabulary) run on the CPU without
+    loading a single module of ``whisperjav_tpu``."""
     proc = subprocess.run([sys.executable, "-c", _PIPELINE_RUN],
                           cwd=str(PKG_DIR.parent), capture_output=True,
                           text=True, timeout=300)

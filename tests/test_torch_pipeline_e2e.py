@@ -1,7 +1,8 @@
 """The slice as a whole: the port's file pipeline writes the same SRT as the
 JAX pipeline on the same weights (tiny model, f32 on the CPU), with bf16
-and with int8 decoder weights, and the port's CLI refuses what it does
-not cover."""
+and with int8 decoder weights; the port's CLI runs the modes and flags it
+covers, resolves them as the JAX CLI does, and refuses what it does not
+cover."""
 
 import json
 
@@ -147,17 +148,104 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mode", "fidelity"], ["--mode", "qwen"], ["--mode", "transformers"],
-    ["--mode", "anime"], ["--word-timestamps"],
+    ["--enhancer", "bs-roformer"], ["--mode", "qwen"],
+    ["--enhancer", "clearvoice"], ["--model", "qwen3-asr-1.7b"],
+    ["--mode", "fidelity", "--enhancer", "vocals"],
     ["--ensemble"], ["--daemon"], ["--daemon-stop"], ["--multihost"],
     ["--async-processing"], ["--translate", "ollama"],
-    ["--vocab-slice", "ja"], ["--enhancer", "zipenhancer"],
-    ["--enhance-for-vad"], ["--devices", "4"],
+    ["--daemon-replace"], ["--scene-backend", "semantic"],
+    ["--mode", "transformers", "--hf-scene", "semantic"],
+    ["--devices", "4"],
     ["--vad-backend", "ten"], ["--vad-arg", "weights=silero.npz"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
     assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def _short_wav(tmp_path):
+    gap = np.zeros(SR, np.float32)
+    path = tmp_path / "short.wav"
+    write_wav(path, np.concatenate([gap, speech_like(5, 3), gap]), SR)
+    return path
+
+
+# the CPU run of each: the tiny model from its seeded init, one window a
+# batch, beam 2, a logprob gate every row passes (no ladder rungs), a
+# 7 s clip (the 448-frame bucket: 144 new tokens at most)
+_CPU_RUN = ["--device", "cpu", "--model", "tiny", "--batch-size", "1",
+            "--logprob-threshold", "-100"]
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--mode", "fidelity", "--enhancer-weights", "{zip}"],
+     {"scene_backend": "energy", "enhanced_scenes": "scenes"}),
+    (["--mode", "transformers", "--hf-chunk-length", "4", "--hf-stride",
+      "1", "--hf-batch-size", "2"], {"scene_backend": "chunked",
+                                     "windows": 2}),
+    (["--mode", "anime"], {"scene_backend": "energy"}),
+    (["--word-timestamps"], {"word_passes": True}),
+    (["--vocab-slice", "ja"], {}),
+    (["--enhancer", "zipenhancer", "--enhancer-weights", "{zip}",
+      "--enhancer-arg", "chunk_s=4"], {"enhanced_scenes": "scenes"}),
+    (["--enhancer", "zip", "--enhancer-weights", "{zip}",
+      "--enhance-for-vad"], {"enhanced_scenes": "scenes"}),
+])
+def test_cli_runs_the_new_modes_and_flags_on_the_cpu(tmp_path, flags, want):
+    """Each mode and flag this slice ports, through the CLI on the CPU: an
+    SRT and metadata come out, the enhancer ran on every scene, the
+    chunked path replaced scenes, word alignment ran."""
+    from whisperjav_tpu_torch.models.enhancement import zipenhancer as tzz
+    from whisperjav_tpu_torch.models.whisper import word_align as twa
+    zip_path = tmp_path / "zip.npz"
+    tzz.save_params(str(zip_path), tzz.init_params(
+        tzz.ZIP_TEST, torch.Generator().manual_seed(0)))
+    flags = [f.replace("{zip}", str(zip_path)) for f in flags]
+    wav = _short_wav(tmp_path)
+    passes = twa.cross_attention_maps.launches
+    assert cli.main([str(wav), "--output-dir", str(tmp_path / "out"),
+                     *_CPU_RUN, *flags]) == 0
+    assert (tmp_path / "out" / "short.ja.whisperjav.srt").exists()
+    stats = json.loads((tmp_path / "out" / "short.whisperjav.json")
+                       .read_text())["stats"]
+    assert stats["windows"] >= 1
+    for key, value in want.items():
+        if key == "word_passes":
+            assert (twa.cross_attention_maps.launches > passes) == value
+        elif value == "scenes":
+            assert stats[key] == stats["scenes"] >= 1, key
+        else:
+            assert stats[key] == value, key
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--mode", "fidelity"], {"model": "large-v2",
+                              "enhancer_backend": "zipenhancer"}),
+    (["--mode", "transformers", "--hf-chunk-length", "20", "--hf-stride",
+      "4", "--hf-batch-size", "8", "--hf-beam-size", "3",
+      "--hf-temperature", "0.1", "--hf-timestamps", "false"],
+     {"model": "large-v2", "chunk_s": 20.0, "chunk_overlap_s": 4.0,
+      "batch_size": 8}),
+    (["--mode", "anime", "--word-timestamps", "--vocab-slice", "16384"],
+     {"model": "large-v2", "word_timestamps": True,
+      "vocab_slice": "16384"}),
+    (["--enhancer", "dsp", "--enhancer-arg", "highpass_hz=100",
+      "--enhance-for-vad"],
+     {"enhancer_backend": "dsp", "enhancer_kwargs": {"highpass_hz": 100.0},
+      "enhance_for_vad": True}),
+])
+def test_cli_resolves_the_new_flags_as_the_jax_cli(capsys, flags, want):
+    """--dump-params: the resolved configuration of the new modes and
+    flags, the --hf-* group included, equals the JAX CLI's resolution."""
+    from whisperjav_tpu import cli as jcli
+    assert cli.main(["clip.wav", *flags, "--dump-params"]) == 0
+    dumped = json.loads(capsys.readouterr().out)
+    for key, value in want.items():
+        assert dumped[key] == value, key
+    assert jcli.main(["clip.wav", *flags, "--dump-params"]) == 0
+    ref = json.loads(capsys.readouterr().out)
+    for key in ("mode", "sensitivity", "model", "batch_size", "language"):
+        assert dumped[key] == ref[key], key
 
 
 def test_cli_flagless_defaults_are_the_slice(capsys):

@@ -8,14 +8,22 @@ device (default ``cuda``; a CUDA device that is not there is an error).
 
 ``--int8-weights`` runs the decoder on int8 weights through the fused
 decode blocks; the faster-whisper spelling ``--compute-type int8*``
-turns it on and ``float*`` off, as in the JAX CLI.
+turns it on and ``float*`` off, as in the JAX CLI. ``--mode fidelity``
+(large-v2, every scene denoised by the ZipEnhancer: weights from
+``--enhancer-weights``, passed through without), ``--mode transformers``
+(overlapped 30 s / 5 s chunks; the ``--hf-*`` flags as the JAX CLI maps
+them) and ``--mode anime`` run as in the JAX CLI, with
+``--word-timestamps``, ``--vocab-slice``, ``--enhancer`` (zipenhancer,
+dsp, none), ``--enhancer-arg`` and ``--enhance-for-vad``.
 
 What the port does not cover yet makes it exit with "not ported yet"
-before any work: modes other than faster/fast/balanced, and the flags
+before any work: qwen mode, the band-split enhancers, and the flags
 listed in ``_UNPORTED``.
 
     whisperjav-torch clip.wav --output-dir out/
     whisperjav-torch clip.wav --model large-v2 --int8-weights
+    whisperjav-torch clip.wav --mode fidelity --enhancer-weights zip.npz \
+        --word-timestamps
     python -m whisperjav_tpu_torch.cli clip.wav --output-dir out/
 """
 
@@ -31,19 +39,19 @@ from whisperjav_tpu_torch.cli_args import (
     _ASR_TO_MODE, _FEATURE_TO_SCENE, _parse_kv_args, parse_arguments,
 )
 
-PORTED_MODES = ("faster", "fast", "balanced")
+PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
+                "anime")
 _SCENE_BACKENDS = ("energy", "auditok", "default", "none", "null")
 _VAD_BACKENDS = ("silero", "silero-jax", "energy", "default", "none",
                  "null")
+# the band-split enhancement backends (and their aliases)
+_UNPORTED_ENHANCERS = ("bs-roformer", "bsroformer", "vocals", "clearvoice",
+                       "mossformer")
 # argparse dest -> the flag a user typed, for flags outside the port
 _UNPORTED = {
-    "word_timestamps": "--word-timestamps",
     "ensemble": "--ensemble", "daemon": "--daemon",
     "daemon_replace": "--daemon-replace", "multihost": "--multihost",
     "async_processing": "--async-processing", "translate": "--translate",
-    "vocab_slice": "--vocab-slice", "enhancer": "--enhancer",
-    "enhancer_weights": "--enhancer-weights",
-    "enhance_for_vad": "--enhance-for-vad", "enhancer_arg": "--enhancer-arg",
     "check": "--check", "check_verbose": "--check-verbose",
     "trace_params": "--trace-params",
 }
@@ -58,9 +66,12 @@ def _unported(args) -> List[str]:
         out.append(f"--devices {args.devices}")
     if args.model and args.model.startswith("qwen"):
         out.append(f"--model {args.model}")
-    if args.scene_backend and args.scene_backend.lower() not in \
-            _SCENE_BACKENDS:
-        out.append(f"--scene-backend {args.scene_backend}")
+    for flag, scene in (("--scene-backend", args.scene_backend),
+                        ("--hf-scene", args.hf_scene)):
+        if scene and scene.lower() not in _SCENE_BACKENDS:
+            out.append(f"{flag} {scene}")
+    if args.enhancer and args.enhancer.lower() in _UNPORTED_ENHANCERS:
+        out.append(f"--enhancer {args.enhancer}")
     if args.vad_backend and args.vad_backend.lower().replace("_", "-") \
             not in _VAD_BACKENDS:
         out.append(f"--vad-backend {args.vad_backend}")
@@ -122,13 +133,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         vad_kwargs = {**(vad_kwargs or {}),
                       "pad_start_s": pad_s, "pad_end_s": pad_s}
     scene_kwargs = _parse_kv_args(args.scene_arg, "--scene-arg") or None
-    cfg = resolve_pipeline_config(
-        mode=args.mode, sensitivity=args.sensitivity,
+    enhancer_kwargs = ({"weights": args.enhancer_weights}
+                       if args.enhancer_weights else None)
+    extra_enh = _parse_kv_args(args.enhancer_arg, "--enhancer-arg")
+    if extra_enh:
+        enhancer_kwargs = {**(enhancer_kwargs or {}), **extra_enh}
+    overrides = dict(
         language=args.language, task=task, model=args.model,
         batch_size=args.batch_size,
         vad_backend="none" if args.no_vad else args.vad_backend,
         scene_backend=args.scene_backend,
         vad_kwargs=vad_kwargs, scene_kwargs=scene_kwargs,
+        enhancer_backend=args.enhancer, enhancer_kwargs=enhancer_kwargs,
         beam_size=args.beam_size,
         logprob_threshold=args.logprob_threshold,
         no_speech_threshold=args.no_speech_threshold,
@@ -138,9 +154,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         initial_prompt=args.prompt,
         no_timestamps=args.no_timestamps,
         pack_windows=not args.no_pack,
+        word_timestamps=args.word_timestamps,
         int8_weights=args.int8_weights,
+        vocab_slice=args.vocab_slice,
+        enhance_for_vad=args.enhance_for_vad,
         keep_intermediates=args.keep_temp,
         output_format=output_format)
+    checkpoint = args.checkpoint
+    if args.mode == "transformers":
+        # the --hf-* group maps onto the chunked long-form path
+        if args.hf_model_id:
+            checkpoint = checkpoint or args.hf_model_id
+        for dest, key in (("hf_batch_size", "batch_size"),
+                          ("hf_chunk_length", "chunk_s"),
+                          ("hf_stride", "chunk_overlap_s"),
+                          ("hf_beam_size", "beam_size")):
+            if getattr(args, dest) is not None:
+                overrides[key] = getattr(args, dest)
+        if args.hf_temperature is not None:
+            overrides["temperatures"] = (args.hf_temperature,)
+        if args.hf_language:
+            overrides["language"] = args.hf_language
+        if args.hf_scene:
+            overrides["scene_backend"] = args.hf_scene
+        if args.hf_timestamps is not None:
+            overrides["no_timestamps"] = args.hf_timestamps == "false"
+    cfg = resolve_pipeline_config(mode=args.mode,
+                                  sensitivity=args.sensitivity, **overrides)
     dot = _parse_kv_args(args.overrides, "--overrides", keep_dots=True)
     if dot:
         cfg = apply_dot_overrides(cfg, dot)
@@ -152,6 +192,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             "language": cfg.language, "task": cfg.task, "model": cfg.model,
             "batch_size": cfg.batch_size, "output_format": cfg.output_format,
             "int8_weights": cfg.int8_weights,
+            "word_timestamps": cfg.word_timestamps,
+            "vocab_slice": cfg.vocab_slice,
+            "enhancer_backend": cfg.enhancer_backend,
+            "enhancer_kwargs": cfg.enhancer_kwargs,
+            "enhance_for_vad": cfg.enhance_for_vad,
+            "chunk_s": cfg.chunk_s, "chunk_overlap_s": cfg.chunk_overlap_s,
             "device": args.device or "cuda",
         }, indent=2))
         return 0
@@ -186,7 +232,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             regroup_preset=args.postprocess_preset)
 
     from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-    pipeline = build_pipeline(cfg, checkpoint=args.checkpoint,
+    pipeline = build_pipeline(cfg, checkpoint=checkpoint,
                               postprocessor=postprocessor,
                               device=args.device or "cuda")
 

@@ -3,7 +3,10 @@
 The JAX package keeps its parameters as a nested dict with per-layer
 leaves stacked on a leading axis and matrices as (in, out)
 (``whisperjav_tpu/models/whisper/model.py:145-195``); :class:`Whisper`
-keeps the same names and layouts, so conversion is a copy per leaf.
+keeps the same names and layouts, so conversion is a copy per leaf. The
+enhancement models' trees (the ZipEnhancer and the legacy U-Net) carry
+across with the ``params_from_jax`` of their own modules under
+``models/enhancement/``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,15 @@ cross-K/V bucket, int8 cross-K/V, beam search at temperature 0 and
 sampled best-of rungs above it, the quality gates, and the temperature
 ladder with the failed rows of a whole file retried together at its end
 (deferred retries). Batches run one after another.
+
+Options: ``word_timestamps`` tightens segment bounds with a
+cross-attention word alignment pass per decoded row
+(``models/whisper/word_align.py``), on the inline and the deferred path
+alike; ``vocab_subset`` decodes against a sliced vocabulary
+(``models/whisper/vocab_subset.py``): the token embedding is sliced
+before int8 quantisation (so the int8 lm head is built at subset size),
+decoding runs in subset ids, and emitted tokens map back to full-vocab
+ids on the device.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
@@ -29,6 +39,10 @@ from whisperjav_tpu_torch.models.whisper.model import Whisper, encode
 from whisperjav_tpu_torch.models.whisper.quant import (
     fuse_qkv_weights, quantize_decoder_weights,
 )
+from whisperjav_tpu_torch.models.whisper.vocab_subset import (
+    SubsetTokenizerAdapter, VocabSubset,
+)
+from whisperjav_tpu_torch.models.whisper.word_align import word_timestamps
 from whisperjav_tpu_torch.ops.mel import N_SAMPLES, log_mel_spectrogram
 from whisperjav_tpu_torch.parallel.batching import (
     Window, WindowBatch, batch_windows,
@@ -65,10 +79,12 @@ class TranscriptionEngine:
     """Batched Whisper inference with the temperature-fallback ladder.
 
     Takes ownership of ``model``: it is moved to ``device``, cast to
-    ``compute_dtype`` and its decoder q/k/v weights are fused, in place;
-    with ``int8_weights`` the decoder matmuls and the lm head are then
-    quantised to int8 (``--int8-weights``), which single decode steps run
-    through the fused blocks.
+    ``compute_dtype``, its token embedding is sliced to ``vocab_subset``
+    (and its config replaced by the sliced one) and its decoder q/k/v
+    weights are fused, in place; with ``int8_weights`` the decoder
+    matmuls and the lm head are then quantised to int8
+    (``--int8-weights``), which single decode steps run through the fused
+    blocks.
     """
 
     def __init__(
@@ -83,6 +99,8 @@ class TranscriptionEngine:
         compute_dtype: torch.dtype = torch.bfloat16,
         prompt_tokens: Tuple[int, ...] = (),
         int8_weights: bool = False,
+        word_timestamps: bool = False,
+        vocab_subset=None,   # kept text-token ids (< eot), full-vocab space
     ):
         # f32 matmuls and cuDNN convolutions (the mel STFT, the encoder
         # convs) in full f32, not TF32
@@ -95,9 +113,31 @@ class TranscriptionEngine:
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or WhisperTokenizer(config)
         self.compute_dtype = compute_dtype
+        self.word_timestamps = word_timestamps
+        self.model = model.to(device=self.device, dtype=compute_dtype)
+        self._vocab = None
+        self._sub_ids = None
+        if vocab_subset is not None:
+            self._vocab = VocabSubset(config, vocab_subset)
+            self.options = self._vocab.remap_options(options)
+            if prompt_tokens:
+                sub_prompt = self._vocab.to_subset(prompt_tokens)
+                if len(sub_prompt) != len(prompt_tokens):
+                    logger.warning(
+                        "vocab slice: %d prompt token(s) outside the "
+                        "subset were dropped",
+                        len(prompt_tokens) - len(sub_prompt))
+                prompt_tokens = sub_prompt
+            # the decoder now holds the subset's rows only: it decodes in
+            # subset ids under the sliced config
+            self._sub_ids = torch.from_numpy(
+                self._vocab.sub_ids.astype(np.int64)).to(self.device)
+            dec = self.model.decoder
+            dec.tok_emb = nn.Parameter(dec.tok_emb[self._sub_ids],
+                                       requires_grad=False)
+            self.model.config = self._vocab.config
         self.prompt_tokens = tuple(prompt_tokens)
-        self.model = fuse_qkv_weights(model.to(device=self.device,
-                                               dtype=compute_dtype))
+        fuse_qkv_weights(self.model)
         if int8_weights:
             quantize_decoder_weights(self.model)
 
@@ -143,14 +183,14 @@ class TranscriptionEngine:
         budget = min(self.options.max_new_tokens, xa.shape[1] // 4 + 32)
         opts = dataclasses.replace(self.options, max_new_tokens=budget)
         if temperature == 0.0 and opts.beam_size > 1:
-            return _to_host(decode_beam(self.model, xa, opts,
-                                        prompt=self.prompt_tokens))
+            return self._to_host(decode_beam(self.model, xa, opts,
+                                             prompt=self.prompt_tokens))
         n_best = opts.best_of if temperature > 0.0 else 1
         best = None
         for i in range(n_best):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed + 7919 * i)
-            cand = _to_host(decode_greedy(
+            cand = self._to_host(decode_greedy(
                 self.model, xa, opts, prompt=self.prompt_tokens,
                 temperature=temperature, generator=gen))
             if best is None:
@@ -164,6 +204,13 @@ class TranscriptionEngine:
                 np.where(win, cand.avg_logprob, best.avg_logprob),
                 best.no_speech_prob)
         return best
+
+    def _to_host(self, result: DecodeResult) -> DecodeResult:
+        """Device results -> numpy, tokens in full-vocab ids (mapped back
+        from subset ids on the device under a vocab slice)."""
+        if self._sub_ids is not None:
+            result = result._replace(tokens=self._sub_ids[result.tokens])
+        return DecodeResult(*(x.cpu().numpy() for x in result))
 
     # ------------------------------------------------------------------
     def _compression_ratio(self, token_ids: Sequence[int]) -> float:
@@ -259,10 +306,48 @@ class TranscriptionEngine:
                 break
             prev_mean = mean_now
 
-        return [None if b in deferred_rows
-                else self._segments(batch.windows[b], tokens[b], avg_lp[b],
-                                    no_speech[b])
-                for b in range(batch.n_valid)]
+        out = [None if b in deferred_rows
+               else self._segments(batch.windows[b], tokens[b], avg_lp[b],
+                                   no_speech[b])
+               for b in range(batch.n_valid)]
+        if self.word_timestamps:
+            self._refine_with_word_alignment(xa, tokens, batch, out)
+        return out
+
+    @torch.inference_mode()
+    def _refine_with_word_alignment(self, xa, tokens, batch, out) -> None:
+        """Tighten segment bounds with cross-attention word spans: one
+        teacher-forced pass per row with segments, over that row's encoder
+        states (sliced to the batch's cross-K/V bucket); a segment's start
+        and end snap to its first and last word span when those lie
+        within 0.5 s of them (alignment refines, never relocates)."""
+        tok = self.tokenizer
+        if self._vocab is not None:
+            # the pass embeds through the sliced table, so it takes
+            # subset ids; word text still decodes from full ids
+            tok = SubsetTokenizerAdapter(self._vocab, self.tokenizer)
+        for b in range(batch.n_valid):
+            segs = out[b]
+            if not segs:
+                continue
+            row = tokens[b]
+            if self._vocab is not None:
+                row = np.asarray(self._vocab.to_subset(row), np.int32)
+            spans = word_timestamps(self.model, xa[b:b + 1], row,
+                                    tokenizer=tok,
+                                    audio_duration=batch.windows[b].duration)
+            si = 0
+            for seg in segs:
+                n = len(seg.tokens)
+                seg_spans = spans[si:si + n]
+                si += n
+                if not seg_spans:
+                    continue
+                new_start, new_end = seg_spans[0].start, seg_spans[-1].end
+                if abs(new_start - seg.start) <= 0.5:
+                    seg.start = new_start
+                if abs(new_end - seg.end) <= 0.5:
+                    seg.end = max(new_end, seg.start + 0.05)
 
     def _retry_deferred(self, pool: list, seed: int,
                         ) -> List[Tuple[Window, List[DecodedSegment]]]:
@@ -296,10 +381,30 @@ class TranscriptionEngine:
                                                   rec["no_speech"])]
             if not improved_any:
                 break
-        return [(rec["window"],
-                 self._segments(rec["window"], rec["tokens"], rec["avg_lp"],
-                                rec["no_speech"]))
-                for rec in pool]
+        out = [(rec["window"],
+                self._segments(rec["window"], rec["tokens"], rec["avg_lp"],
+                               rec["no_speech"]))
+               for rec in pool]
+        if self.word_timestamps and any(segs for _, segs in out):
+            # one alignment pass per retry batch over freshly encoded
+            # states; rows padded to one length with EOT (the pass ignores
+            # a row past its EOT)
+            recs = {id(rec["window"]): rec for rec in pool}
+            segs_by_id = {id(w): segs for w, segs in out}
+            for rb in batch_windows([rec["window"] for rec in pool],
+                                    self.batch_size):
+                max_dur = max((w.duration for w in rb.windows),
+                              default=30.0)
+                xa = self.encode_batch(rb.audio, max_duration=max_dur)
+                t_len = max(len(recs[id(w)]["tokens"]) for w in rb.windows)
+                tok = np.full((rb.batch_size, t_len), self.config.eot,
+                              np.int32)
+                for b, w in enumerate(rb.windows):
+                    row = recs[id(w)]["tokens"]
+                    tok[b, :len(row)] = row
+                self._refine_with_word_alignment(
+                    xa, tok, rb, [segs_by_id[id(w)] for w in rb.windows])
+        return out
 
     def transcribe_windows(
         self, windows: Sequence[Window], seed: int = 0,
@@ -323,7 +428,3 @@ class TranscriptionEngine:
             results.extend(self._retry_deferred(pool, seed))
         results.sort(key=lambda p: (p[0].scene_idx, p[0].group_idx))
         return results
-
-
-def _to_host(result: DecodeResult) -> DecodeResult:
-    return DecodeResult(*(x.cpu().numpy() for x in result))

@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from whisperjav_tpu_torch.config.presets import (
@@ -20,6 +21,9 @@ from whisperjav_tpu_torch.models.whisper.tokenizer import (
 )
 from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
+from whisperjav_tpu_torch.models.whisper.vocab_subset import (
+    ja_text_ids, synthetic_text_ids,
+)
 from whisperjav_tpu_torch.models.whisper.weights import (
     init_params, load_checkpoint,
 )
@@ -61,6 +65,27 @@ def ladder(temperatures) -> tuple:
         t for t in (0.4, 0.6, 0.8, 1.0) if t > max(temperatures))
 
 
+def vocab_subset(vocab_slice: Optional[str], tokenizer: WhisperTokenizer,
+                 config) -> Optional[np.ndarray]:
+    """The kept text ids of ``--vocab-slice``: "ja" derives the
+    JA-plausible subset from a real tokenizer (None, with a warning,
+    without one); a positive integer is the synthetic subset of that
+    size; unset or 0 keeps the full vocabulary."""
+    vs = str(vocab_slice or "")
+    if vs == "ja":
+        keep = ja_text_ids(tokenizer, config)
+        if keep is None:
+            logger.warning("--vocab-slice ja needs a real tokenizer "
+                           "(checkpoint vocab); decoding the full vocab")
+        else:
+            logger.info("vocab slice: %d/%d text ids kept", len(keep),
+                        config.eot)
+        return keep
+    if vs.isdigit() and int(vs) > 0:
+        return synthetic_text_ids(config, int(vs))
+    return None
+
+
 def build_pipeline(
     cfg: Optional[PipelineConfig] = None,
     checkpoint: Optional[str] = None,
@@ -69,7 +94,12 @@ def build_pipeline(
 ) -> TranscribePipeline:
     """The file pipeline for ``cfg`` (default: the flagless balanced
     mode and sensitivity) on one device, computing in bf16, with int8
-    decoder weights when ``cfg.int8_weights``."""
+    decoder weights when ``cfg.int8_weights``, word alignment when
+    ``cfg.word_timestamps``, a sliced vocabulary for ``cfg.vocab_slice``
+    ("ja": the JA-plausible ids of a real tokenizer; an integer: that
+    many evenly spaced text ids), the enhancer ``cfg.enhancer_backend`` on
+    the same device, and overlapped chunks instead of scenes and VAD in
+    transformers mode."""
     if cfg is None:
         cfg = resolve_pipeline_config()
     model_config, model = load_model(cfg.model, checkpoint, device=device)
@@ -102,7 +132,9 @@ def build_pipeline(
     engine = TranscriptionEngine(
         model_config, model, options=options, thresholds=thresholds,
         batch_size=cfg.batch_size, device=device, tokenizer=tokenizer,
-        prompt_tokens=prompt_tokens, int8_weights=cfg.int8_weights)
+        prompt_tokens=prompt_tokens, int8_weights=cfg.int8_weights,
+        word_timestamps=cfg.word_timestamps,
+        vocab_subset=vocab_subset(cfg.vocab_slice, tokenizer, model_config))
     vad_kwargs = dict(cfg.vad_kwargs)
     if cfg.mode.vad_backend == "energy":
         vad_kwargs.setdefault("energy_db", sens.energy_vad_db)
@@ -119,7 +151,13 @@ def build_pipeline(
         scene_kwargs=cfg.scene_kwargs,
         vad_kwargs=vad_kwargs,
         language=cfg.language,
+        enhancer_backend=cfg.enhancer_backend,
+        enhancer_kwargs=cfg.enhancer_kwargs,
         postprocessor=postprocessor,
         pack=cfg.pack_windows,
+        chunked=cfg.mode.name == "transformers",
+        chunk_s=cfg.chunk_s,
+        chunk_overlap_s=cfg.chunk_overlap_s,
+        enhance_for_vad=cfg.enhance_for_vad,
         keep_intermediates=cfg.keep_intermediates,
     )

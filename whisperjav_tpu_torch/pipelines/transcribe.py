@@ -4,8 +4,12 @@ sanitize -> SRT, over the port's engine.
 The same host orchestration as ``whisperjav_tpu/pipelines/transcribe.py``
 (which imports the JAX engine). Scene detection, VAD, audio extraction,
 stitching and SRT writing are the port's copies of the JAX package's
-host modules. Speech enhancement and chunked (transformers-mode) windows
-are not ported.
+host modules. With an enhancer (fidelity mode: the ZipEnhancer) every
+scene is denoised on the engine's device before VAD, and the enhanced
+audio is what the engine decodes, unless ``enhance_for_vad`` keeps the
+enhanced track for VAD only. ``chunked`` (transformers mode) replaces
+scenes and VAD by fixed overlapped chunks, each keeping the segments
+whose midpoint falls in its own span.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import numpy as np
 
 from whisperjav_tpu_torch.modules.audio_extraction import AudioExtractor
 from whisperjav_tpu_torch.modules.audio_io import WHISPER_SAMPLE_RATE
+from whisperjav_tpu_torch.modules.enhancement import (
+    create_enhancer, enhance_scenes, is_passthrough_backend,
+)
 from whisperjav_tpu_torch.modules.media_discovery import MediaInfo
 from whisperjav_tpu_torch.modules.scene_detection import create_scene_detector
 from whisperjav_tpu_torch.modules.segmentation import create_segmenter
@@ -29,7 +36,8 @@ from whisperjav_tpu_torch.modules.segmentation.energy_vad import (
 from whisperjav_tpu_torch.modules.srt import Subtitle, save_srt, stitch
 from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.parallel.batching import (
-    Window, pack_windows, unpack_segments, windows_from_segmentation,
+    Window, chunked_windows, pack_windows, unpack_segments,
+    windows_from_segmentation,
 )
 from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
 
@@ -53,8 +61,14 @@ class TranscribePipeline:
         scene_kwargs: Optional[Dict] = None,
         vad_kwargs: Optional[Dict] = None,
         language: str = "ja",
+        enhancer_backend: Optional[str] = None,
+        enhancer_kwargs: Optional[Dict] = None,
         postprocessor=None,          # SRTPostProcessor-compatible, optional
         pack: bool = True,           # pack short groups into shared windows
+        chunked: bool = False,       # overlapped fixed chunking, no VAD
+        chunk_s: float = 30.0,
+        chunk_overlap_s: float = 5.0,
+        enhance_for_vad: bool = False,   # enhanced track drives VAD only
         keep_intermediates: bool = False,  # write raw pre-sanitize SRT
     ):
         self.engine = engine
@@ -63,27 +77,68 @@ class TranscribePipeline:
         self.vad_backend = vad_backend
         self.vad_kwargs = vad_kwargs or {}
         self.language = language
+        # the enhancer runs on the engine's device
+        self.enhancer = (None if is_passthrough_backend(enhancer_backend)
+                         else create_enhancer(enhancer_backend,
+                                              device=engine.device,
+                                              **(enhancer_kwargs or {})))
         self.postprocessor = postprocessor
         self.pack = pack
+        self.chunked = chunked
+        self.chunk_s = chunk_s
+        self.chunk_overlap_s = chunk_overlap_s
+        self.enhance_for_vad = enhance_for_vad
         self.keep_intermediates = keep_intermediates
 
     # ------------------------------------------------------------------
     def collect_windows(self, audio: np.ndarray,
                         sample_rate: int) -> Tuple[List[Window], Dict]:
-        """Scene detection + per-scene VAD -> flat window list."""
+        """Scene detection + per-scene enhancement and VAD -> flat window
+        list (or the overlapped chunks of the whole file when
+        ``chunked``)."""
+        if self.chunked:
+            windows = chunked_windows(audio, sample_rate,
+                                      chunk_s=self.chunk_s,
+                                      overlap_s=self.chunk_overlap_s)
+            return windows, {"scene_backend": "chunked",
+                             "windows": len(windows), "scenes": 0,
+                             "groups": len(windows), "failovers": 0,
+                             "groups_packed": len(windows)}
         t0 = time.time()
         scene_result = self.scene_detector.detect(audio, sample_rate)
-        stage_s = {"scene": time.time() - t0, "vad": 0.0}
+        stage_s = {"scene": time.time() - t0, "enhance": 0.0, "vad": 0.0}
         segmenter = create_segmenter(self.vad_backend, **self.vad_kwargs)
         windows: List[Window] = []
         vad_stats = {"scenes": len(scene_result.scenes), "groups": 0,
                      "failovers": 0}
+        enhanced_ok = 0
         for scene in scene_result.scenes:
             a = int(scene.start * sample_rate)
             b = int(scene.end * sample_rate)
             scene_audio = audio[a:b]
+            vad_audio = scene_audio
+            if self.enhancer is not None:
+                t0 = time.time()
+                res = enhance_scenes(self.enhancer, [scene_audio],
+                                     sample_rate)[0]
+                stage_s["enhance"] += time.time() - t0
+                if res.success and self.enhance_for_vad:
+                    # dual track: the enhanced audio drives segmentation
+                    # only; the engine decodes the original samples
+                    n = min(len(res.audio), b - a)
+                    vad_audio = np.concatenate(
+                        [res.audio[:n], scene_audio[n:]])
+                    enhanced_ok += 1
+                elif res.success:
+                    audio = audio.copy() if enhanced_ok == 0 else audio
+                    # an enhancer may not keep the length exactly: patch
+                    # the overlapping prefix only, so offsets hold
+                    n = min(len(res.audio), b - a)
+                    audio[a:a + n] = res.audio[:n]
+                    scene_audio = vad_audio = audio[a:b]
+                    enhanced_ok += 1
             t0 = time.time()
-            seg = segmenter.segment(scene_audio, sample_rate)
+            seg = segmenter.segment(vad_audio, sample_rate)
             stage_s["vad"] += time.time() - t0
             if vad_failover_check(seg):
                 # implausibly low coverage -> full-clip transcription
@@ -97,6 +152,7 @@ class TranscribePipeline:
             windows = pack_windows(windows, sample_rate)
         stats = {"scene_backend": scene_result.backend,
                  "scene_stats": scene_result.stats, **vad_stats,
+                 "enhanced_scenes": enhanced_ok,
                  "groups_packed": raw_windows,
                  "windows": len(windows),
                  "stage_s": {k: round(v, 3) for k, v in stage_s.items()}}
@@ -126,14 +182,19 @@ class TranscribePipeline:
     # ------------------------------------------------------------------
     def assemble_subtitles(self, results) -> List[Subtitle]:
         """Engine results -> globally-timed subtitles: unpack packed
-        windows, drop segments that start past a window's audio, clamp
-        ends, record per-window diagnostics, stitch."""
+        windows, keep a chunk's segments whose midpoint lies in its
+        ``keep_range``, drop segments that start past a window's audio,
+        clamp ends, record per-window diagnostics, stitch."""
         flat_results = []
         for window, segments in results:
             flat_results.extend(unpack_segments(window, segments))
         scene_subs = []
         window_diag = []
         for window, segments in flat_results:
+            if window.keep_range is not None:
+                lo, hi = window.keep_range
+                segments = [s for s in segments
+                            if lo <= (s.start + s.end) / 2.0 < hi]
             subs = [Subtitle(0, s.start, min(s.end, window.duration), s.text)
                     for s in segments
                     if s.text.strip() and s.start < window.duration]
