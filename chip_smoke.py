@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
-                                          # turbo, large-v2, fidelity
-                                          # (comma list)
+                                          # turbo, large-v2, fidelity,
+                                          # qwen (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -49,7 +49,20 @@ Phases, in order; any failure exits non-zero before the result line:
    ladder; every scene must be enhanced and at least one word-alignment
    pass must run) and ``--mode transformers --int8-weights --vocab-slice
    16384`` on the same clip (overlapped 30 s chunks, the fused int8
-   blocks against an int8 lm head at the subset's size).
+   blocks against an int8 lm head at the subset's size);
+7. the qwen phase: a narrow Qwen3-ASR (test widths, int8 LM) from one
+   seed on the GPU (f32, no TF32) and the CPU: prefill logits and 8
+   teacher-forced steps within QWEN_TOL_REL, identical int8 codes, and
+   identical forced-aligner spans (``align_spans``); then ``--mode qwen``
+   on a ~60 s clip (Qwen3-ASR-1.7B at full width and depth from a seeded
+   random init, int8 LM, B=32, semantic scenes, the whisperseg framer,
+   the forced aligner; at least two scenes, every cue inside the clip,
+   generate and align stages above 0, the generator's and aligner's
+   parameters on the card), the costs of the path (one timed B=32
+   generate: ms per step and the device's busy share from the profiler,
+   the AuT encode, ``align_spans`` per bucket), and the same clip with
+   ``--generator anime-whisper --model small`` (Kernel A and Kernel B's
+   bf16 form must launch).
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -123,6 +136,12 @@ INT8_CLIP_S = 30.0
 # the fidelity and transformers paths' clip (bursts are added until the
 # clip reaches it, so it comes out a few seconds longer)
 FIDELITY_CLIP_S = 20.0
+# the qwen paths' clip: over 48 s, so safe chunking gives two scenes or
+# more and the pooled path runs
+QWEN_CLIP_S = 56.0
+# narrow Qwen, GPU f32 (no TF32) vs CPU f32 logits, relative to their
+# largest magnitude
+QWEN_TOL_REL = 1e-3
 # an older version of the kernels, when present, is timed beside these
 V1_CSRC = Path(__file__).resolve().parent / "build" / "v1" / \
     "whisperjav_tpu_torch" / "csrc"
@@ -1270,7 +1289,281 @@ def profile_decode(engine, xa, label: str, tokens: int = 16) -> None:
                     for name, (n, t) in top))
 
 
-PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity")
+def check_small_qwen_reference(dev):
+    """A narrow Qwen3-ASR (``qwen3-asr-test``: LM d=256, 4 layers, GQA 8/4
+    heads, vocab 4096; AuT d=256, 4 layers) from one seed, fused and
+    quantised to int8 on the CPU and copied to the card; the card's own
+    quantiser must give the same codes. The prefill logits (audio prefix
+    + BOS) and 8 teacher-forced single steps, GPU f32 vs CPU f32, within
+    QWEN_TOL_REL of the largest logit; then the forced aligner (default
+    widths, one seed) on a padded 4 s bucket: ``align_spans`` on both
+    sides must give identical spans."""
+    import copy
+    from whisperjav_tpu_torch.models.qwen import aligner as qa
+    from whisperjav_tpu_torch.models.qwen import model as qm
+    from whisperjav_tpu_torch.models.qwen.weights import init_params
+    from whisperjav_tpu_torch.models.whisper.quant import _quantize
+    cfg = qm.QWEN_SIZES["qwen3-asr-test"]
+    cpu = qm.quantize_lm_weights(qm.fuse_lm_qkv(init_params(
+        cfg, torch.Generator().manual_seed(0))))
+    gpu = copy.deepcopy(cpu).to(dev)
+    raw = qm.fuse_lm_qkv(init_params(cfg, torch.Generator().manual_seed(0)))
+    q_gpu, s_gpu = _quantize(raw.blocks["wqkv"].to(dev))
+    same_codes = bool((q_gpu.cpu() == cpu.blocks["wqkv"].q).all()
+                      and (s_gpu.cpu() == cpu.blocks["wqkv"].s).all())
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, cfg.n_mels, 800, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    audio_len = cfg.audio_tokens_for(800)
+    t_max = audio_len + 1 + 8
+    logits = {}
+    with torch.inference_mode():
+        for side, model, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+            emb = qm.encode_audio(model, mel.to(d))
+            bos = model.tok_emb[torch.full((2, 1), cfg.bos_id, device=d)]
+            cache = qm.LMCache.zeros(cfg, 2, t_max, torch.float32, d)
+            lg, cache = qm.lm_step(model, torch.cat([emb, bos], 1), 0,
+                                   cache)
+            out = [lg[:, -1]]
+            for i in range(8):
+                lg, cache = qm.lm_step(model, model.tok_emb[
+                    toks[:, i:i + 1].to(d)], audio_len + 1 + i, cache)
+                out.append(lg[:, 0])
+            logits[side] = torch.stack(out).float().cpu()
+    lc, lg = logits["cpu"], logits["gpu"]
+    err = ((lg - lc).abs().max() / lc.abs().max()).item()
+    # the forced aligner: one seed, CPU and card
+    acfg = qa.AlignerConfig()
+    ap_cpu = qa.init_params(acfg, torch.Generator().manual_seed(2))
+    ap_gpu = copy.deepcopy(ap_cpu).to(dev)
+    lens = [4 * SR, 3 * SR + 555, SR, SR // 3]
+    audio = np.zeros((4, 4 * SR), np.int16)
+    counts = [40, 25, 12, 9]
+    tok = np.zeros((4, 64), np.int64)
+    rng = np.random.default_rng(3)
+    for r, n in enumerate(lens):
+        audio[r, :n] = np.round(speech_like(4.0, r)[:n] * 32767)
+        tok[r, :counts[r]] = rng.integers(0, acfg.vocab_size, counts[r])
+    spans = {}
+    for side, params, d in (("cpu", ap_cpu, "cpu"), ("gpu", ap_gpu, dev)):
+        spans[side] = qa.align_spans(
+            params, torch.from_numpy(audio).to(d), torch.from_numpy(tok).to(d),
+            torch.tensor(lens, device=d), torch.tensor(counts, device=d))
+    same_spans = all(
+        (spans["gpu"][k][r, :n] == spans["cpu"][k][r, :n]).all()
+        for k in (0, 1) for r, n in enumerate(counts))
+    log(f"small qwen reference (qwen3-asr-test widths, int8 LM, B=2, "
+        f"prefill of {audio_len} audio tokens + BOS, 8 teacher-forced "
+        f"steps): logits max rel err {err:.4g} (tol {QWEN_TOL_REL}); int8 "
+        f"codes and scales quantised on the card equal the CPU's: "
+        f"{same_codes}; align_spans (default aligner, 4 rows, 4 s "
+        f"bucket, 64 tokens) identical on the card and the CPU: "
+        f"{same_spans}")
+    if not torch.isfinite(lg).all() or not err <= QWEN_TOL_REL:
+        raise RuntimeError("qwen on the GPU disagrees with the CPU")
+    if not same_codes:
+        raise RuntimeError("int8 codes on the GPU differ from the CPU's")
+    if not same_spans:
+        raise RuntimeError(f"align_spans on the GPU differ from the CPU: "
+                           f"{spans}")
+
+
+@contextlib.contextmanager
+def parameter_devices():
+    """Inside the block, record the devices of the Qwen generator's and
+    the forced aligner's parameters after every load (the pipeline
+    unloads them when a file is done)."""
+    from whisperjav_tpu_torch.modules.subtitle_pipeline import components
+    seen = {"generator": set(), "aligner": set()}
+    saved = {}
+
+    def spy(cls, key, params):
+        orig = saved[cls] = cls.load
+
+        def load(self):
+            orig(self)
+            seen[key] |= {t.device.type for t in params(self).parameters()}
+        cls.load = load
+    spy(components.QwenGenerator, "generator", lambda g: g._params)
+    spy(components.QwenAlignerAdapter, "aligner",
+        lambda a: a._aligner.params)
+    try:
+        yield seen
+    finally:
+        for cls, orig in saved.items():
+            cls.load = orig
+
+
+def run_qwen_cli_path(tmp: Path, label: str, flags: list, needed: tuple):
+    """``--mode qwen`` on the synthetic QWEN_CLIP_S clip through
+    ``cli.main``; launch counts zeroed just before and read just after;
+    the SRT and metadata must parse, the pipeline be qwen with two scenes
+    or more, every cue lie inside the clip, the generate and align stages
+    take time, and the kernels in ``needed`` have launched."""
+    from whisperjav_tpu_torch import cli
+    wav = tmp / "smoke.wav"
+    duration = synthetic_clip(wav, QWEN_CLIP_S)
+    out_dir = tmp / f"out-{label.replace(' ', '-')}"
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with parameter_devices() as devices:
+        t0 = time.perf_counter()
+        rc = cli.main([str(wav), "--output-dir", str(out_dir), "--mode",
+                       "qwen", *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"{label}: whisperjav-torch exited {rc}")
+    cues = srt_cues(out_dir / "smoke.ja.whisperjav.srt")
+    meta = json.loads((out_dir / "smoke.whisperjav.json").read_text(
+        encoding="utf-8"))
+    stats = meta["stats"]
+    stage = stats["stage_s"]
+    if meta["pipeline"] != "qwen" or meta["scenes"] < 2:
+        raise RuntimeError(f"{label}: pipeline {meta['pipeline']!r}, "
+                           f"{meta['scenes']} scenes")
+    for start, end in cues:
+        if not 0.0 <= start <= end <= duration + 1.0:
+            raise RuntimeError(f"{label}: subtitle outside the clip: "
+                               f"{start}-{end}")
+    if not (stage.get("generate", 0) > 0 and stage.get("align", 0) > 0):
+        raise RuntimeError(f"{label}: stages {stage}")
+    # the Whisper generator's engine is checked by its kernels' launches
+    if devices["aligner"] != {"cuda"} or ("--generator" not in flags
+                                          and devices["generator"]
+                                          != {"cuda"}):
+        raise RuntimeError(f"{label}: parameters on {devices}")
+    missing = [name for name in needed if launches[name] < 1]
+    if missing:
+        raise RuntimeError(f"{label}: kernels of the path never launched: "
+                           f"{missing} ({launches})")
+    log(f"{label} path (--mode qwen {' '.join(flags)}): clip "
+        f"{duration:.3f} s, wall {wall:.3f} s, file RTF "
+        f"{duration / wall:.3f}x (e2e_wall_s {stats['e2e_wall_s']}, "
+        f"e2e_rtf_x {stats['e2e_rtf_x']}), scenes {meta['scenes']}, frames "
+        f"{stats['windows']}, subtitles {stats['final_subtitles']}, "
+        f"parameter devices {json.dumps({k: sorted(v) for k, v in devices.items()})}")
+    log(f"{label} path stages (s): {json.dumps(stage)}; alignment "
+        f"{json.dumps(meta['analytics']['alignment_metrics'])}")
+    log(f"{label} path peak device memory: {peak} bytes "
+        f"({peak / 2**30:.3f} GiB); launches {json.dumps(launches)}")
+    return launches
+
+
+def qwen_costs(dev):
+    """The Qwen path's own costs at Qwen3-ASR-1.7B full width: one B=32
+    batch of 8 s clips (the main path's frames padded to whole 4 s
+    windows): the AuT encode; generate at 16 steps and at the budget, in
+    turns, whose difference over the step difference is the ms per step;
+    16 LM steps enqueued without a sync (the host's time a step); two
+    short generates under torch.profiler for the device's busy share of
+    the steps and the kernels that take the most device time; then
+    ``align_spans`` per bucket at the main path's shapes (wall, Viterbi
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from whisperjav_tpu_torch.models.qwen import aligner as qa
+    from whisperjav_tpu_torch.models.qwen import model as qm
+    from whisperjav_tpu_torch.modules.subtitle_pipeline.components import (
+        QwenGenerator,
+    )
+    from whisperjav_tpu_torch.ops.mel import log_mel_spectrogram
+    gen = QwenGenerator("qwen3-asr-1.7b", batch_size=32, device=dev)
+    gen.load()
+    model, cfg = gen._params, gen.cfg
+    audio = np.zeros((32, 8 * SR), np.float32)
+    for r in range(32):
+        n = int((5.0 + 0.09 * r) * SR)
+        audio[r, :n] = speech_like(8.0, r)[:n]
+    mel = log_mel_spectrogram(torch.from_numpy(audio).to(dev),
+                              n_mels=cfg.n_mels)
+    audio_len = cfg.audio_tokens_for(mel.shape[-1])
+    budget = gen.budget(8.0)
+    qm.generate(model, mel, 8, audio_len)                      # warm-up
+    _, enc_s = _timed(lambda: qm.encode_audio(model, mel))
+    # ms per step: generates of 16 steps and of the budget, in turns
+    walls = {16: [], budget: []}
+    for steps in (16, budget, budget, 16):
+        res, wall = _timed(lambda: qm.generate(model, mel, steps, audio_len))
+        walls[steps].append(wall)
+    w16, wb = statistics.median(walls[16]), statistics.median(walls[budget])
+    step_ms = (wb - w16) / (budget - 16) * 1e3
+    # the host's share: 16 LM steps enqueued without a sync (no argmax,
+    # penalty or log-softmax), then the sync
+    cache = qm.LMCache.zeros(cfg, 32, audio_len + 40, torch.float32, dev)
+    emb = model.tok_emb[torch.full((32, 1), 7, device=dev)]
+    qm.lm_step(model, emb, audio_len, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(16):
+        qm.lm_step(model, emb, audio_len + 1 + i, cache)
+    host_ms = (time.perf_counter() - t0) / 16 * 1e3
+    torch.cuda.synchronize()
+    lm_ms = (time.perf_counter() - t0) / 16 * 1e3
+    del cache
+    # the device's share of the steps: two short generates under the
+    # profiler (device activity only, few events), the difference
+    prof_runs = {}
+    for steps in (8, 24):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(lambda: qm.generate(model, mel, steps,
+                                                 audio_len))
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.key] = (e.count, e.device_time_total)
+        prof_runs[steps] = (wall, by_name)
+    (w1, p1), (w2, p2) = prof_runs[8], prof_runs[24]
+    b1 = sum(t for _, t in p1.values()) / 1e6
+    b2 = sum(t for _, t in p2.values()) / 1e6
+    busy = (b2 - b1) / (w2 - w1) if w2 > w1 else float("nan")
+    top = sorted(((k, (n - p1.get(k, (0, 0))[0], t - p1.get(k, (0, 0))[1]))
+                  for k, (n, t) in p2.items()), key=lambda kv: -kv[1][1])[:8]
+    log(f"qwen3-asr-1.7b generate B=32, 8 s clips ({audio_len} audio "
+        f"tokens), int8 LM: AuT encode {enc_s * 1e3:.3f} ms a batch; "
+        f"generate 16 steps {w16:.4f} s, {budget} steps {wb:.4f} s "
+        f"(medians of {json.dumps(walls)}; shortest row "
+        f"{int(res.length.min())} tokens) -> {step_ms:.3f} ms per step; an "
+        f"LM step alone: {host_ms:.3f} ms of host enqueue, {lm_ms:.3f} ms "
+        f"to the sync; profiled 8 -> 24 steps: {(w2 - w1) / 16 * 1e3:.3f} "
+        f"ms per step of wall, device busy {100 * busy:.1f}% "
+        f"({(b2 - b1) / 16 * 1e3:.3f} ms of device time a step); the "
+        f"steps' top kernels: " + "; ".join(
+            f"{name[:70]} x{n // 16} {t / 1e3 / 16:.4f} ms/step"
+            for name, (n, t) in top))
+    del gen, model
+    torch.cuda.empty_cache()
+    # align_spans at the main path's buckets: rows 8 and 32, 4 and 8 s
+    params = qa.init_params(qa.AlignerConfig(),
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    rng = np.random.default_rng(4)
+    for rows, secs, n_tok in ((8, 4, 64), (32, 8, 128)):
+        a16 = np.round(audio[:rows, :secs * SR] * 32767).astype(np.int16)
+        args = (params, torch.from_numpy(a16).to(dev),
+                torch.from_numpy(rng.integers(0, 4096, (rows, n_tok))).to(dev),
+                torch.full((rows,), secs * SR - 999, device=dev),
+                torch.full((rows,), n_tok - 3, device=dev))
+        ms = call_ms(lambda: qa.align_spans(*args), 5)
+        log(f"align_spans bucket rows={rows} audio={secs} s tokens={n_tok}: "
+            f"{ms:.3f} ms a call (wall: mel, similarity, the Viterbi over "
+            f"{secs * 25} frame columns on the card, backtrack on the host)")
+    torch.cuda.empty_cache()
+
+
+# the qwen3 generator runs no kernel of the port (the Qwen LM and the
+# aligner are PyTorch matmuls); the anime-whisper generator runs the
+# Whisper engine's unfused bf16 decoder
+QWEN_NEEDS = ()
+QWEN_WHISPER_NEEDS = TURBO_NEEDS
+
+
+PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen")
 
 
 def main(argv=None) -> int:
@@ -1343,6 +1636,19 @@ def main(argv=None) -> int:
         if "fidelity" in only:
             check_zipenhancer(dev)
             launches.update(run_fidelity_paths(Path(tmp)))
+        if "qwen" in only:
+            check_small_qwen_reference(dev)
+            launches["qwen"] = run_qwen_cli_path(Path(tmp), "qwen",
+                                                 ["--no-signature"],
+                                                 QWEN_NEEDS)
+            torch.cuda.empty_cache()
+            qwen_costs(dev)
+            launches["qwen_anime_whisper"] = run_qwen_cli_path(
+                Path(tmp), "qwen anime-whisper",
+                ["--generator", "anime-whisper", "--model", "small",
+                 "--no-signature"],
+                QWEN_WHISPER_NEEDS)
+            torch.cuda.empty_cache()
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

@@ -28,7 +28,11 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.models.enhancement.zipnet",
                  "whisperjav_tpu_torch.modules.enhancement.zipenhancer",
                  "whisperjav_tpu_torch.models.whisper.word_align",
-                 "whisperjav_tpu_torch.models.whisper.vocab_subset"):
+                 "whisperjav_tpu_torch.models.whisper.vocab_subset",
+                 "whisperjav_tpu_torch.models.qwen.model",
+                 "whisperjav_tpu_torch.models.qwen.aligner",
+                 "whisperjav_tpu_torch.modules.subtitle_pipeline.components",
+                 "whisperjav_tpu_torch.pipelines.qwen"):
         assert name in mods
 
 
@@ -141,3 +145,61 @@ def test_port_pipeline_and_cli_leave_the_jax_package_out():
     loaded = [line for line in proc.stdout.splitlines()
               if line.startswith("LOADED:")]
     assert loaded == ["LOADED:"], f"JAX package modules loaded: {loaded}"
+
+
+_QWEN_RUN = """
+import sys, tempfile
+from pathlib import Path
+
+
+class _Blocked:
+    # what the GPU machine does not have: importing it fails
+    NAMES = ("jax", "jaxlib", "sklearn", "transformers", "whisperjav_tpu")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+import torch
+from whisperjav_tpu_torch import cli
+from whisperjav_tpu_torch.modules.audio_io import write_wav
+
+torch.set_num_threads(1)
+sr, rng = 16000, np.random.default_rng(0)
+t = np.arange(5 * sr) / sr
+burst = (0.3 * np.sin(2 * np.pi * 180 * t)
+         + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+audio = np.concatenate([burst, np.zeros(sr, np.float32), burst,
+                        np.zeros(sr, np.float32), burst])
+with tempfile.TemporaryDirectory() as tmp:
+    wav = Path(tmp) / "clip.wav"
+    write_wav(wav, audio, sr)
+    for extra in ([], ["--qwen-timestamps", "none"]):
+        out = Path(tmp) / f"out{len(extra)}"
+        assert cli.main([str(wav), "--output-dir", str(out), "--mode",
+                         "qwen", "--device", "cpu", "--qwen-model-id",
+                         "qwen3-asr-test", "--qwen-batch-size", "2",
+                         *extra]) == 0
+        assert (out / "clip.ja.whisperjav.srt").exists()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in _Blocked.NAMES)
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_qwen_cli_runs_without_jax_sklearn_transformers():
+    """``--mode qwen`` (semantic scenes, whisperseg, the Qwen generator,
+    the forced aligner) runs on the CPU with jax, scikit-learn,
+    transformers and the JAX package blocked from import, and loads none
+    of them."""
+    proc = subprocess.run([sys.executable, "-c", _QWEN_RUN],
+                          cwd=str(PKG_DIR.parent), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    loaded = [line for line in proc.stdout.splitlines()
+              if line.startswith("LOADED:")]
+    assert loaded == ["LOADED:"], f"blocked modules loaded: {loaded}"

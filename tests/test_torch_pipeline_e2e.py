@@ -148,15 +148,20 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--enhancer", "bs-roformer"], ["--mode", "qwen"],
-    ["--enhancer", "clearvoice"], ["--model", "qwen3-asr-1.7b"],
+    ["--enhancer", "bs-roformer"],
+    ["--mode", "qwen", "--qwen-enhancer", "bs-roformer"],
+    ["--enhancer", "clearvoice"],
+    ["--mode", "qwen", "--vad-arg", "weights=whisperseg.npz"],
     ["--mode", "fidelity", "--enhancer", "vocals"],
     ["--ensemble"], ["--daemon"], ["--daemon-stop"], ["--multihost"],
     ["--async-processing"], ["--translate", "ollama"],
-    ["--daemon-replace"], ["--scene-backend", "semantic"],
-    ["--mode", "transformers", "--hf-scene", "semantic"],
+    ["--daemon-replace"], ["--scene-backend", "silero"],
+    ["--mode", "transformers", "--hf-scene", "silero"],
     ["--devices", "4"],
     ["--vad-backend", "ten"], ["--vad-arg", "weights=silero.npz"],
+    ["--mode", "qwen", "--ensemble"],
+    ["--mode", "qwen", "--qwen-segmenter", "ten"],
+    ["--mode", "qwen", "--qwen-scene", "silero"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
     assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2

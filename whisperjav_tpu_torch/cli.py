@@ -14,16 +14,22 @@ turns it on and ``float*`` off, as in the JAX CLI. ``--mode fidelity``
 (overlapped 30 s / 5 s chunks; the ``--hf-*`` flags as the JAX CLI maps
 them) and ``--mode anime`` run as in the JAX CLI, with
 ``--word-timestamps``, ``--vocab-slice``, ``--enhancer`` (zipenhancer,
-dsp, none), ``--enhancer-arg`` and ``--enhance-for-vad``.
+dsp, none), ``--enhancer-arg`` and ``--enhance-for-vad``. ``--mode
+qwen`` runs the decoupled subtitle pipeline (semantic scenes, the
+whisperseg VAD-grouped framer, the Qwen3-ASR generator on an int8 LM,
+the forced aligner) with the JAX CLI's framer, generator, cleaner,
+aligner, step-down, hardening, context and ``--qwen-*`` flags.
 
 What the port does not cover yet makes it exit with "not ported yet"
-before any work: qwen mode, the band-split enhancers, and the flags
-listed in ``_UNPORTED``.
+before any work: the band-split enhancers, the Silero and WhisperSeg
+networks (``--vad-arg weights=...``), and the flags listed in
+``_UNPORTED``.
 
     whisperjav-torch clip.wav --output-dir out/
     whisperjav-torch clip.wav --model large-v2 --int8-weights
     whisperjav-torch clip.wav --mode fidelity --enhancer-weights zip.npz \
         --word-timestamps
+    whisperjav-torch clip.wav --mode qwen
     python -m whisperjav_tpu_torch.cli clip.wav --output-dir out/
 """
 
@@ -33,17 +39,19 @@ import json
 import sys
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from whisperjav_tpu_torch.cli_args import (
-    _ASR_TO_MODE, _FEATURE_TO_SCENE, _parse_kv_args, parse_arguments,
+    _ASR_TO_MODE, _FEATURE_TO_SCENE, _json_flag, _parse_kv_args,
+    parse_arguments,
 )
 
 PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
-                "anime")
-_SCENE_BACKENDS = ("energy", "auditok", "default", "none", "null")
+                "anime", "qwen")
+_SCENE_BACKENDS = ("energy", "auditok", "default", "none", "null",
+                   "semantic")
 _VAD_BACKENDS = ("silero", "silero-jax", "energy", "default", "none",
-                 "null")
+                 "null", "whisperseg")
 # the band-split enhancement backends (and their aliases)
 _UNPORTED_ENHANCERS = ("bs-roformer", "bsroformer", "vocals", "clearvoice",
                        "mossformer")
@@ -64,20 +72,192 @@ def _unported(args) -> List[str]:
         out.append(f"--mode {args.mode}")
     if args.devices is not None and args.devices > 1:
         out.append(f"--devices {args.devices}")
-    if args.model and args.model.startswith("qwen"):
-        out.append(f"--model {args.model}")
     for flag, scene in (("--scene-backend", args.scene_backend),
-                        ("--hf-scene", args.hf_scene)):
+                        ("--hf-scene", args.hf_scene),
+                        ("--qwen-scene", args.qwen_scene)):
         if scene and scene.lower() not in _SCENE_BACKENDS:
             out.append(f"{flag} {scene}")
-    if args.enhancer and args.enhancer.lower() in _UNPORTED_ENHANCERS:
-        out.append(f"--enhancer {args.enhancer}")
-    if args.vad_backend and args.vad_backend.lower().replace("_", "-") \
-            not in _VAD_BACKENDS:
-        out.append(f"--vad-backend {args.vad_backend}")
+    for flag, enh in (("--enhancer", args.enhancer),
+                      ("--qwen-enhancer", args.qwen_enhancer)):
+        if enh and enh.lower() in _UNPORTED_ENHANCERS:
+            out.append(f"{flag} {enh}")
+    for flag, vad in (("--vad-backend", args.vad_backend),
+                      ("--qwen-segmenter", args.qwen_segmenter)):
+        if vad and vad.lower().replace("_", "-") not in _VAD_BACKENDS:
+            out.append(f"{flag} {vad}")
     if "weights" in _parse_kv_args(args.vad_arg, "--vad-arg"):
-        out.append("--vad-arg weights=... (the Silero network)")
+        out.append("--vad-arg weights=... (the Silero and WhisperSeg "
+                   "networks)")
     return out
+
+
+def _qwen_overrides(args, overrides: Dict) -> Optional[str]:
+    """The ``--qwen-*`` config flags into ``overrides``, in place, as the
+    JAX CLI maps them; returns ``--qwen-sensitivity``."""
+    from whisperjav_tpu_torch.utils.logger import logger
+    for dest, key in (("qwen_batch_size", "batch_size"),
+                      ("qwen_max_group_duration", "max_group_duration_s"),
+                      ("qwen_vad_threshold", "vad_threshold")):
+        if getattr(args, dest) is not None:
+            overrides[key] = getattr(args, dest)
+    for dest, key in (("qwen_scene", "scene_backend"),
+                      ("qwen_segmenter", "vad_backend"),
+                      ("qwen_enhancer", "enhancer_backend"),
+                      ("qwen_model_id", "model")):
+        if getattr(args, dest):
+            overrides[key] = getattr(args, dest)
+    if args.qwen_enhancer_model:
+        overrides["enhancer_kwargs"] = {
+            **(overrides.get("enhancer_kwargs") or {}),
+            "weights": args.qwen_enhancer_model}
+    if args.qwen_language:
+        lang_map = {"japanese": "ja", "english": "en", "chinese": "zh",
+                    "korean": "ko"}
+        overrides["language"] = lang_map.get(args.qwen_language.lower(),
+                                             args.qwen_language)
+    if args.qwen_input_mode in ("context_aware", "vad_slicing"):
+        logger.warning("--qwen-input-mode %s is a deprecated alias of "
+                       "'assembly' (reference: main.py:566-568); using "
+                       "assembly", args.qwen_input_mode)
+    if args.qwen_japanese_postprocess:
+        logger.warning("--qwen-japanese-postprocess has no effect for qwen "
+                       "mode (AssemblyTextCleaner covers it)")
+    return args.qwen_sensitivity
+
+
+def _qwen_pipeline(args, cfg, checkpoint: Optional[str], device):
+    """The decoupled qwen-mode pipeline for the resolved ``cfg`` and the
+    stack flags (framer, generator, cleaner, aligner, step-down,
+    hardening, context, token budgets, scene clamps), on ``device``; the
+    JAX CLI's qwen branch."""
+    from whisperjav_tpu_torch.modules.subtitle_pipeline.components import (
+        CohereStyleGenerator, QwenGenerator, WhisperGenerator,
+        create_aligner, create_cleaner, create_framer,
+    )
+    from whisperjav_tpu_torch.modules.subtitle_pipeline.orchestrator import (
+        DecoupledSubtitlePipeline,
+    )
+    from whisperjav_tpu_torch.modules.subtitle_pipeline.types import (
+        HardeningConfig, RegroupMode, StepDownConfig, TimestampMode,
+    )
+    from whisperjav_tpu_torch.pipelines.qwen import QwenPipeline
+    from whisperjav_tpu_torch.utils.logger import logger
+    model_size = (cfg.model if cfg.model.startswith("qwen")
+                  else "qwen3-asr-1.7b")
+    framer_kwargs: Dict = {}
+    framer_name = args.framer or "vad-grouped"
+    if framer_name == "vad-grouped":
+        framer_kwargs["vad_backend"] = cfg.mode.vad_backend
+        if args.qwen_vad_threshold is not None:
+            framer_kwargs["threshold"] = args.qwen_vad_threshold
+        if args.qwen_chunk_threshold is not None:
+            framer_kwargs["max_gap_s"] = args.qwen_chunk_threshold
+        if args.qwen_vad_padding is not None:
+            pad_s = args.qwen_vad_padding / 1000.0
+            framer_kwargs["pad_start_s"] = pad_s
+            framer_kwargs["pad_end_s"] = pad_s
+        if cfg.vad_kwargs:
+            framer_kwargs.update(cfg.vad_kwargs)
+    elif framer_name == "srt-source":
+        if not args.framer_srt_path:
+            raise SystemExit("--framer srt-source requires --framer-srt-path")
+        framer_kwargs["srt_path"] = args.framer_srt_path
+    framer_kwargs.update(_json_flag(args.framer_config, "--framer-config"))
+    framer = create_framer(framer_name, **framer_kwargs)
+    step_down = StepDownConfig(enabled=not args.no_step_down)
+    if args.step_down_attempts is not None:
+        step_down = StepDownConfig(
+            enabled=step_down.enabled and args.step_down_attempts > 0,
+            fallback_max_group_s=step_down.fallback_max_group_s,
+            max_retries=max(args.step_down_attempts, 0))
+    if args.step_down_max_group is not None:
+        step_down = StepDownConfig(
+            enabled=step_down.enabled,
+            fallback_max_group_s=args.step_down_max_group,
+            max_retries=step_down.max_retries)
+    hardening = None
+    if args.timestamp_mode:
+        hardening = HardeningConfig(
+            timestamp_mode=TimestampMode(args.timestamp_mode))
+    context = args.context
+    if args.context_file:
+        try:
+            file_ctx = Path(args.context_file).read_text(
+                encoding="utf-8").strip()
+        except OSError as e:
+            raise SystemExit(f"--context-file: {e}")
+        context = f"{context}\n{file_ctx}" if context else file_ctx
+    gen_kwargs: Dict = {}
+    if args.qwen_repetition_penalty is not None:
+        gen_kwargs["repetition_penalty"] = args.qwen_repetition_penalty
+    if context:
+        gen_kwargs["context"] = context
+    if args.qwen_max_tokens is not None:
+        gen_kwargs["max_tokens"] = args.qwen_max_tokens
+    if args.qwen_max_tokens_per_second is not None:
+        gen_kwargs["max_tokens_per_second"] = args.qwen_max_tokens_per_second
+    gen_kwargs.update(_json_flag(args.generator_config,
+                                 "--generator-config"))
+    if args.generator == "anime-whisper":
+        # a Whisper fine-tune decoded without prompts; any local Whisper
+        # checkpoint slots in
+        import copy
+        from whisperjav_tpu_torch.pipelines.factory import build_engine
+        wcfg = copy.copy(cfg)
+        if wcfg.model.startswith("qwen"):
+            wcfg.model = args.model or "small"
+        generator = WhisperGenerator(engine=build_engine(
+            wcfg, checkpoint=checkpoint, device=device))
+    elif args.generator == "cohere":
+        dropped = [name for key, name in
+                   (("repetition_penalty", "--qwen-repetition-penalty"),
+                    ("context", "--context/--context-file"))
+                   if gen_kwargs.pop(key, None) is not None]
+        if dropped:
+            logger.warning("--generator cohere does not support %s; "
+                           "ignoring (the cohere slot is greedy and "
+                           "prompt-free)", " and ".join(dropped))
+        if "max_tokens" in gen_kwargs:
+            gen_kwargs["max_new_tokens"] = gen_kwargs.pop("max_tokens")
+        if "model_id" in gen_kwargs:
+            model_size = gen_kwargs.pop("model_id")
+        generator = CohereStyleGenerator(
+            model_size=model_size, batch_size=cfg.batch_size,
+            checkpoint=checkpoint, device=device, **gen_kwargs)
+    else:
+        if "model_id" in gen_kwargs:    # reference config-key spelling
+            model_size = gen_kwargs.pop("model_id")
+        generator = QwenGenerator(model_size=model_size,
+                                  batch_size=cfg.batch_size,
+                                  checkpoint=checkpoint, device=device,
+                                  **gen_kwargs)
+    cleaner_name = args.cleaner or (
+        "assembly" if args.qwen_assembly_cleaner else "passthrough")
+    cleaner = create_cleaner(cleaner_name, **_json_flag(
+        args.cleaner_config, "--cleaner-config"))
+    aligner_name = args.aligner or (
+        "none" if args.qwen_timestamps == "none" else "qwen3")
+    aligner = create_aligner(aligner_name, **{
+        "device": device,
+        **_json_flag(args.aligner_config, "--aligner-config")})
+    max_group_s = (args.qwen_stepdown_initial_group
+                   if args.qwen_stepdown_initial_group is not None
+                   else cfg.sensitivity.max_group_duration_s)
+    decoupled = DecoupledSubtitlePipeline(
+        framer=framer, generator=generator, cleaner=cleaner,
+        aligner=aligner, max_group_s=max_group_s, step_down=step_down,
+        hardening=hardening,
+        regroup_mode=(RegroupMode(args.regroup_mode)
+                      if args.regroup_mode else RegroupMode.STANDARD))
+    pipe_kwargs: Dict = {"safe_chunking": args.qwen_safe_chunking}
+    if args.qwen_scene_min_duration is not None:
+        pipe_kwargs["scene_min_s"] = args.qwen_scene_min_duration
+    if args.qwen_scene_max_duration is not None:
+        pipe_kwargs["scene_max_s"] = args.qwen_scene_max_duration
+    return QwenPipeline(decoupled, scene_backend=cfg.mode.scene_backend,
+                        scene_kwargs=cfg.scene_kwargs or None,
+                        enhancer_backend=cfg.enhancer_backend,
+                        language=cfg.language, device=device, **pipe_kwargs)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -179,8 +359,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             overrides["scene_backend"] = args.hf_scene
         if args.hf_timestamps is not None:
             overrides["no_timestamps"] = args.hf_timestamps == "false"
-    cfg = resolve_pipeline_config(mode=args.mode,
-                                  sensitivity=args.sensitivity, **overrides)
+    sensitivity = args.sensitivity
+    if args.mode == "qwen":
+        sensitivity = _qwen_overrides(args, overrides) or sensitivity
+    cfg = resolve_pipeline_config(mode=args.mode, sensitivity=sensitivity,
+                                  **overrides)
     dot = _parse_kv_args(args.overrides, "--overrides", keep_dots=True)
     if dot:
         cfg = apply_dot_overrides(cfg, dot)
@@ -231,10 +414,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         postprocessor = SRTPostProcessor(
             regroup_preset=args.postprocess_preset)
 
-    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-    pipeline = build_pipeline(cfg, checkpoint=checkpoint,
-                              postprocessor=postprocessor,
-                              device=args.device or "cuda")
+    device = args.device or "cuda"
+    if cfg.mode.name == "qwen":
+        pipeline = _qwen_pipeline(args, cfg, checkpoint, device)
+    else:
+        from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+        pipeline = build_pipeline(cfg, checkpoint=checkpoint,
+                                  postprocessor=postprocessor,
+                                  device=device)
 
     def finalize(srt_path: Path) -> None:
         """Signatures, then VTT conversion."""

@@ -535,6 +535,18 @@ def _parse_kv_args(pairs: List[str], flag: str,
     return out
 
 
+def _json_flag(value: Optional[str], flag: str) -> dict:
+    """Parse a JSON-dict flag value (reference: main.py:2137 error path)."""
+    if not value:
+        return {}
+    try:
+        loaded = json.loads(value)
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"invalid JSON in {flag}: {e}")
+    if not isinstance(loaded, dict):
+        raise SystemExit(f"{flag} expects a JSON object")
+    return loaded
+
 
 _ASR_TO_MODE = {
     # reference ensemble-resolver component names → mode presets

@@ -26,7 +26,6 @@ logits take at most ``ATTN_PIECE_BYTES`` (the results are the same).
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -36,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from whisperjav_tpu_torch.ops.stft import istft, stft
+from whisperjav_tpu_torch.utils.precision import full_f32
 
 N_FFT = 400
 HOP = 100
@@ -63,19 +63,6 @@ class ZipConfig:
 ZIP_TEST = ZipConfig(width=8, n_blocks=1, n_heads=2, ffn_mult=2,
                      dense_depth=2)
 ZIP_BASE = ZipConfig()
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Convolutions and matmuls in full f32 (no TF32) inside the block;
-    the process-wide flags are restored on the way out."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperjav_tpu_torch.models.enhancement.zipenhancer import full_f32
+from whisperjav_tpu_torch.utils.precision import full_f32
 from whisperjav_tpu_torch.ops.stft import istft, stft
 
 N_FFT = 400

@@ -1,0 +1,200 @@
+"""Checkpoint conversion: HF Qwen3-ASR (thinker) → stacked pytree.
+
+The port's copy of ``whisperjav_tpu/models/qwen/convert.py`` (numpy
+only): the tree it builds goes to :class:`QwenASR` through
+``weights.params_from_jax``. Reading a checkpoint needs ``transformers``;
+without it :func:`load_pretrained` raises.
+
+Maps the published qwen-asr / Qwen3-Omni-style state dict (reference
+binding: whisperjav/modules/qwen_asr.py:545,581-608 loads
+Qwen3ASRModel.from_pretrained → .thinker HF module tree) onto the param
+tree of :mod:`whisperjav_tpu.models.qwen.model`. Accepted key styles:
+
+- ``thinker.model.layers.*`` / ``thinker.audio_tower.*`` /
+  ``thinker.lm_head.weight`` (the ASR checkpoint);
+- ``model.layers.*`` + ``audio_tower.*`` (thinker prefix stripped);
+- a bare ``Qwen3ForCausalLM`` state dict (text model only — audio tower
+  left random; useful for LM-only parity tests).
+
+Torch ``Linear.weight`` is (out, in) → transposed to our (in, out);
+per-layer tensors stack on a leading axis. ``lm_head`` falls back to the
+tied ``embed_tokens`` when absent (Qwen3 ≤1.7B ties embeddings).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+
+from whisperjav_tpu_torch.models.qwen.model import QwenASRConfig
+
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def config_from_hf(hf_config) -> QwenASRConfig:
+    """Map an HF Qwen3-ASR (thinker) or Qwen3 text config to ours."""
+    text = getattr(hf_config, "text_config", hf_config)
+    audio = getattr(hf_config, "audio_config", None)
+    kw: Dict[str, Any] = dict(
+        name=getattr(hf_config, "name_or_path", "hf") or "hf",
+        vocab_size=text.vocab_size,
+        d_model=text.hidden_size,
+        n_layers=text.num_hidden_layers,
+        n_heads=text.num_attention_heads,
+        n_kv_heads=text.num_key_value_heads,
+        d_ff=text.intermediate_size,
+        lm_head_dim=getattr(text, "head_dim", 0) or 0,
+        rope_theta=float(getattr(text, "rope_theta", 1_000_000.0)),
+        rms_eps=float(getattr(text, "rms_norm_eps", 1e-6)),
+        eos_id=int(getattr(text, "eos_token_id", 2) or 2),
+        bos_id=int(getattr(text, "bos_token_id", 1) or 1),
+    )
+    if audio is not None:
+        kw.update(
+            n_mels=audio.num_mel_bins,
+            d_audio=audio.d_model,
+            audio_layers=audio.encoder_layers,
+            audio_heads=audio.encoder_attention_heads,
+            audio_ffn=audio.encoder_ffn_dim,
+            audio_downsample_hidden=audio.downsample_hidden_size,
+            n_window=audio.n_window,
+            n_window_infer=audio.n_window_infer,
+        )
+    return QwenASRConfig(**kw)
+
+
+def _strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("thinker."):
+            k = k[len("thinker."):]
+        out[k] = v
+    return out
+
+
+def _stack_lm_blocks(sd, cfg: QwenASRConfig, dtype) -> Dict[str, np.ndarray]:
+    def get(i, name, transpose=False):
+        arr = _np(sd[f"model.layers.{i}.{name}"])
+        return arr.T if transpose else arr
+
+    def stack(name, transpose=False):
+        return np.stack([get(i, name, transpose)
+                         for i in range(cfg.n_layers)]).astype(dtype)
+
+    return {
+        "ln1": stack("input_layernorm.weight"),
+        "wq": stack("self_attn.q_proj.weight", True),
+        "wk": stack("self_attn.k_proj.weight", True),
+        "wv": stack("self_attn.v_proj.weight", True),
+        "wo": stack("self_attn.o_proj.weight", True),
+        "q_norm": stack("self_attn.q_norm.weight"),
+        "k_norm": stack("self_attn.k_norm.weight"),
+        "ln2": stack("post_attention_layernorm.weight"),
+        "w_gate": stack("mlp.gate_proj.weight", True),
+        "w_up": stack("mlp.up_proj.weight", True),
+        "w_down": stack("mlp.down_proj.weight", True),
+    }
+
+
+def _stack_audio_blocks(sd, cfg: QwenASRConfig, dtype) -> Dict[str, np.ndarray]:
+    def get(i, name, transpose=False):
+        arr = _np(sd[f"audio_tower.layers.{i}.{name}"])
+        return arr.T if transpose else arr
+
+    def stack(name, transpose=False):
+        return np.stack([get(i, name, transpose)
+                         for i in range(cfg.audio_layers)]).astype(dtype)
+
+    return {
+        "ln1_s": stack("self_attn_layer_norm.weight"),
+        "ln1_b": stack("self_attn_layer_norm.bias"),
+        "wq": stack("self_attn.q_proj.weight", True),
+        "bq": stack("self_attn.q_proj.bias"),
+        "wk": stack("self_attn.k_proj.weight", True),
+        "bk": stack("self_attn.k_proj.bias"),
+        "wv": stack("self_attn.v_proj.weight", True),
+        "bv": stack("self_attn.v_proj.bias"),
+        "wo": stack("self_attn.out_proj.weight", True),
+        "bo": stack("self_attn.out_proj.bias"),
+        "ln2_s": stack("final_layer_norm.weight"),
+        "ln2_b": stack("final_layer_norm.bias"),
+        "w1": stack("fc1.weight", True),
+        "b1": stack("fc1.bias"),
+        "w2": stack("fc2.weight", True),
+        "b2": stack("fc2.bias"),
+    }
+
+
+def params_from_hf_state_dict(
+    sd: Mapping[str, Any], cfg: QwenASRConfig, dtype=np.float32,
+    audio_fallback: Optional[Dict] = None,
+) -> Dict[str, Any]:
+    """Convert an HF Qwen3-ASR/Qwen3 state dict to our param tree.
+
+    ``audio_fallback``: audio-tower subtree to use when the state dict
+    has no ``audio_tower.*`` keys (text-only checkpoints).
+    """
+    sd = _strip_prefixes(sd)
+
+    if "lm_head.weight" in sd:
+        lm_head = _np(sd["lm_head.weight"]).T.astype(dtype)
+    else:  # tied embeddings (Qwen3 0.6B/1.7B)
+        lm_head = _np(sd["model.embed_tokens.weight"]).T.astype(dtype)
+
+    params: Dict[str, Any] = {
+        "tok_emb": _np(sd["model.embed_tokens.weight"]).astype(dtype),
+        "blocks": _stack_lm_blocks(sd, cfg, dtype),
+        "ln_f": _np(sd["model.norm.weight"]).astype(dtype),
+        "lm_head": lm_head,
+    }
+
+    if any(k.startswith("audio_tower.") for k in sd):
+        params["audio"] = {
+            "conv2d1_w": _np(sd["audio_tower.conv2d1.weight"]).astype(dtype),
+            "conv2d1_b": _np(sd["audio_tower.conv2d1.bias"]).astype(dtype),
+            "conv2d2_w": _np(sd["audio_tower.conv2d2.weight"]).astype(dtype),
+            "conv2d2_b": _np(sd["audio_tower.conv2d2.bias"]).astype(dtype),
+            "conv2d3_w": _np(sd["audio_tower.conv2d3.weight"]).astype(dtype),
+            "conv2d3_b": _np(sd["audio_tower.conv2d3.bias"]).astype(dtype),
+            "conv_out_w": _np(sd["audio_tower.conv_out.weight"]).T.astype(dtype),
+            "blocks": _stack_audio_blocks(sd, cfg, dtype),
+            "ln_post_s": _np(sd["audio_tower.ln_post.weight"]).astype(dtype),
+            "ln_post_b": _np(sd["audio_tower.ln_post.bias"]).astype(dtype),
+            "proj1_w": _np(sd["audio_tower.proj1.weight"]).T.astype(dtype),
+            "proj1_b": _np(sd["audio_tower.proj1.bias"]).astype(dtype),
+            "proj2_w": _np(sd["audio_tower.proj2.weight"]).T.astype(dtype),
+            "proj2_b": _np(sd["audio_tower.proj2.bias"]).astype(dtype),
+        }
+    elif audio_fallback is not None:
+        params["audio"] = audio_fallback
+    else:
+        raise KeyError("state dict has no audio_tower.* keys and no "
+                       "audio_fallback was provided")
+    return params
+
+
+def load_pretrained(model_name_or_path: str, dtype=np.float32):
+    """Load a Qwen3-ASR checkpoint via transformers (local path/HF cache).
+
+    Returns (config, params). Zero-egress environment: the checkpoint
+    must already be on disk. Raises ImportError where transformers is not
+    installed (no fallback to random weights).
+    """
+    try:
+        import transformers
+    except ImportError as e:
+        raise ImportError(
+            f"reading the Qwen3-ASR checkpoint {model_name_or_path!r} needs "
+            "the transformers package, which is not installed; run "
+            "without --checkpoint for seeded random weights") from e
+
+    hf = transformers.AutoModel.from_pretrained(
+        model_name_or_path, trust_remote_code=False, local_files_only=True)
+    cfg = config_from_hf(hf.config)
+    params = params_from_hf_state_dict(hf.state_dict(), cfg, dtype)
+    return cfg, params

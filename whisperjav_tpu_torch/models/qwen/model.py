@@ -1,0 +1,554 @@
+"""Qwen3-ASR in PyTorch: the AuT audio tower, the Qwen3 LM, generation.
+
+Counterpart of ``whisperjav_tpu/models/qwen/model.py``. Parameters keep
+the JAX tree's names and stacked layouts (per-layer leaves on a leading
+axis, matrices (in, out), convolutions OIHW), so :mod:`weights` maps a
+JAX tree one to one:
+
+- audio tower (AuT): 128-mel chunks of ``chunk_frames`` frames, three
+  3x3 stride-2 convolutions with GELU, ``conv_out`` into the tower width,
+  sinusoid positions reset at every chunk, pre-LN blocks with
+  bidirectional attention inside windows of ``window_tokens`` tokens,
+  ``ln_post`` and the ``proj1``/GELU/``proj2`` adapter into the LM width;
+- LM (Qwen3): RMSNorm, per-head q/k RMSNorm, NeoX half-split rotary
+  embeddings, grouped-query attention (query head h reads KV group
+  h // rep), SwiGLU MLP, a (L, B, T, n_kv * hd) cache;
+- :func:`generate`: the audio prefix [+ context] + BOS, then greedy or
+  Gumbel-max sampled steps with a repetition penalty.
+
+Int8 LM weights (:func:`quantize_lm_weights`) are the JAX tree's
+``{"q": int8, "s": f32}`` leaves, held as :class:`Int8Weight`; their
+products are taken in f32 and scaled, as the JAX package's ``_dense``.
+The forward passes run in full f32 where the parameters are f32 (no
+TF32, whatever the process-wide flags say). No Pallas kernel lies on
+this path: the products are PyTorch matmuls.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from whisperjav_tpu_torch.models.whisper.decode import _draw_gumbel
+from whisperjav_tpu_torch.models.whisper.model import (
+    Int8, Int8Weight, sinusoid_positions,
+)
+from whisperjav_tpu_torch.models.whisper.quant import _quantize
+from whisperjav_tpu_torch.utils.precision import full_f32
+
+
+@dataclass(frozen=True)
+class QwenASRConfig:
+    name: str = "qwen3-asr-test"
+    # language model (Qwen3)
+    vocab_size: int = 4096
+    d_model: int = 256
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    lm_head_dim: int = 0          # 0 -> d_model // n_heads
+    rope_theta: float = 1_000_000.0
+    rms_eps: float = 1e-6
+    # audio tower (AuT)
+    n_mels: int = 128
+    d_audio: int = 256
+    audio_layers: int = 4
+    audio_heads: int = 8
+    audio_ffn: int = 1024
+    audio_downsample_hidden: int = 32
+    n_window: int = 100           # mel frames per chunk = 2*n_window
+    n_window_infer: int = 400     # mel frames per attention window
+    # special ids
+    eos_id: int = 2
+    bos_id: int = 1
+    # limits (reference: qwen_asr.py:215-216)
+    max_audio_s_aligned: float = 180.0
+    max_audio_s: float = 1200.0
+    max_tokens_per_audio_second: float = 12.0
+    min_token_budget: int = 48
+
+    @property
+    def head_dim(self) -> int:
+        return self.lm_head_dim or self.d_model // self.n_heads
+
+    @property
+    def chunk_frames(self) -> int:
+        """Mel frames per AuT chunk (2 s @ 10 ms hop)."""
+        return 2 * self.n_window
+
+    @property
+    def chunk_tokens(self) -> int:
+        """Audio tokens per chunk after the x8 conv downsampling."""
+        t = self.chunk_frames
+        for _ in range(3):
+            t = (t + 1) // 2
+        return t
+
+    @property
+    def window_tokens(self) -> int:
+        """Tokens per attention window (block-diagonal)."""
+        return self.chunk_tokens * (self.n_window_infer // self.chunk_frames)
+
+    @property
+    def mel_multiple(self) -> int:
+        """Mel length must be a multiple of this (window tiling)."""
+        return self.chunk_frames * (self.n_window_infer // self.chunk_frames)
+
+    def audio_tokens_for(self, n_mel_frames: int) -> int:
+        assert n_mel_frames % self.mel_multiple == 0, (
+            f"mel length {n_mel_frames} not a multiple of "
+            f"{self.mel_multiple}")
+        return (n_mel_frames // self.chunk_frames) * self.chunk_tokens
+
+
+# Published architecture shapes (Qwen3-ASR-1.7B = Qwen3-1.7B LM + AuT;
+# the 0.6B row is the ForcedAligner-class LM scale); n_window=50
+# (100-frame chunks -> 13 tokens), as in the JAX package.
+QWEN_SIZES = {
+    "qwen3-asr-0.6b": QwenASRConfig(
+        name="qwen3-asr-0.6b", vocab_size=151_936, d_model=1024,
+        n_layers=28, n_heads=16, n_kv_heads=8, d_ff=3072, lm_head_dim=128,
+        d_audio=1280, audio_layers=32, audio_heads=20, audio_ffn=5120,
+        audio_downsample_hidden=480, n_window=50),
+    "qwen3-asr-1.7b": QwenASRConfig(
+        name="qwen3-asr-1.7b", vocab_size=151_936, d_model=2048,
+        n_layers=28, n_heads=16, n_kv_heads=8, d_ff=6144, lm_head_dim=128,
+        d_audio=1280, audio_layers=32, audio_heads=20, audio_ffn=5120,
+        audio_downsample_hidden=480, n_window=50),
+    "qwen3-asr-test": QwenASRConfig(),
+}
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(),
+                       bias.float(), eps)
+    return out.to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, hd: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (T, 1, hd/2) of ``positions`` (T,): frequencies
+    theta^(-i / half) and angles computed in f32, as the JAX package."""
+    half = hd // 2
+    exps = -torch.arange(half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+         ) -> torch.Tensor:
+    """x (B, T, H, hd), GPT-NeoX half split."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """x (..., in) @ w (in, out) [+ b], accumulated in f32 and rounded
+    once to x's dtype. An :class:`Int8` weight's product is taken in f32
+    and multiplied by its per-output-channel f32 scale."""
+    if isinstance(w, Int8):
+        out = torch.matmul(x.float(), w.q.float()) * w.s.float()
+    else:
+        out = torch.matmul(x, w.to(x.dtype)).float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _is_int8(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"q", "s"}
+
+
+class ParamTree(nn.Module):
+    """One level of a JAX parameter tree: tensors as parameters, nested
+    dicts as child trees, ``{"q", "s"}`` leaves as :class:`Int8Weight`.
+    Indexed by name like the dict it came from."""
+
+    def __init__(self, tree: Dict[str, object]):
+        super().__init__()
+        for name, value in tree.items():
+            self[name] = value
+
+    def __setitem__(self, name: str, value) -> None:
+        if isinstance(value, (nn.Module, nn.Parameter)):
+            setattr(self, name, value)
+        elif _is_int8(value):
+            setattr(self, name, Int8Weight(value["q"], value["s"]))
+        elif isinstance(value, dict):
+            setattr(self, name, ParamTree(value))
+        else:
+            setattr(self, name, nn.Parameter(torch.as_tensor(value),
+                                             requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def pop(self, name: str):
+        value = getattr(self, name)
+        delattr(self, name)
+        return value
+
+
+class QwenASR(ParamTree):
+    """Qwen3-ASR weights: ``audio`` (the AuT tower), ``tok_emb``,
+    ``blocks`` (the LM layers), ``ln_f`` and ``lm_head`` (or its int8
+    ``lm_head_q``), under the JAX package's names and layouts."""
+
+    def __init__(self, config: QwenASRConfig, tree: Dict[str, object]):
+        super().__init__(tree)
+        self.config = config
+
+
+def fuse_lm_qkv(model: QwenASR) -> QwenASR:
+    """Concatenate the LM blocks' q/k/v projections into one stacked
+    (L, d, q_dim + 2 kv_dim) ``wqkv``, in place (Qwen3 projections have no
+    biases; each output column's sum is unchanged)."""
+    blocks = model.blocks
+    if "wqkv" in blocks:
+        return model
+    wq, wk, wv = blocks.pop("wq"), blocks.pop("wk"), blocks.pop("wv")
+    blocks["wqkv"] = nn.Parameter(torch.cat([wq, wk, wv], dim=-1),
+                                  requires_grad=False)
+    return model
+
+
+_LM_HOT = ("wqkv", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_lm_weights(model: QwenASR) -> QwenASR:
+    """Symmetric per-output-channel int8 for the LM block matmuls and the
+    lm head (``lm_head`` -> ``lm_head_q``), in place; codes and scales bit
+    for bit those of the JAX package's eager ``quantize_lm_weights``
+    (scale max|w| / 127 + 1e-12, rounding half to even). The token
+    embedding, the norms and the audio tower stay as they are. Apply
+    after :func:`fuse_lm_qkv`."""
+    blocks = model.blocks
+    for name in _LM_HOT:
+        if name in blocks and not isinstance(blocks[name], Int8Weight):
+            blocks[name] = Int8Weight(*_quantize(blocks.pop(name)))
+    if "lm_head" in model and "lm_head_q" not in model:
+        model["lm_head_q"] = Int8Weight(*_quantize(model.pop("lm_head")))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# audio tower (AuT)
+# ---------------------------------------------------------------------------
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v (B, T, H, hd) -> (B, T, H, hd): f32 logits of q·k / sqrt(hd)
+    plus ``bias``, softmax in f32, weights cast to v's dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
+    if bias is not None:
+        logits = logits + bias
+    a = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", a, v)
+
+
+def _audio_block(x: torch.Tensor, p: ParamTree, i: int, n_heads: int
+                 ) -> torch.Tensor:
+    """x (N, W, d): bidirectional attention within each window row."""
+    n, wlen, d = x.shape
+    h = layer_norm(x, p["ln1_s"][i], p["ln1_b"][i])
+    q = dense(h, p["wq"][i], p["bq"][i]).reshape(n, wlen, n_heads, -1)
+    k = dense(h, p["wk"][i], p["bk"][i]).reshape(n, wlen, n_heads, -1)
+    v = dense(h, p["wv"][i], p["bv"][i]).reshape(n, wlen, n_heads, -1)
+    o = _attend(q, k, v).to(x.dtype)
+    x = x + dense(o.reshape(n, wlen, d), p["wo"][i], p["bo"][i])
+    h = layer_norm(x, p["ln2_s"][i], p["ln2_b"][i])
+    return x + dense(F.gelu(dense(h, p["w1"][i], p["b1"][i])),
+                     p["w2"][i], p["b2"][i])
+
+
+def encode_audio(model: QwenASR, mel: torch.Tensor) -> torch.Tensor:
+    """mel (B, n_mels, T) -> audio embeddings (B, tokens, d_model).
+
+    T must be a multiple of ``cfg.mel_multiple``; tokens = (T /
+    chunk_frames) * chunk_tokens."""
+    cfg = model.config
+    a = model.audio
+    b, m, t = mel.shape
+    cf, ct = cfg.chunk_frames, cfg.chunk_tokens
+    n_chunk = t // cf
+    with full_f32():
+        # (B, M, T) -> per-chunk images (B * n_chunk, 1, M, cf)
+        x = mel.reshape(b, m, n_chunk, cf).permute(0, 2, 1, 3)
+        x = x.reshape(b * n_chunk, 1, m, cf)
+        for i in (1, 2, 3):
+            x = F.gelu(F.conv2d(x, a[f"conv2d{i}_w"].to(x.dtype),
+                                a[f"conv2d{i}_b"].to(x.dtype), stride=2,
+                                padding=1))
+        # (BN, C, F', ct) -> (BN, ct, C * F'), torch's permute + view
+        bn, c, fq, tt = x.shape
+        x = x.permute(0, 3, 1, 2).reshape(bn, tt, c * fq)
+        x = dense(x, a["conv_out_w"])
+        pos = torch.from_numpy(sinusoid_positions(ct, cfg.d_audio))
+        x = x + pos.to(device=x.device, dtype=x.dtype)[None]
+        # window rows: (B * n_windows, window_tokens, d_audio)
+        wt = cfg.window_tokens
+        n_win = (n_chunk * ct) // wt
+        x = x.reshape(b * n_win, wt, cfg.d_audio)
+        for i in range(cfg.audio_layers):
+            x = _audio_block(x, a["blocks"], i, cfg.audio_heads)
+        x = layer_norm(x, a["ln_post_s"], a["ln_post_b"])
+        x = F.gelu(dense(x, a["proj1_w"], a["proj1_b"]))
+        x = dense(x, a["proj2_w"], a["proj2_b"])
+    return x.reshape(b, n_chunk * ct, cfg.d_model)
+
+
+def mel_frames_for(cfg: QwenASRConfig, n_mel_frames: int) -> int:
+    """Round a mel length up to the fixed-shape multiple."""
+    mult = cfg.mel_multiple
+    return ((n_mel_frames + mult - 1) // mult) * mult
+
+
+# ---------------------------------------------------------------------------
+# language model with KV cache
+# ---------------------------------------------------------------------------
+
+class LMCache(NamedTuple):
+    """KV cache, (L, B, T_max, n_kv * hd) each, heads merged."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: QwenASRConfig, b: int, t_max: int, dtype,
+              device) -> "LMCache":
+        shape = (cfg.n_layers, b, t_max, cfg.n_kv_heads * cfg.head_dim)
+        return LMCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
+              cfg: QwenASRConfig, bias: torch.Tensor, cos, sin,
+              column_mode: bool):
+    """LM layer ``i`` at positions [pos, pos + q_len).
+
+    Column mode (q_len == 1) leaves the cache as it is and returns this
+    layer's new K/V column: the logits over the cache (``bias`` masks the
+    slots at and after ``pos``) and the new key's logit go through one
+    softmax. Otherwise the new K/V are written into the cache in place,
+    then attended under the causal ``bias``. Query head h reads KV group
+    h // rep in both forms."""
+    b, q_len, d = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = nh // nkv
+    h = rms_norm(x, p["ln1"][i], cfg.rms_eps)
+    if "wqkv" in p:
+        qd, kvd = nh * hd, nkv * hd
+        qkv = dense(h, p["wqkv"][i])
+        q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    else:
+        q, k, v = (dense(h, p[n][i]) for n in ("wq", "wk", "wv"))
+    q = rope(rms_norm(q.reshape(b, q_len, nh, hd), p["q_norm"][i],
+                      cfg.rms_eps), cos, sin)
+    k = rope(rms_norm(k.reshape(b, q_len, nkv, hd), p["k_norm"][i],
+                      cfg.rms_eps), cos, sin)
+    t_max = cache.k.shape[2]
+    qg = (q * hd ** -0.5).reshape(b, q_len, nkv, rep, hd)
+    if column_mode:
+        kk = cache.k[i].to(q.dtype).reshape(b, t_max, nkv, hd)
+        vv = cache.v[i].to(q.dtype).reshape(b, t_max, nkv, hd)
+        k_new = k.reshape(b, 1, nkv, hd)
+        v_new = v.reshape(b, 1, nkv, hd)
+        lg_c = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).float() + bias
+        lg_n = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_new).float()
+        a = torch.softmax(torch.cat([lg_c, lg_n], dim=-1),
+                          dim=-1).to(q.dtype)
+        o = (torch.einsum("bgrqk,bkgd->bqgrd", a[..., :t_max], vv).float()
+             + torch.einsum("bgrqk,bkgd->bqgrd", a[..., t_max:],
+                            v_new).float()).to(x.dtype)
+        k_col = k.reshape(b, nkv * hd).to(cache.k.dtype)
+        v_col = v.reshape(b, nkv * hd).to(cache.v.dtype)
+    else:
+        cache.k[i, :, pos:pos + q_len] = k.reshape(b, q_len, nkv * hd)
+        cache.v[i, :, pos:pos + q_len] = v
+        kk = cache.k[i].to(q.dtype).reshape(b, t_max, nkv, hd)
+        vv = cache.v[i].to(q.dtype).reshape(b, t_max, nkv, hd)
+        lg = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).float() + bias
+        a = torch.softmax(lg, dim=-1).to(q.dtype)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", a, vv).to(x.dtype)
+        k_col = v_col = None
+    x = x + dense(o.reshape(b, q_len, nh * hd), p["wo"][i])
+    h = rms_norm(x, p["ln2"][i], cfg.rms_eps)
+    gate = F.silu(dense(h, p["w_gate"][i]))
+    x = x + dense(gate * dense(h, p["w_up"][i]), p["w_down"][i])
+    return x, k_col, v_col
+
+
+def lm_step(model: QwenASR, x_emb: torch.Tensor, pos: int,
+            cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
+    """Embedded inputs (B, q_len, d) at [pos, pos + q_len) -> f32 logits
+    (B, q_len, vocab); the cache is updated in place (a single step
+    writes every layer's new column at ``pos`` after the layers)."""
+    cfg = model.config
+    b, q_len, _ = x_emb.shape
+    t_max = cache.k.shape[2]
+    dev = x_emb.device
+    column_mode = q_len == 1
+    k_idx = torch.arange(t_max, device=dev)
+    if column_mode:
+        visible = (k_idx < pos)[None, :]
+    else:
+        q_idx = pos + torch.arange(q_len, device=dev)
+        visible = k_idx[None, :] <= q_idx[:, None]
+    bias = torch.where(visible, 0.0, float("-inf"))
+    cos, sin = rope_angles(pos + torch.arange(q_len, device=dev),
+                           cfg.head_dim, cfg.rope_theta)
+    blocks = model.blocks
+    x = x_emb
+    k_cols, v_cols = [], []
+    with full_f32():
+        for i in range(cfg.n_layers):
+            x, kc, vc = _lm_block(x, blocks, i, cache, pos, cfg, bias, cos,
+                                  sin, column_mode)
+            k_cols.append(kc)
+            v_cols.append(vc)
+        if column_mode:
+            cache.k[:, :, pos] = torch.stack(k_cols)
+            cache.v[:, :, pos] = torch.stack(v_cols)
+        x = rms_norm(x, model.ln_f, cfg.rms_eps)
+        if "lm_head_q" in model:
+            lm = model.lm_head_q
+            logits = torch.matmul(x.float(), lm.q.float()) * lm.s.float()
+        else:
+            logits = torch.matmul(x, model.lm_head.to(x.dtype)).float()
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+class QwenGenResult(NamedTuple):
+    tokens: torch.Tensor       # (B, max_new), eos-padded
+    length: torch.Tensor
+    avg_logprob: torch.Tensor
+
+
+# steps between host checks of "every row finished": finished rows emit
+# EOS and add nothing to length or sum_lp, so the extra steps after the
+# last row finishes change no result; a check is a device sync
+FINISHED_CHECK_EVERY = 8
+
+
+@torch.inference_mode()
+def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
+             audio_len: int, repetition_penalty: float = 1.1,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             gumbel: Optional[Callable[[int], torch.Tensor]] = None,
+             ctx_ids: Optional[torch.Tensor] = None) -> QwenGenResult:
+    """Transcribe mel windows: audio prefix [+ context] + BOS, then up to
+    ``max_new`` greedy (temperature 0) or sampled steps.
+
+    audio_len: audio embedding positions kept as the LM prefix (at most
+    ``cfg.audio_tokens_for(mel frames)``). ctx_ids: optional (1, L) or
+    (B, L) context token ids between the audio prefix and BOS. Sampling is
+    ``argmax(logits + T * gumbel)`` with the noise of step i from
+    ``gumbel(i)`` when given, else drawn from ``generator``. The
+    repetition penalty divides positive and multiplies negative logits of
+    every id emitted so far except EOS. Finished rows emit EOS;
+    ``avg_logprob = sum_lp / (length + 1)``."""
+    cfg = model.config
+    sample = temperature != 0.0
+    if sample and gumbel is None and generator is None:
+        raise ValueError("sampling at temperature > 0 needs a generator "
+                         "or a gumbel callable")
+    b = mel.shape[0]
+    dev = mel.device
+    audio_emb = encode_audio(model, mel)[:, :audio_len]
+    ctx_len = 0 if ctx_ids is None else ctx_ids.shape[-1]
+    t_max = audio_len + ctx_len + 1 + max_new
+    tok_emb = model.tok_emb
+    cache = LMCache.zeros(cfg, b, t_max, tok_emb.dtype, dev)
+    parts = [audio_emb]
+    if ctx_ids is not None:
+        ctx = torch.as_tensor(ctx_ids, device=dev).long().expand(b, ctx_len)
+        parts.append(tok_emb[ctx].to(audio_emb.dtype))
+    bos = torch.full((b, 1), cfg.bos_id, dtype=torch.long, device=dev)
+    parts.append(tok_emb[bos].to(audio_emb.dtype))
+    logits, cache = lm_step(model, torch.cat(parts, dim=1), 0, cache)
+    cur = logits[:, -1]
+
+    eos = cfg.eos_id
+    tokens = torch.full((b, max_new), eos, dtype=torch.long, device=dev)
+    sum_lp = torch.zeros((b,), device=dev)
+    length = torch.zeros((b,), dtype=torch.long, device=dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    penalize = repetition_penalty != 1.0
+    # a tensor divisor: CUDA divides by a host scalar as a product with
+    # its reciprocal, which can round one ulp apart from the division
+    rp = torch.tensor(repetition_penalty, device=dev)
+    # emitted-id membership, EOS never set
+    seen = (torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
+            if penalize else None)
+    for step in range(max_new):
+        if step and step % FINISHED_CHECK_EVERY == 0 \
+                and bool(finished.all()):
+            break
+        lg = cur
+        if penalize:
+            pen = torch.where(lg > 0, lg / rp, lg * rp)
+            lg = torch.where(seen, pen, lg)
+        if sample:
+            noise = (gumbel(step) if gumbel is not None
+                     else _draw_gumbel(generator, lg.shape, dev))
+            tok = torch.argmax(lg + temperature * noise.to(dev), dim=-1)
+        else:
+            tok = torch.argmax(lg, dim=-1)
+        tok = torch.where(finished, eos, tok)
+        lp = torch.log_softmax(lg, dim=-1)
+        tok_lp = lp.gather(1, tok[:, None])[:, 0]
+        is_eos = tok == eos
+        sum_lp = sum_lp + torch.where(finished, 0.0, tok_lp)
+        length = length + (~(finished | is_eos)).long()
+        tokens[:, step] = tok
+        if penalize:
+            seen.scatter_(1, tok[:, None], True)
+            seen[:, eos] = False
+        pos = audio_len + ctx_len + 1 + step
+        nxt, cache = lm_step(model, tok_emb[tok[:, None]], pos, cache)
+        cur = nxt[:, 0]
+        finished = finished | is_eos
+    avg_lp = sum_lp / (length.float() + 1.0)
+    return QwenGenResult(tokens, length, avg_lp)
+
+
+def token_budget(cfg: QwenASRConfig, audio_seconds: float) -> int:
+    """Dynamic max-token budget with floor (reference: qwen_asr.py:414,
+    236-238)."""
+    return max(cfg.min_token_budget,
+               int(audio_seconds * cfg.max_tokens_per_audio_second))

@@ -20,9 +20,11 @@ _DECODE_HOT = ("wq", "wk", "wv", "wo", "cwq", "cwo", "w1", "w2")
 def _quantize(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., in, out) -> (int8 codes, f32 scales (..., 1, out)): scale =
     max |w| over the input axis / 127 + 1e-12, codes rounded half to even
-    (as ``jnp.round``) and clipped to +-127."""
+    (as ``jnp.round``) and clipped to +-127. The divisor is a tensor on
+    w's device: CUDA divides by a host scalar as a product with its
+    reciprocal, which can round one ulp apart from the division."""
     w32 = w.float()
-    s = w32.abs().amax(dim=-2, keepdim=True) / 127.0 + 1e-12
+    s = w32.abs().amax(dim=-2, keepdim=True) / w32.new_tensor(127.0) + 1e-12
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return q.contiguous(), s
 

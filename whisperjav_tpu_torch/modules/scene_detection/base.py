@@ -63,7 +63,12 @@ def create_scene_detector(backend: str = "energy", **kwargs) -> SceneDetector:
     if backend in ("energy", "auditok", "default"):
         from whisperjav_tpu_torch.modules.scene_detection.energy import EnergySceneDetector
         return EnergySceneDetector(**kwargs)
-    if backend in ("silero", "silero-scene", "semantic"):
+    if backend == "semantic":
+        from whisperjav_tpu_torch.modules.scene_detection.semantic import (
+            SemanticSceneDetector,
+        )
+        return SemanticSceneDetector(**kwargs)
+    if backend in ("silero", "silero-scene"):
         raise NotImplementedError(f"not ported yet: scene backend "
                                   f"{backend!r}")
     logger.warning("unknown scene backend %r; falling back to energy", backend)

@@ -188,8 +188,12 @@ def create_segmenter(backend: str = "energy", **kwargs) -> SpeechSegmenter:
             SileroJaxSegmenter,
         )
         return SileroJaxSegmenter(**kwargs)
-    if backend in ("ten", "ten-jax", "whisper-vad", "whispervad",
-                   "whisperseg"):
+    if backend == "whisperseg":
+        from whisperjav_tpu_torch.modules.segmentation.whisperseg import (
+            WhisperSegSegmenter,
+        )
+        return WhisperSegSegmenter(**kwargs)
+    if backend in ("ten", "ten-jax", "whisper-vad", "whispervad"):
         raise NotImplementedError(f"not ported yet: VAD backend {backend!r}")
     logger.warning("unknown segmenter backend %r; using energy", backend)
     from whisperjav_tpu_torch.modules.segmentation.energy_vad import (

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -40,7 +41,12 @@ def _build() -> Optional[Path]:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(".so.tmp")
+    # each process builds into its own file and moves it into place; a
+    # process that loses a race (or fails) takes the output another one
+    # has already put there
+    fd, tmp_name = tempfile.mkstemp(suffix=".so.tmp", dir=out.parent)
+    os.close(fd)
+    tmp = Path(tmp_name)
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
            str(_SRC), "-o", str(tmp)]
     try:
@@ -48,12 +54,13 @@ def _build() -> Optional[Path]:
         if proc.returncode != 0:
             logger.debug("native build failed: %s",
                          proc.stderr.decode(errors="replace")[-500:])
-            return None
-        os.replace(tmp, out)
-        return out
+        else:
+            os.replace(tmp, out)
     except (subprocess.SubprocessError, OSError) as e:
         logger.debug("native build error: %s", e)
-        return None
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out if out.exists() else None
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -86,6 +86,28 @@ def vocab_subset(vocab_slice: Optional[str], tokenizer: WhisperTokenizer,
     return None
 
 
+def build_engine(cfg: PipelineConfig, checkpoint: Optional[str] = None,
+                 device="cuda") -> TranscriptionEngine:
+    """A bare engine (no scene or VAD pipeline around it), for a Whisper
+    model in the generator role of the decoupled stack (the anime-whisper
+    slot): text only, greedy at T=0 with the sensitivity's repetition
+    penalty, bf16 on ``device``."""
+    model_config, model = load_model(cfg.model, checkpoint, device=device)
+    sens = cfg.sensitivity
+    options = DecodeOptions(
+        task=cfg.task, language=cfg.language,
+        with_timestamps=False,
+        repetition_penalty=sens.repetition_penalty,
+        cross_kv_int8=True,
+    )
+    tokenizer = WhisperTokenizer(model_config,
+                                 find_tokenizer_files(checkpoint))
+    return TranscriptionEngine(
+        model_config, model, options=options,
+        thresholds=QualityThresholds(temperatures=(0.0,)),
+        batch_size=cfg.batch_size, device=device, tokenizer=tokenizer)
+
+
 def build_pipeline(
     cfg: Optional[PipelineConfig] = None,
     checkpoint: Optional[str] = None,
