@@ -3,7 +3,7 @@
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
                                           # turbo, large-v2, fidelity,
-                                          # qwen (comma list)
+                                          # qwen, vad, serve (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -62,7 +62,22 @@ Phases, in order; any failure exits non-zero before the result line:
    generate: ms per step and the device's busy share from the profiler,
    the AuT encode, ``align_spans`` per bucket), and the same clip with
    ``--generator anime-whisper --model small`` (Kernel A and Kernel B's
-   bf16 form must launch).
+   bf16 form must launch);
+8. the vad phase: Silero v5 and TEN from seeded ``.npz`` files on a 60 s
+   clip and a 1-hour track, GPU (f32, no TF32) against CPU within
+   VAD_TOL_P, with walls; Kernel A at WhisperSeg's encoder shape (4,
+   1500, 8, 64) and Kernel B at its decoder prefill (R = 1500 query rows
+   per K/V row, T = 1500) against their plain versions, with bound and
+   SDPA; WhisperSeg at Whisper-base widths on 4 x 30 s, GPU bf16 against
+   CPU f32 within WS_TOL_P, with the frames on each side of 0.5; then
+   the flagless CLI with ``--vad-arg weights=<silero npz>`` (the network
+   must run) and ``--mode qwen --qwen-segmenter whisperseg --vad-arg
+   weights=<whisperseg npz>`` (Kernel A and B's bf16 form must launch);
+9. the serve phase: an in-process server around the flagless turbo
+   service (4 concurrent requests, the same 4 serially, a WAV body; the
+   serial SRTs must equal the in-process CLI's byte for byte), then
+   ``--daemon`` (autostart on the card, /health naming it and the torch
+   backend, both SRTs written) and ``--daemon-stop`` (the port freed).
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -95,13 +110,16 @@ import argparse
 import concurrent.futures
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
+from itertools import zip_longest
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +160,16 @@ QWEN_CLIP_S = 56.0
 # narrow Qwen, GPU f32 (no TF32) vs CPU f32 logits, relative to their
 # largest magnitude
 QWEN_TOL_REL = 1e-3
+# Silero and TEN: f32 on both sides (no TF32), sums in other orders
+VAD_TOL_P = 1e-4
+# WhisperSeg: bf16 on the GPU against f32 on the CPU, as probabilities
+WS_TOL_P = 0.05
+# the clip of the silero-network CLI path
+VAD_CLIP_S = 30.0
+# the served clips (distinct seeds), in seconds
+SERVE_CLIPS_S = (20.0, 14.0, 26.0, 9.0)
+# what the autostarted daemon's /health must report as its device
+DAEMON_DEVICE = "cuda:NVIDIA"
 # an older version of the kernels, when present, is timed beside these
 V1_CSRC = Path(__file__).resolve().parent / "build" / "v1" / \
     "whisperjav_tpu_torch" / "csrc"
@@ -1021,8 +1049,20 @@ def speech_like(duration_s: float, seed: int) -> np.ndarray:
 def synthetic_clip(path: Path, seconds: float) -> float:
     """~``seconds`` of speech-like bursts (3-9 s) between silences
     (1-3 s), written as 16 kHz mono 16-bit PCM."""
-    rng = np.random.default_rng(0)
-    parts, total, seed = [], 0.0, 0
+    return synthetic_clip_seeded(path, seconds, 0)
+
+
+def wave_seconds(path: Path) -> float:
+    with wave.open(str(path), "rb") as f:
+        return f.getnframes() / f.getframerate()
+
+
+def synthetic_clip_seeded(path: Path, seconds: float, seed: int) -> float:
+    """:func:`synthetic_clip` drawn from ``seed`` (burst lengths, gaps and
+    noise)."""
+    rng = np.random.default_rng(seed)
+    parts, total = [], 0.0
+    seed = 100 * seed
     while total < seconds:
         speech = float(rng.uniform(3.0, 9.0))
         gap = float(rng.uniform(1.0, 3.0))
@@ -1044,16 +1084,27 @@ _SRT_TIME = re.compile(r"^(\d+):(\d\d):(\d\d),(\d{3}) --> "
                        r"(\d+):(\d\d):(\d\d),(\d{3})$", re.M)
 
 
+def srt_text_cues(text: str) -> list:
+    """(time line, text) of every cue of an SRT document; raises where a
+    block is not an index, a time line and text."""
+    cues = []
+    for block in filter(None, text.strip().split("\n\n")):
+        lines = block.split("\n")
+        if not (len(lines) >= 3 and lines[0].strip().isdigit()
+                and _SRT_TIME.match(lines[1])):
+            raise RuntimeError(f"malformed SRT block: {block[:80]!r}")
+        cues.append((lines[1], "\n".join(lines[2:])))
+    return cues
+
+
 def srt_cues(path: Path) -> list:
     """(start, end) seconds of every cue; raises on a malformed file."""
-    text = path.read_text(encoding="utf-8")
     cues = []
-    for m in _SRT_TIME.finditer(text):
-        h0, m0, s0, ms0, h1, m1, s1, ms1 = map(int, m.groups())
+    for time_line, _ in srt_text_cues(path.read_text(encoding="utf-8")):
+        h0, m0, s0, ms0, h1, m1, s1, ms1 = map(
+            int, _SRT_TIME.match(time_line).groups())
         cues.append((h0 * 3600 + m0 * 60 + s0 + ms0 / 1000,
                      h1 * 3600 + m1 * 60 + s1 + ms1 / 1000))
-    if len(cues) != text.count("-->"):
-        raise RuntimeError(f"{path.name}: malformed cue times")
     return cues
 
 
@@ -1556,14 +1607,490 @@ def qwen_costs(dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# vad phase
+# ---------------------------------------------------------------------------
+
+def long_track(seconds: float, seed: int) -> np.ndarray:
+    """``seconds`` of speech-like bursts (2-8 s) between silences (0.3-3 s),
+    made in bulk from one seed."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    t = np.arange(n, dtype=np.float32) / SR
+    env = np.zeros(n, np.float32)
+    pos = 0
+    while pos < n:
+        speech = int(rng.uniform(2.0, 8.0) * SR)
+        env[pos:pos + speech] = 1.0
+        pos += speech + int(rng.uniform(0.3, 3.0) * SR)
+    voice = (0.3 * np.sin(2 * np.pi * 180 * t)
+             * (1 + 0.5 * np.sin(2 * np.pi * 4 * t)))
+    return (voice * env + 0.02 * rng.standard_normal(n).astype(np.float32)
+            ).astype(np.float32)
+
+
+def check_vad_network(dev, label: str, module, cpu_model, gpu_model,
+                      tracks: dict) -> None:
+    """One small VAD network (Silero or TEN) on each track, GPU (f32, no
+    TF32) against CPU: max |dp| within VAD_TOL_P, and each side's wall
+    (the GPU's to a sync, after one warm-up call on the first track)."""
+    first = next(iter(tracks.values()))
+    module.probs(gpu_model, torch.from_numpy(first[None]).to(dev))
+    for name, audio in tracks.items():
+        x = torch.from_numpy(audio[None])
+        got, gpu_s = _timed(lambda: module.probs(gpu_model, x.to(dev)))
+        t0 = time.perf_counter()
+        want = module.probs(cpu_model, x)
+        cpu_s = time.perf_counter() - t0
+        got = got.cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"{label} {name}: bad output on the GPU")
+        err = (got - want).abs().max().item()
+        log(f"{label} {name} ({len(audio) / SR:.0f} s, {want.shape[1]} "
+            f"frames): max |dp| GPU vs CPU {err:.3g} (tol {VAD_TOL_P}); "
+            f"GPU {gpu_s:.4f} s to the sync, CPU {cpu_s:.4f} s; speech "
+            f"frames (p >= 0.5) {int((want >= 0.5).sum())}")
+        if err > VAD_TOL_P:
+            raise RuntimeError(f"{label} {name}: the GPU disagrees with the "
+                               f"CPU")
+
+
+def check_kernels_whisperseg(dev, gen, kernels: list) -> None:
+    """Kernel A and Kernel B (bf16 form, the one WhisperSeg's bf16 decoder
+    takes) at the WhisperSeg network's shapes: the encoder's (4, 1500, 8,
+    64) attention, and the decoder prefill's cross-attention, R = 1500
+    query rows per int8 K/V row at T = 1500 (L = 2, B = 4, H = 8); each
+    against its plain version, with device time, bound and the library
+    yardstick (SDPA; for Kernel B on K/V dequantised beforehand, f32).
+    Added to the kernels' records under ``whisperseg``."""
+    import itertools
+    from whisperjav_tpu_torch.ops.cuda import decode_attention as da
+    from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
+        attention, encoder_attention,
+    )
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = (4, 1500, 8, 64)
+    b, t, h, hd = shape
+    q, k = ((torch.randn(shape, generator=gen, device=dev) * 3).bfloat16()
+            for _ in range(2))
+    v = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    out = encoder_attention(q, k, v).float()
+    ref = attention(q, k, v).float()
+    err = (out - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    tol = A_TOL_REL_MAX * ref.abs().max().item()
+    if not torch.isfinite(out).all() or max_err > tol \
+            or mean_err > A_TOL_MEAN:
+        raise RuntimeError(f"encoder_attention {shape} disagrees with its "
+                           f"plain version: {max_err} (tol {tol}), mean "
+                           f"{mean_err}")
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    ms = device_ms(lambda: encoder_attention(q, k, v), iters=50)
+    library_ms = device_ms(lambda: sdpa(qh, kh, vh), iters=50)
+    plain_ms = device_ms(lambda: attention(q, k, v), iters=10)
+    bnd = bound(4 * q.numel() * 2, 4 * b * h * t * t * hd, PEAK_BF16)
+    log(f"kernel A encoder_attention {shape} bf16 (WhisperSeg encoder): "
+        f"max_abs_err {max_err:.6g} (tol {tol:.6g}) mean {mean_err:.6g}; "
+        f"{ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+        f"{100 * bnd[0] / ms:.1f}%), scaled_dot_product_attention "
+        f"{library_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    a_rec = {"shape": list(shape), "max_abs_err": max_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+             "library_ms": library_ms}
+    del q, k, v, qh, kh, vh, out, ref, err
+    n_layer, rows = 2, 1500
+    k8, v8 = (torch.randint(-127, 128, (n_layer, b, h, hd, t), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    vs = torch.rand(n_layer, b, h, generator=gen, device=dev) * 0.02
+    q = torch.randn(b, rows, h, hd, generator=gen, device=dev) * 0.01
+    worst = {}
+    for layer in range(n_layer):
+        out = da.decode_cross_attention(q, k8, v8, layer)
+        ref = da.decode_cross_attention_plain(q, k8, v8, layer)
+        o16 = da.decode_cross_attention_bf16(q, k8, v8, layer, vs).float()
+        r16 = da.decode_cross_attention_bf16_plain(q, k8, v8, layer,
+                                                   vs).float()
+        errs = {"f32": ((out - ref).abs().max().item(),
+                        B_TOL_REL_MAX * ref.abs().max().item()),
+                "bf16": ((o16 - r16).abs().max().item(), _bf16_step(r16))}
+        bad = {k_: e for k_, e in errs.items() if e[0] > e[1]}
+        if bad or not torch.isfinite(o16).all():
+            raise RuntimeError(f"decode_cross_attention R={rows} layer "
+                               f"{layer} disagrees with its plain version: "
+                               f"{errs}")
+        for k_, e in errs.items():
+            worst[k_] = max(worst.get(k_, (0.0, e[1])), e)
+    del out, ref, o16, r16
+
+    def walk(fn, *extra):
+        layers = itertools.cycle(range(n_layer))
+        return lambda: fn(q, k8, v8, next(layers), *extra)
+    ms = device_ms(walk(da.decode_cross_attention_bf16, vs), 20)
+    f32_ms = device_ms(walk(da.decode_cross_attention), 20)
+    plain_ms = device_ms(walk(da.decode_cross_attention_bf16_plain, vs), 5)
+    # the library yardstick: SDPA on the same q and the K/V dequantised
+    # (in f32, outside the timing; q already holds the scales)
+    qf = q.transpose(1, 2)                                 # (B, H, R, hd)
+    kv = [(k8[i].float().transpose(2, 3).contiguous(),
+           v8[i].float().transpose(2, 3).contiguous())
+          for i in range(n_layer)]
+    cyc = itertools.cycle(kv)
+
+    def library():
+        kl, vl = next(cyc)
+        return sdpa(qf, kl, vl, scale=1.0)
+    library_ms = device_ms(library, 20)
+    bnd = bound(2 * b * h * hd * t + 4 * b * rows * h * hd
+                + 2 * b * rows * h * hd, 4 * b * rows * h * hd * t, PEAK_F32)
+    log(f"kernel B decode_cross_attention WhisperSeg prefill L={n_layer} "
+        f"B={b} R={rows} T={t} H={h}: max_abs_err "
+        + ", ".join(f"{k_} {e:.6g} (tol {tl:.6g})"
+                    for k_, (e, tl) in worst.items())
+        + f"; bf16 form {ms:.4f} ms (f32 form {f32_ms:.4f} ms), bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}, {100 * bnd[0] / ms:.1f}%), plain "
+        f"{plain_ms:.4f} ms, SDPA on dequantised f32 K/V {library_ms:.4f} ms"
+        f" ({math.ceil(rows / 8)} grid rows of 8 query rows each)")
+    b_rec = {"b": b, "r": rows, "t": t, "h": h, "l": n_layer,
+             "max_abs_err": worst["bf16"][0], "ms": ms, "f32_ms": f32_ms,
+             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+             "library_ms": library_ms}
+    del k8, v8, vs, q, qf, kv
+    torch.cuda.empty_cache()
+    for rec in kernels:
+        if rec["name"] == "encoder_attention":
+            rec["whisperseg"] = a_rec
+        elif rec["name"] == "decode_cross_attention":
+            rec["whisperseg"] = b_rec
+
+
+def whisperseg_weights(seed: int):
+    """WhisperSeg at SEG_CONFIG from a seeded init, on the CPU, in f32,
+    with two changes that make its frames differ: the decoder positions
+    are Whisper's sinusoids (with the init's zero positions every query
+    token is the same, and so is every frame's logit), and the head's
+    bias is minus the median logit over a synthetic 30 s window, so
+    about half of that window's frames cross 0.5."""
+    from whisperjav_tpu_torch.models.vad import whisperseg as ws
+    from whisperjav_tpu_torch.models.whisper.model import sinusoid_positions
+    model = ws.init_params(torch.Generator().manual_seed(seed))
+    cfg = model.config
+    model.decoder.pos_emb.data = torch.from_numpy(
+        sinusoid_positions(cfg.n_text_ctx, cfg.n_text_state))
+    x = torch.from_numpy(long_track(30.0, 9)[None])
+    model.head["b"].data -= ws.frame_logits(model, x)[0].median()
+    return model
+
+
+def check_whisperseg_network(dev) -> None:
+    """WhisperSeg at Whisper-base widths (SEG_CONFIG: d = 512, 8 heads x
+    64, 6 + 2 layers, 80 mels) from one seed, on a B = 4 batch of 30 s
+    windows: bf16 on the GPU (Kernel A, Kernel B's bf16 form at R = 1500)
+    against f32 on the CPU (the plain versions); max |dp| within
+    WS_TOL_P, and how many frames cross 0.5 on each side and disagree."""
+    from whisperjav_tpu_torch.models.vad import whisperseg as ws
+    cpu_model = whisperseg_weights(3)
+    gpu_model = ws.params_from_jax(ws._tree(cpu_model), ws.SEG_CONFIG,
+                                   dtype=torch.bfloat16, device=dev)
+    audio = long_track(120.0, 5).reshape(4, ws.N_SAMPLES)
+    x = torch.from_numpy(audio)
+    ws.probs(gpu_model, x.to(dev))                        # warm-up
+    got, gpu_s = _timed(lambda: ws.probs(gpu_model, x.to(dev)))
+    t0 = time.perf_counter()
+    want = ws.probs(cpu_model, x)
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    if got.shape != (4, ws.N_FRAMES) or not torch.isfinite(got).all():
+        raise RuntimeError(f"whisperseg: bad GPU output {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    over_g, over_c = got >= 0.5, want >= 0.5
+    log(f"whisperseg SEG_CONFIG B=4 x 30 s: max |dp| GPU bf16 vs CPU f32 "
+        f"{err:.4g} (tol {WS_TOL_P}); frames >= 0.5: GPU "
+        f"{int(over_g.sum())}, CPU {int(over_c.sum())} of {want.numel()}, "
+        f"{int((over_g != over_c).sum())} differ; GPU {gpu_s:.4f} s to "
+        f"the sync, CPU {cpu_s:.3f} s")
+    if err > WS_TOL_P:
+        raise RuntimeError("whisperseg on the GPU disagrees with the CPU")
+    del gpu_model
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counting(module, name: str):
+    """Count the calls of ``module.<name>`` inside the block."""
+    orig = getattr(module, name)
+    calls = {"n": 0}
+
+    def wrapped(*a, **k):
+        calls["n"] += 1
+        return orig(*a, **k)
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def run_vad_phase(dev, gen, tmp: Path, kernels: list) -> dict:
+    """The VAD networks: Silero v5 and TEN (seeded, saved as .npz in the
+    JAX package's layout and loaded back) on a 60 s clip and a 1-hour
+    track, GPU against CPU; WhisperSeg at Whisper-base widths; Kernels A
+    and B at WhisperSeg's shapes; then two CLI runs: the flagless path
+    with ``--vad-arg weights=<silero npz>`` and ``--mode qwen
+    --qwen-segmenter whisperseg --vad-arg weights=<whisperseg npz>``.
+    Returns each CLI run's launches."""
+    from whisperjav_tpu_torch.models.vad import silero, ten, whisperseg
+    # whole 512-sample chunks (Silero's; two of TEN's hops)
+    tracks = {name: x[:len(x) // 512 * 512] for name, x in (
+        ("60 s clip", long_track(60.0, 1)),
+        ("1-hour track", long_track(3600.0, 2)))}
+    for label, module, seed in (("silero v5", silero, 1), ("ten", ten, 2)):
+        npz = tmp / f"{label.split()[0]}.npz"
+        module.save_params(str(npz), module.init_params(
+            torch.Generator().manual_seed(seed)))
+        cpu_model = module.load_params(str(npz))
+        gpu_model = module.load_params(str(npz), device=dev)
+        check_vad_network(dev, label, module, cpu_model, gpu_model, tracks)
+        del gpu_model
+    check_kernels_whisperseg(dev, gen, kernels)
+    check_whisperseg_network(dev)
+    ws_npz = tmp / "whisperseg.npz"
+    whisperseg.save_params(str(ws_npz), whisperseg_weights(4))
+    launches = {}
+    with counting(silero, "probs") as calls:
+        launches["vad_silero"] = run_cli_path(
+            tmp, "silero network", VAD_CLIP_S,
+            ["--vad-arg", f"weights={tmp / 'silero.npz'}"], TURBO_NEEDS)[0]
+    log(f"silero network path: the network scored {calls['n']} scenes")
+    if calls["n"] < 1:
+        raise RuntimeError("silero network path: the network never ran")
+    torch.cuda.empty_cache()
+    with counting(whisperseg, "probs") as calls:
+        launches["vad_whisperseg_qwen"] = run_qwen_cli_path(
+            tmp, "qwen whisperseg",
+            ["--qwen-segmenter", "whisperseg", "--vad-arg",
+             f"weights={ws_npz}", "--no-signature"], WHISPERSEG_NEEDS)
+    log(f"qwen whisperseg path: {calls['n']} WhisperSeg batches")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# serve phase
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def port_is_free(port: int) -> bool:
+    """Nothing listens on ``port``: a new server (which sets SO_REUSEADDR,
+    as ThreadingHTTPServer does) can bind it."""
+    import socket
+    with socket.socket() as sock:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def post(port: int, body: bytes, ctype: str = "application/json"):
+    """POST /transcribe; returns (status, text, seconds)."""
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/transcribe",
+                                 data=body, headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read().decode("utf-8"), \
+            time.perf_counter() - t0
+
+
+def run_serve_phase(dev, tmp: Path) -> dict:
+    """The resident engine: an in-process server (port 0) around the
+    flagless turbo service on the card (B = 32); 4 concurrent
+    /transcribe requests of distinct clips (coalesced), the same clips
+    one after another with coalescing off, and one audio/wav body; the
+    serial responses must equal, byte for byte, the SRTs the in-process
+    CLI writes for the same clips on the same seeded weights. Both sides
+    run without the sanitizer (``--no-sanitize``), which drops every cue
+    of the random weights' text and would leave empty SRTs to compare;
+    the clips must give cues. Then the
+    CLI's --daemon route: it must autostart ``python -m
+    whisperjav_tpu_torch.serve`` on cuda, whose /health reports the card
+    and the torch backend, write both SRTs, and --daemon-stop must free
+    the port. Returns the coalesced requests' launches."""
+    import concurrent.futures as cf
+    from whisperjav_tpu_torch import cli, serve
+    from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.pipelines import daemon_client
+    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+    clips = []
+    for i, seconds in enumerate(SERVE_CLIPS_S):
+        path = tmp / f"serve{i}.wav"
+        synthetic_clip_seeded(path, seconds, 10 + i)
+        clips.append(path)
+    # the in-process CLI's SRTs, the serial responses' reference
+    ref_dir = tmp / "serve-cli"
+    if cli.main([*map(str, clips), "--output-dir", str(ref_dir),
+                 "--no-signature", "--no-sanitize"]) != 0:
+        raise RuntimeError("serve: the in-process CLI run failed")
+    want = [(ref_dir / f"{c.stem}.ja.whisperjav.srt").read_text(
+        encoding="utf-8") for c in clips]
+    torch.cuda.empty_cache()
+
+    cfg = resolve_pipeline_config()
+    pipeline, load_s = _timed(lambda: build_pipeline(cfg, device=dev))
+    fingerprint = daemon_client._fingerprint(cfg)
+    encodes = {"n": 0}
+    encode_batch = pipeline.engine.encode_batch
+
+    def counted_encode(*a, **k):
+        encodes["n"] += 1
+        return encode_batch(*a, **k)
+    pipeline.engine.encode_batch = counted_encode
+    bodies = [json.dumps({"path": str(c)}).encode() for c in clips]
+    audio_s = sum(wave_seconds(c) for c in clips)
+    results = {}
+    counters = kernel_counters()
+    for mode, linger in (("coalesced", 30.0), ("serial", 0.0)):
+        service = serve.TranscriptionService(
+            pipeline, linger_ms=linger, device=dev, fingerprint=fingerprint)
+        server = serve.make_server(service)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            encodes["n"] = 0
+            if mode == "coalesced":
+                # the first request pays the first batch's costs
+                first = post(port, bodies[0])
+                torch.cuda.synchronize()
+                for fn in counters.values():
+                    fn.launches = 0
+                encodes["n"] = 0
+                t0 = time.perf_counter()
+                with cf.ThreadPoolExecutor(len(bodies)) as pool:
+                    replies = list(pool.map(lambda b: post(port, b),
+                                            bodies))
+                wall = time.perf_counter() - t0
+                launches = {n: fn.launches for n, fn in counters.items()}
+                batches = encodes["n"]
+                wav_reply = post(port, clips[0].read_bytes(), "audio/wav")
+            else:
+                t0 = time.perf_counter()
+                replies = [post(port, b) for b in bodies]
+                wall = time.perf_counter() - t0
+                batches = encodes["n"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        for status, text, _ in replies:
+            if status != 200:
+                raise RuntimeError(f"serve {mode}: status {status}")
+            srt_text_cues(text)
+        results[mode] = {"replies": replies, "wall": wall,
+                         "batches": batches}
+        log(f"serve {mode} ({len(bodies)} requests, {audio_s:.3f} s of "
+            f"audio): wall {wall:.3f} s, {60 * len(bodies) / wall:.2f} "
+            f"requests and {60 * audio_s / wall:.1f} audio-seconds a "
+            f"minute; request walls "
+            f"{[round(r[2], 3) for r in replies]}; {batches} engine "
+            f"batches (encodes, temperature-ladder rungs included)")
+    if wav_reply[0] != 200:
+        raise RuntimeError(f"serve audio/wav body: status {wav_reply[0]}")
+    srt_text_cues(wav_reply[1])
+    log(f"serve: engine load {load_s:.3f} s (to a sync); first request "
+        f"{first[2]:.3f} s, steady requests (serial) "
+        f"{[round(r[2], 3) for r in results['serial']['replies']]} s; "
+        f"audio/wav body {wav_reply[2]:.3f} s, "
+        f"{len(srt_text_cues(wav_reply[1]))} cues; coalesced batches "
+        f"{results['coalesced']['batches']} vs serial batches "
+        f"{results['serial']['batches']}")
+    n_cues = sum(len(srt_text_cues(w)) for w in want)
+    if n_cues < 1:
+        raise RuntimeError("serve: the CLI's SRTs hold no cue to compare")
+    serial = [r[1] for r in results["serial"]["replies"]]
+    if serial != want:
+        bad = [i for i, (a, b) in enumerate(zip(serial, want)) if a != b]
+        raise RuntimeError(f"serve: serial responses {bad} differ from the "
+                           f"in-process CLI's SRT")
+    differ = sum(a != b for r, w in zip(results["coalesced"]["replies"],
+                                        want)
+                 for a, b in zip_longest(srt_text_cues(r[1]),
+                                         srt_text_cues(w)))
+    log(f"serve: serial responses equal the in-process CLI's SRTs ({n_cues} "
+        f"cues) byte for byte; coalesced responses: {differ} cues differ "
+        f"from them")
+    missing = [n for n in TURBO_NEEDS if launches[n] < 1]
+    if missing:
+        raise RuntimeError(f"serve: kernels never launched: {missing}")
+    del pipeline, service
+    torch.cuda.empty_cache()
+    run_daemon_route(tmp, clips[:2])
+    return launches
+
+
+def run_daemon_route(tmp: Path, clips: list) -> None:
+    """``whisperjav-torch a.wav b.wav --daemon --daemon-port <free>`` then
+    ``--daemon-stop``; the daemon process is stopped in any case."""
+    from whisperjav_tpu_torch import cli
+    from whisperjav_tpu_torch.pipelines import daemon_client
+    port = free_port()
+    out_dir = tmp / "daemon-out"
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([*map(str, clips), "--daemon", "--daemon-port",
+                       str(port), "--output-dir", str(out_dir)])
+        wall = time.perf_counter() - t0
+        health = daemon_client._health(port) or {}
+        if rc != 0:
+            raise RuntimeError(f"--daemon run exited {rc}")
+        for c in clips:
+            srt_cues(out_dir / f"{c.stem}.ja.whisperjav.srt")
+        log(f"--daemon: {len(clips)} files in {wall:.3f} s (autostart "
+            f"included); /health {json.dumps(health, ensure_ascii=False)}")
+        if not (str(health.get("device", "")).startswith(DAEMON_DEVICE)
+                and health.get("backend") == "torch"):
+            raise RuntimeError(f"--daemon: /health says {health}")
+        if cli.main(["--daemon-stop", "--daemon-port", str(port)]) != 0:
+            raise RuntimeError("--daemon-stop failed")
+        deadline = time.time() + 60
+        while not port_is_free(port) and time.time() < deadline:
+            time.sleep(0.5)
+        if not port_is_free(port):
+            raise RuntimeError(f"--daemon-stop: port {port} still bound")
+        log(f"--daemon-stop: port {port} free")
+    finally:
+        if daemon_client._health(port) is not None:
+            daemon_client.stop_daemon(port)
+        subprocess.run(["pkill", "-f", f"whisperjav_tpu_torch.serve --port "
+                        f"{port}"], check=False)
+
+
 # the qwen3 generator runs no kernel of the port (the Qwen LM and the
 # aligner are PyTorch matmuls); the anime-whisper generator runs the
 # Whisper engine's unfused bf16 decoder
 QWEN_NEEDS = ()
 QWEN_WHISPER_NEEDS = TURBO_NEEDS
+# the WhisperSeg framer's network: its encoder takes Kernel A, its bf16
+# decoder prefill Kernel B's bf16 form
+WHISPERSEG_NEEDS = TURBO_NEEDS
 
 
-PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen")
+PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
+          "vad", "serve")
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1609,46 +2136,58 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
     if "kernels" in only:
-        kernels = [check_encoder_attention(dev, gen, v1_lib),
-                   check_decode_attention(dev, gen, v1_lib),
-                   *check_fused_blocks(dev, gen, v1_lib)]
-        torch.cuda.empty_cache()
+        with phase("kernels"):
+            kernels = [check_encoder_attention(dev, gen, v1_lib),
+                       check_decode_attention(dev, gen, v1_lib),
+                       *check_fused_blocks(dev, gen, v1_lib)]
+            torch.cuda.empty_cache()
     if "reference" in only:
-        check_small_reference(dev)
-        check_small_int8_reference(dev)
-        check_small_vocab_reference(dev)
+        with phase("reference"):
+            check_small_reference(dev)
+            check_small_int8_reference(dev)
+            check_small_vocab_reference(dev)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         if "turbo" in only:
-            launches["turbo_flagless"] = run_cli_path(
-                Path(tmp), "turbo flagless", TURBO_CLIP_S, [],
-                TURBO_NEEDS)[0]
-            torch.cuda.empty_cache()
-            breakdown(dev)
-            torch.cuda.empty_cache()
+            with phase("turbo"):
+                launches["turbo_flagless"] = run_cli_path(
+                    Path(tmp), "turbo flagless", TURBO_CLIP_S, [],
+                    TURBO_NEEDS)[0]
+                torch.cuda.empty_cache()
+                breakdown(dev)
+                torch.cuda.empty_cache()
         if "large-v2" in only:
-            launches["large_v2_int8"] = run_cli_path(
-                Path(tmp), "large-v2 int8", INT8_CLIP_S,
-                ["--model", "large-v2", "--int8-weights"], INT8_NEEDS)[0]
-            torch.cuda.empty_cache()
-            breakdown_large_v2_greedy(dev)
-            torch.cuda.empty_cache()
+            with phase("large-v2"):
+                launches["large_v2_int8"] = run_cli_path(
+                    Path(tmp), "large-v2 int8", INT8_CLIP_S,
+                    ["--model", "large-v2", "--int8-weights"],
+                    INT8_NEEDS)[0]
+                torch.cuda.empty_cache()
+                breakdown_large_v2_greedy(dev)
+                torch.cuda.empty_cache()
         if "fidelity" in only:
-            check_zipenhancer(dev)
-            launches.update(run_fidelity_paths(Path(tmp)))
+            with phase("fidelity"):
+                check_zipenhancer(dev)
+                launches.update(run_fidelity_paths(Path(tmp)))
         if "qwen" in only:
-            check_small_qwen_reference(dev)
-            launches["qwen"] = run_qwen_cli_path(Path(tmp), "qwen",
-                                                 ["--no-signature"],
-                                                 QWEN_NEEDS)
-            torch.cuda.empty_cache()
-            qwen_costs(dev)
-            launches["qwen_anime_whisper"] = run_qwen_cli_path(
-                Path(tmp), "qwen anime-whisper",
-                ["--generator", "anime-whisper", "--model", "small",
-                 "--no-signature"],
-                QWEN_WHISPER_NEEDS)
-            torch.cuda.empty_cache()
+            with phase("qwen"):
+                check_small_qwen_reference(dev)
+                launches["qwen"] = run_qwen_cli_path(
+                    Path(tmp), "qwen", ["--no-signature"], QWEN_NEEDS)
+                torch.cuda.empty_cache()
+                qwen_costs(dev)
+                launches["qwen_anime_whisper"] = run_qwen_cli_path(
+                    Path(tmp), "qwen anime-whisper",
+                    ["--generator", "anime-whisper", "--model", "small",
+                     "--no-signature"],
+                    QWEN_WHISPER_NEEDS)
+                torch.cuda.empty_cache()
+        if "vad" in only:
+            with phase("vad"):
+                launches.update(run_vad_phase(dev, gen, Path(tmp), kernels))
+        if "serve" in only:
+            with phase("serve"):
+                launches["serve"] = run_serve_phase(dev, Path(tmp))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

@@ -32,7 +32,17 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.models.qwen.model",
                  "whisperjav_tpu_torch.models.qwen.aligner",
                  "whisperjav_tpu_torch.modules.subtitle_pipeline.components",
-                 "whisperjav_tpu_torch.pipelines.qwen"):
+                 "whisperjav_tpu_torch.pipelines.qwen",
+                 "whisperjav_tpu_torch.serve",
+                 "whisperjav_tpu_torch.pipelines.daemon_client",
+                 "whisperjav_tpu_torch.utils.onnx_io",
+                 "whisperjav_tpu_torch.models.vad.silero",
+                 "whisperjav_tpu_torch.models.vad.silero_like",
+                 "whisperjav_tpu_torch.models.vad.ten",
+                 "whisperjav_tpu_torch.models.vad.whisperseg",
+                 "whisperjav_tpu_torch.modules.segmentation.ten",
+                 "whisperjav_tpu_torch.modules.segmentation.whisper_vad",
+                 "whisperjav_tpu_torch.modules.scene_detection.silero_scene"):
         assert name in mods
 
 
@@ -127,6 +137,42 @@ with tempfile.TemporaryDirectory() as tmp:
                      "fidelity", "--enhancer-weights", zip_path,
                      "--word-timestamps", "--vocab-slice", "4000"]) == 0
     assert (Path(tmp) / "fid" / "clip.ja.whisperjav.srt").exists()
+    # the VAD networks from their .npz files, a vendor ONNX file, and the
+    # resident engine's service with its fingerprint
+    import dataclasses, json, threading, urllib.request
+    from whisperjav_tpu_torch import serve
+    from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.models.vad import silero, ten, whisperseg
+    from whisperjav_tpu_torch.modules.segmentation import create_segmenter
+    from whisperjav_tpu_torch.pipelines.daemon_client import _fingerprint
+    from whisperjav_tpu_torch.utils import onnx_io
+    gen = torch.Generator().manual_seed(0)
+    narrow = dataclasses.replace(whisperseg.SEG_CONFIG, n_audio_state=64,
+                                 n_text_state=64, n_audio_layer=1,
+                                 n_vocab=64)
+    for backend, module, model in (
+            ("silero", silero, silero.init_params(gen)),
+            ("ten", ten, ten.init_params(gen)),
+            ("whisperseg", whisperseg, whisperseg.init_params(gen, narrow))):
+        npz = str(Path(tmp) / f"{backend}.npz")
+        module.save_params(npz, model)
+        res = create_segmenter(backend, weights=npz, device="cpu").segment(
+            audio, sr)
+        assert res.stats["model"] == "network"
+    onnx_path = str(Path(tmp) / "ten.onnx")
+    onnx_io.write_onnx(onnx_path, onnx_io.OnnxGraph(
+        initializers=ten.init_params(gen).tree()))
+    assert sorted(onnx_io.read_initializers(onnx_path)) == sorted(
+        ten.init_params(gen).tree())
+    svc = serve.TranscriptionService(TranscribePipeline(engine),
+                                     device="cpu", fingerprint=_fingerprint(
+                                         resolve_pipeline_config()))
+    httpd = serve.make_server(svc)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{httpd.server_address[1]}/health") as r:
+        assert json.loads(r.read())["backend"] == "torch"
+    httpd.shutdown()
 bad = sorted(m for m in sys.modules
              if m == "whisperjav_tpu" or m.startswith("whisperjav_tpu."))
 print("LOADED:" + ",".join(bad))
@@ -135,9 +181,10 @@ print("LOADED:" + ",".join(bad))
 
 def test_port_pipeline_and_cli_leave_the_jax_package_out():
     """The port's file pipeline (silero VAD, sanitizer, bf16 and int8
-    decoder weights) and its CLI (a fidelity run with the ZipEnhancer,
-    word timestamps and a sliced vocabulary) run on the CPU without
-    loading a single module of ``whisperjav_tpu``."""
+    decoder weights), its CLI (a fidelity run with the ZipEnhancer, word
+    timestamps and a sliced vocabulary), the VAD networks (Silero, TEN,
+    WhisperSeg), the ONNX reader and the resident service run on the CPU
+    without loading a single module of ``whisperjav_tpu``."""
     proc = subprocess.run([sys.executable, "-c", _PIPELINE_RUN],
                           cwd=str(PKG_DIR.parent), capture_output=True,
                           text=True, timeout=300)

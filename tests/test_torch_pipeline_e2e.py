@@ -151,17 +151,18 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
     ["--enhancer", "bs-roformer"],
     ["--mode", "qwen", "--qwen-enhancer", "bs-roformer"],
     ["--enhancer", "clearvoice"],
-    ["--mode", "qwen", "--vad-arg", "weights=whisperseg.npz"],
+    ["--mode", "qwen", "--qwen-enhancer", "clearvoice"],
     ["--mode", "fidelity", "--enhancer", "vocals"],
-    ["--ensemble"], ["--daemon"], ["--daemon-stop"], ["--multihost"],
+    ["--ensemble"], ["--daemon", "--devices", "2"], ["--check"],
+    ["--multihost"],
     ["--async-processing"], ["--translate", "ollama"],
-    ["--daemon-replace"], ["--scene-backend", "silero"],
-    ["--mode", "transformers", "--hf-scene", "silero"],
+    ["--daemon", "--ensemble"], ["--check-verbose"],
+    ["--mode", "transformers", "--devices", "8"],
     ["--devices", "4"],
-    ["--vad-backend", "ten"], ["--vad-arg", "weights=silero.npz"],
+    ["--trace-params", "trace.jsonl"], ["--enhancer", "mossformer"],
     ["--mode", "qwen", "--ensemble"],
-    ["--mode", "qwen", "--qwen-segmenter", "ten"],
-    ["--mode", "qwen", "--qwen-scene", "silero"],
+    ["--mode", "qwen", "--multihost"],
+    ["--mode", "qwen", "--translate", "ollama"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
     assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2

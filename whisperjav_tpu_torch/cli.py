@@ -20,21 +20,28 @@ whisperseg VAD-grouped framer, the Qwen3-ASR generator on an int8 LM,
 the forced aligner) with the JAX CLI's framer, generator, cleaner,
 aligner, step-down, hardening, context and ``--qwen-*`` flags.
 
+The VAD networks run on the device with ``--vad-arg weights=<.npz>``
+(silero, whisperseg, ten) and ``--vad-backend whisper-vad``; ``--daemon``
+routes the files through a resident ``whisperjav-torch-serve`` engine
+(autostarted on ``--device``), and ``--daemon-stop`` stops it.
+
 What the port does not cover yet makes it exit with "not ported yet"
-before any work: the band-split enhancers, the Silero and WhisperSeg
-networks (``--vad-arg weights=...``), and the flags listed in
-``_UNPORTED``.
+before any work: the band-split enhancers, ``--devices`` above 1, and
+the flags listed in ``_UNPORTED``.
 
     whisperjav-torch clip.wav --output-dir out/
     whisperjav-torch clip.wav --model large-v2 --int8-weights
     whisperjav-torch clip.wav --mode fidelity --enhancer-weights zip.npz \
         --word-timestamps
     whisperjav-torch clip.wav --mode qwen
+    whisperjav-torch a.wav b.wav --daemon --daemon-port 8479
+    whisperjav-torch --daemon-stop --daemon-port 8479
     python -m whisperjav_tpu_torch.cli clip.wav --output-dir out/
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -48,17 +55,12 @@ from whisperjav_tpu_torch.cli_args import (
 
 PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
                 "anime", "qwen")
-_SCENE_BACKENDS = ("energy", "auditok", "default", "none", "null",
-                   "semantic")
-_VAD_BACKENDS = ("silero", "silero-jax", "energy", "default", "none",
-                 "null", "whisperseg")
 # the band-split enhancement backends (and their aliases)
 _UNPORTED_ENHANCERS = ("bs-roformer", "bsroformer", "vocals", "clearvoice",
                        "mossformer")
 # argparse dest -> the flag a user typed, for flags outside the port
 _UNPORTED = {
-    "ensemble": "--ensemble", "daemon": "--daemon",
-    "daemon_replace": "--daemon-replace", "multihost": "--multihost",
+    "ensemble": "--ensemble", "multihost": "--multihost",
     "async_processing": "--async-processing", "translate": "--translate",
     "check": "--check", "check_verbose": "--check-verbose",
     "trace_params": "--trace-params",
@@ -72,22 +74,10 @@ def _unported(args) -> List[str]:
         out.append(f"--mode {args.mode}")
     if args.devices is not None and args.devices > 1:
         out.append(f"--devices {args.devices}")
-    for flag, scene in (("--scene-backend", args.scene_backend),
-                        ("--hf-scene", args.hf_scene),
-                        ("--qwen-scene", args.qwen_scene)):
-        if scene and scene.lower() not in _SCENE_BACKENDS:
-            out.append(f"{flag} {scene}")
     for flag, enh in (("--enhancer", args.enhancer),
                       ("--qwen-enhancer", args.qwen_enhancer)):
         if enh and enh.lower() in _UNPORTED_ENHANCERS:
             out.append(f"{flag} {enh}")
-    for flag, vad in (("--vad-backend", args.vad_backend),
-                      ("--qwen-segmenter", args.qwen_segmenter)):
-        if vad and vad.lower().replace("_", "-") not in _VAD_BACKENDS:
-            out.append(f"{flag} {vad}")
-    if "weights" in _parse_kv_args(args.vad_arg, "--vad-arg"):
-        out.append("--vad-arg weights=... (the Silero and WhisperSeg "
-                   "networks)")
     return out
 
 
@@ -148,6 +138,7 @@ def _qwen_pipeline(args, cfg, checkpoint: Optional[str], device):
     framer_name = args.framer or "vad-grouped"
     if framer_name == "vad-grouped":
         framer_kwargs["vad_backend"] = cfg.mode.vad_backend
+        framer_kwargs["device"] = device
         if args.qwen_vad_threshold is not None:
             framer_kwargs["threshold"] = args.qwen_vad_threshold
         if args.qwen_chunk_threshold is not None:
@@ -260,12 +251,136 @@ def _qwen_pipeline(args, cfg, checkpoint: Optional[str], device):
                         language=cfg.language, device=device, **pipe_kwargs)
 
 
+def _qwen_deep_flags(args) -> List[str]:
+    """Qwen stack-level knobs the resident engine's default decoupled
+    stack (pipelines/qwen_factory.py) cannot receive. Any of them set
+    makes a ``--daemon`` invocation fall back in-process; cfg-level
+    overrides (scene/VAD/sensitivity fields) are separately caught by
+    the full-config fingerprint hash (daemon_client.daemon_reproducible)."""
+    checks = [
+        ("--timestamp-mode", args.timestamp_mode is not None),
+        ("--regroup-mode", args.regroup_mode is not None),
+        ("--no-step-down", args.no_step_down),
+        ("--step-down-attempts", args.step_down_attempts is not None),
+        ("--step-down-max-group", args.step_down_max_group is not None),
+        ("--qwen-stepdown-initial-group",
+         args.qwen_stepdown_initial_group is not None),
+        ("--framer", args.framer is not None),
+        ("--framer-srt-path", args.framer_srt_path is not None),
+        ("--framer-config", args.framer_config is not None),
+        ("--generator", args.generator is not None),
+        ("--generator-config", args.generator_config is not None),
+        ("--cleaner", args.cleaner is not None),
+        ("--cleaner-config", args.cleaner_config is not None),
+        ("--aligner", args.aligner is not None),
+        ("--aligner-config", args.aligner_config is not None),
+        ("--context", args.context is not None),
+        ("--context-file", args.context_file is not None),
+        ("--qwen-repetition-penalty",
+         args.qwen_repetition_penalty is not None),
+        ("--qwen-max-tokens", args.qwen_max_tokens is not None),
+        ("--qwen-max-tokens-per-second",
+         args.qwen_max_tokens_per_second is not None),
+        ("--qwen-chunk-threshold", args.qwen_chunk_threshold is not None),
+        ("--qwen-vad-padding", args.qwen_vad_padding is not None),
+        ("--qwen-timestamps", args.qwen_timestamps is not None),
+        ("--no-qwen-safe-chunking", not args.qwen_safe_chunking),
+        ("--qwen-scene-min-duration",
+         args.qwen_scene_min_duration is not None),
+        ("--qwen-scene-max-duration",
+         args.qwen_scene_max_duration is not None),
+        ("--no-qwen-assembly-cleaner", not args.qwen_assembly_cleaner),
+    ]
+    return [name for name, is_set in checks if is_set]
+
+
+def _daemon_stop(port: int) -> int:
+    """Stop the resident engine; rc 0 when the port ends up free."""
+    from whisperjav_tpu_torch.pipelines.daemon_client import (
+        _health, stop_daemon,
+    )
+    from whisperjav_tpu_torch.utils.logger import logger
+    if _health(port) is None:
+        logger.warning("no resident engine on port %d", port)
+        return 1
+    if stop_daemon(port):
+        logger.info("resident engine on port %d stopped", port)
+        return 0
+    logger.warning("resident engine on port %d did not stop (it may "
+                   "lack the /shutdown endpoint — kill its pid)", port)
+    return 1
+
+
+def _daemon_batch(client, media, cfg, output_dir, out_lang: str,
+                  finalize, stats_file: Optional[str], port: int) -> int:
+    """Each file through the resident engine: its SRT and metadata JSON
+    written here (the per-file layout of the in-process path), then
+    ``finalize`` (signatures, VTT). Returns the exit code."""
+    from whisperjav_tpu_torch.modules.media_discovery import (
+        resolve_output_dir,
+    )
+    from whisperjav_tpu_torch.modules.srt import compose_srt
+    from whisperjav_tpu_torch.utils.logger import logger
+    batch_stats = []
+    failures = 0
+    t_start = time.time()
+    for m in media:
+        try:
+            t0 = time.time()
+            subs, stats = client.transcribe(m.path)
+            out_dir = resolve_output_dir(output_dir, m)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            srt_path = out_dir / f"{m.basename}.{out_lang}.whisperjav.srt"
+            srt_path.write_text(compose_srt(subs), encoding="utf-8")
+            finalize(srt_path)
+            wall = time.time() - t0
+            audio_s = float(stats.get("audio_s", 0.0) or 0.0)
+            # the daemon's own stage walls stay inside stats; the
+            # client-observed wall is what a --daemon user experiences
+            stats = dict(stats)
+            stats["daemon_client_wall_s"] = round(wall, 3)
+            stats.setdefault("e2e_wall_s", round(wall, 3))
+            stats["e2e_rtf_x"] = round(audio_s / max(wall, 1e-9), 2)
+            stats.setdefault("final_subtitles", len(subs))
+            meta = {"input": str(m.path), "pipeline": cfg.mode.name,
+                    "duration_s": audio_s, "output": str(srt_path),
+                    "stats": stats}
+            # qwen daemon responses carry analytics/diagnostics; hoist
+            # them to the in-process metadata layout
+            for key in ("analytics", "scene_diagnostics"):
+                if key in stats:
+                    meta[key] = stats.pop(key)
+            (out_dir / f"{m.basename}.whisperjav.json").write_text(
+                json.dumps(meta, indent=2, default=str), encoding="utf-8")
+            logger.info("wrote %s (%d subtitles, daemon, RTF %.2fx)",
+                        srt_path.name, len(subs),
+                        audio_s / wall if wall > 0 else 0.0)
+            batch_stats.append({"file": str(m.path),
+                                "output": str(srt_path),
+                                "wall_s": round(wall, 2), **stats})
+        except Exception as e:  # keep the batch going
+            logger.error("daemon transcribe failed on %s: %s",
+                         m.path.name, e)
+            failures += 1
+    summary = {"files": len(media), "failures": failures,
+               "wall_s": round(time.time() - t_start, 2),
+               "daemon_port": port, "results": batch_stats}
+    if stats_file:
+        Path(stats_file).write_text(
+            json.dumps(summary, indent=2, default=str), encoding="utf-8")
+    logger.info("done (daemon): %d file(s), %d failure(s), %.1fs",
+                len(media), failures, summary["wall_s"])
+    return 0 if failures == 0 else 2
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     raw = list(argv) if argv is not None else sys.argv[1:]
     if "--daemon-stop" in raw:
-        print("whisperjav-torch: not ported yet: --daemon-stop",
-              file=sys.stderr)
-        return 2
+        # management action: no inputs required, exits immediately
+        mini = argparse.ArgumentParser(add_help=False)
+        mini.add_argument("--daemon-port", type=int, default=8478)
+        known, _ = mini.parse_known_args(raw)
+        return _daemon_stop(known.daemon_port)
     args = parse_arguments(raw)
     if args.asr:
         args.mode = _ASR_TO_MODE[args.asr]
@@ -415,13 +530,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             regroup_preset=args.postprocess_preset)
 
     device = args.device or "cuda"
-    if cfg.mode.name == "qwen":
-        pipeline = _qwen_pipeline(args, cfg, checkpoint, device)
-    else:
-        from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-        pipeline = build_pipeline(cfg, checkpoint=checkpoint,
-                                  postprocessor=postprocessor,
-                                  device=device)
 
     def finalize(srt_path: Path) -> None:
         """Signatures, then VTT conversion."""
@@ -436,6 +544,49 @@ def main(argv: Optional[List[str]] = None) -> int:
             srt_to_vtt(srt_path)
             if output_format == "vtt":
                 srt_path.unlink()
+
+    daemon_eligible = args.daemon
+    if daemon_eligible and cfg.mode.name == "qwen":
+        # the resident qwen engine runs the DEFAULT decoupled stack
+        # (pipelines/qwen_factory.py); stack-level knobs can't reach it
+        deep = _qwen_deep_flags(args)
+        if deep:
+            logger.warning(
+                "--daemon: qwen stack knobs (%s) can't be routed to a "
+                "resident engine; continuing in-process", ", ".join(deep))
+            daemon_eligible = False
+    if daemon_eligible:
+        from whisperjav_tpu_torch.pipelines.daemon_client import (
+            daemon_reproducible,
+        )
+        if not daemon_reproducible(cfg):
+            logger.warning(
+                "--daemon: this invocation carries config overrides a "
+                "daemon can't receive (scene/VAD/enhancer/decode knobs); "
+                "continuing in-process")
+            daemon_eligible = False
+    if daemon_eligible:
+        # the daemon owns scenes/VAD/decode/sanitize under ITS config
+        # (fingerprint-matched in find_daemon); this process discovers
+        # media, writes outputs, and runs signatures/VTT
+        from whisperjav_tpu_torch.pipelines.daemon_client import get_daemon
+        client = get_daemon(cfg, port=args.daemon_port,
+                            checkpoint=checkpoint, device=device,
+                            replace=args.daemon_replace)
+        if client is not None:
+            return _daemon_batch(client, media, cfg, args.output_dir,
+                                 out_lang, finalize, args.stats_file,
+                                 args.daemon_port)
+        logger.warning("--daemon requested but no resident engine is "
+                       "available; continuing in-process")
+
+    if cfg.mode.name == "qwen":
+        pipeline = _qwen_pipeline(args, cfg, checkpoint, device)
+    else:
+        from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+        pipeline = build_pipeline(cfg, checkpoint=checkpoint,
+                                  postprocessor=postprocessor,
+                                  device=device)
 
     results, failures = [], 0
     t_start = time.time()

@@ -48,12 +48,13 @@ class SceneDetector(Protocol):
         ...
 
 
-def create_scene_detector(backend: str = "energy", **kwargs) -> SceneDetector:
+def create_scene_detector(backend: str = "energy", device="cuda",
+                          **kwargs) -> SceneDetector:
     """Factory mirroring SceneDetectorFactory.create/safe_create semantics
-    (reference: scene_detection_backends/factory.py:190-309): unknown or
-    unavailable backends fall back to the energy detector with a warning.
-    The port knows the backends its CLI accepts; the others raise "not
-    ported yet".
+    (reference: scene_detection_backends/factory.py:190-309): unknown
+    backends fall back to the energy detector with a warning.
+    The silero detector's VAD network (``vad_weights``) runs on
+    ``device``.
     """
     from whisperjav_tpu_torch.utils.logger import logger
     backend = (backend or "energy").lower()
@@ -69,8 +70,10 @@ def create_scene_detector(backend: str = "energy", **kwargs) -> SceneDetector:
         )
         return SemanticSceneDetector(**kwargs)
     if backend in ("silero", "silero-scene"):
-        raise NotImplementedError(f"not ported yet: scene backend "
-                                  f"{backend!r}")
+        from whisperjav_tpu_torch.modules.scene_detection.silero_scene import (
+            SileroSceneDetector,
+        )
+        return SileroSceneDetector(device=device, **kwargs)
     logger.warning("unknown scene backend %r; falling back to energy", backend)
     from whisperjav_tpu_torch.modules.scene_detection.energy import EnergySceneDetector
     return EnergySceneDetector(**kwargs)

@@ -154,10 +154,15 @@ def group_segments(
     return groups
 
 
-def create_segmenter(backend: str = "energy", **kwargs) -> SpeechSegmenter:
-    """Factory with lazy imports and graceful fallback (reference:
-    speech_segmentation/factory.py:425-492). The port knows the backends
-    its CLI accepts; the others raise "not ported yet"."""
+def create_segmenter(backend: str = "energy", device="cuda",
+                     **kwargs) -> SpeechSegmenter:
+    """Factory with lazy imports (reference:
+    speech_segmentation/factory.py:425-492). The network backends (a
+    ``weights`` path for silero, ten and whisperseg; whisper-vad always)
+    run on ``device``. A backend that fails to build raises: the JAX
+    package's fall-back to energy VAD on ``ImportError`` is not copied, so
+    a requested network never turns silently into the energy
+    probability."""
     from whisperjav_tpu_torch.utils.logger import logger
     backend = (backend or "energy").lower().replace("_", "-")
     if backend in ("none", "null"):
@@ -168,6 +173,14 @@ def create_segmenter(backend: str = "energy", **kwargs) -> SpeechSegmenter:
             EnergySpeechSegmenter,
         )
         return EnergySpeechSegmenter(**kwargs)
+    if backend in ("ten", "ten-jax"):
+        # distinct TEN-class frame VAD (models/vad/ten.py) with the
+        # reference's detect→merge→pad→split-at-prob-minima→group chain
+        # (reference: speech_segmentation/backends/ten.py:76-97,440-520)
+        from whisperjav_tpu_torch.modules.segmentation.ten import (
+            TenJaxSegmenter,
+        )
+        return TenJaxSegmenter(device=device, **kwargs)
     if backend in ("silero", "silero-jax", "silero-v3", "silero-v4",
                    "silero-v3.1"):
         if backend in ("silero-v3", "silero-v3.1", "silero-v4"):
@@ -187,14 +200,17 @@ def create_segmenter(backend: str = "energy", **kwargs) -> SpeechSegmenter:
         from whisperjav_tpu_torch.modules.segmentation.silero import (
             SileroJaxSegmenter,
         )
-        return SileroJaxSegmenter(**kwargs)
+        return SileroJaxSegmenter(device=device, **kwargs)
+    if backend in ("whisper-vad", "whispervad"):
+        from whisperjav_tpu_torch.modules.segmentation.whisper_vad import (
+            WhisperVadSegmenter,
+        )
+        return WhisperVadSegmenter(device=device, **kwargs)
     if backend == "whisperseg":
         from whisperjav_tpu_torch.modules.segmentation.whisperseg import (
             WhisperSegSegmenter,
         )
-        return WhisperSegSegmenter(**kwargs)
-    if backend in ("ten", "ten-jax", "whisper-vad", "whispervad"):
-        raise NotImplementedError(f"not ported yet: VAD backend {backend!r}")
+        return WhisperSegSegmenter(device=device, **kwargs)
     logger.warning("unknown segmenter backend %r; using energy", backend)
     from whisperjav_tpu_torch.modules.segmentation.energy_vad import (
         EnergySpeechSegmenter,

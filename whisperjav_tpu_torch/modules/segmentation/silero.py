@@ -1,10 +1,6 @@
-"""Silero-style speech segmentation backend (calibrated probabilities).
+"""Silero-style speech segmentation backend (network or calibrated probs).
 
-The port's copy of ``whisperjav_tpu/modules/segmentation/silero_jax.py``
-without the Silero network: a weights path raises "not ported yet", and
-frame probabilities come from the calibrated energy sigmoid alone, the
-flagless path's source.
-
+The port's copy of ``whisperjav_tpu/modules/segmentation/silero_jax.py``.
 Behavioral counterpart of the reference's Silero backends (reference:
 whisperjav/modules/speech_segmentation/backends/silero.py:53-96,325 and
 backends/silero_v6.py — frame probabilities → dual-threshold hysteresis
@@ -12,8 +8,15 @@ backends/silero_v6.py — frame probabilities → dual-threshold hysteresis
 sample padding 11200 pre / 20800 post @16 kHz with overlap prevention,
 max-speech force-split, gap/duration grouping).
 
-Probability source: a calibrated energy→probability sigmoid, so
-threshold presets (0.41/0.28/0.18) drive identical downstream machinery.
+Probability source is pluggable:
+- with ``weights`` (a ``.npz`` in the JAX package's layout), a network
+  on ``device``: the checkpoint-faithful silero-vad v5/v6 model
+  (``models/vad/silero.py``, detected by its ``stft_basis`` leaf; 32 ms
+  chunk resolution) or the trainable silero-class model
+  (``models/vad/silero_like.py``, 40 ms);
+- otherwise a calibrated energy→probability sigmoid, so threshold presets
+  (0.41/0.28/0.18) drive identical downstream machinery (the flagless
+  path's source).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from whisperjav_tpu_torch.modules.scene_detection.energy import frame_energies_d
 from whisperjav_tpu_torch.modules.segmentation.base import (
     SegmentationResult, SpeechSegment, group_segments, pad_segments,
 )
+from whisperjav_tpu_torch.utils.logger import logger
 
 
 @dataclass
@@ -40,7 +44,7 @@ class SileroJaxConfig:
     pad_end_s: float = 1.3               # ≈20800 samples @16 kHz
     max_group_duration_s: float = 6.0
     max_group_gap_s: float = 2.0
-    weights: Optional[str] = None        # the Silero network: not ported
+    weights: Optional[str] = None        # .npz path for the network
     frame_s: float = 0.04
 
 
@@ -57,15 +61,42 @@ def hysteresis_regions(probs: np.ndarray, frame_s: float, onset: float,
 class SileroJaxSegmenter:
     name = "silero-jax"
 
-    def __init__(self, **kwargs):
+    def __init__(self, device="cuda", **kwargs):
         self.config = SileroJaxConfig(**kwargs)
+        self.device = device
+        self._model = None
+        self._net = None
         if self.config.weights:
-            raise NotImplementedError(
-                "not ported yet: the Silero network (weights=...)")
+            from whisperjav_tpu_torch.models.vad._flat import load_npz
+            from whisperjav_tpu_torch.pipelines.engine import resolve_device
+            self.device = resolve_device(device)
+            tree = load_npz(self.config.weights)
+            if "stft_basis" in tree:
+                # published silero-vad v5/v6 tree (models/vad/silero.py)
+                from whisperjav_tpu_torch.models.vad import silero as model
+                self.config.frame_s = model.FRAME_S       # 32 ms chunks
+            else:
+                from whisperjav_tpu_torch.models.vad import (
+                    silero_like as model,
+                )
+            self._model = model
+            self._net = model.params_from_jax(tree, self.device)
+            logger.info("silero-jax: loaded %s weights from %s",
+                        model.__name__.rsplit(".", 1)[-1],
+                        self.config.weights)
 
     # ------------------------------------------------------------------
     def frame_probs(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
         cfg = self.config
+        if self._net is not None:
+            import torch
+            hop = int(sample_rate * cfg.frame_s)
+            usable = (len(audio) // hop) * hop
+            if usable == 0:
+                return np.zeros((0,), np.float32)
+            x = torch.from_numpy(np.ascontiguousarray(
+                audio[None, :usable], np.float32)).to(self.device)
+            return self._model.probs(self._net, x).cpu().numpy()[0]
         # calibrated energy fallback: sigmoid centered so the preset
         # thresholds land at sensible dB levels (p=0.5 at 38 dB, ~6 dB/σ)
         frame_ms = cfg.frame_s * 1000.0
@@ -111,4 +142,5 @@ class SileroJaxSegmenter:
         return SegmentationResult(
             padded, groups, self.name, duration,
             {"num_segments": len(padded), "num_groups": len(groups),
-             "model": "energy-prob"})
+             "model": ("network" if self._net is not None
+                       else "energy-prob")})

@@ -1,13 +1,16 @@
-"""WhisperSeg segmentation backend: frame probabilities + hysteresis.
+"""WhisperSeg segmentation backend: windowed model probs + hysteresis.
 
-The port's copy of ``whisperjav_tpu/modules/segmentation/whisperseg.py``
-on the path that runs without weights: the calibrated energy
-probability (the silero backend's source) at 20 ms frames, then the
-reference's post-chain (reference: whisperjav/modules/
-speech_segmentation/backends/whisperseg.py:57-130 — dual-threshold
+The port's copy of ``whisperjav_tpu/modules/segmentation/whisperseg.py``.
+Post-chain parity with the reference's WhisperSeg backend (reference:
+whisperjav/modules/speech_segmentation/backends/whisperseg.py:57-130 —
+30 s windows → 1500 frames @20 ms, sigmoid probs → dual-threshold
 hysteresis with release = threshold − 0.15, min-duration filters,
-padding, grouping). The WhisperSeg network (``weights=...``) is not
-ported yet and raises.
+padding, grouping). With ``weights`` (a ``.npz`` in the JAX package's
+layout) the network (``models/vad/whisperseg.py``: Whisper-base encoder
++ 2-layer decoder + (1, d) frame head) scores batches of 30 s windows on
+``device`` (bf16 on the card, f32 on the CPU); without weights the
+calibrated energy probability (the silero backend's source) runs at
+20 ms frames.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from whisperjav_tpu_torch.modules.segmentation.base import (
     SegmentationResult, SpeechSegment, group_segments, pad_segments,
 )
 from whisperjav_tpu_torch.modules.segmentation.silero import hysteresis_regions
+from whisperjav_tpu_torch.ops.mel import N_SAMPLES
+from whisperjav_tpu_torch.utils.logger import logger
 
 
 @dataclass
@@ -43,18 +48,50 @@ class WhisperSegSegmenter:
 
     FRAME_S = 0.02
 
-    def __init__(self, **kwargs):
+    def __init__(self, device="cuda", **kwargs):
         self.config = WhisperSegConfig(**kwargs)
+        self.device = device
+        self._net = None
         if self.config.weights:
-            raise NotImplementedError(
-                "not ported yet: the WhisperSeg network (whisperseg "
-                "weights=...); without weights the energy probability "
-                "runs")
+            import torch
+            from whisperjav_tpu_torch.models.vad import whisperseg
+            from whisperjav_tpu_torch.pipelines.engine import resolve_device
+            self.device = resolve_device(device)
+            # Kernel A takes bf16: on the card the network runs in bf16
+            dtype = (torch.bfloat16 if self.device.type == "cuda"
+                     else torch.float32)
+            self._net = whisperseg.load_params(
+                self.config.weights, dtype=dtype, device=self.device)
+            logger.info("whisperseg: loaded weights from %s",
+                        self.config.weights)
 
     # ------------------------------------------------------------------
     def frame_probs(self, audio: np.ndarray, sample_rate: int) -> np.ndarray:
-        db = frame_energies_db(audio, sample_rate, self.FRAME_S * 1000.0)
-        return (1.0 / (1.0 + np.exp(-(db - 38.0) / 6.0))).astype(np.float32)
+        if self._net is None:
+            db = frame_energies_db(audio, sample_rate, self.FRAME_S * 1000.0)
+            return (1.0 / (1.0 + np.exp(-(db - 38.0) / 6.0))).astype(np.float32)
+
+        import torch
+        from whisperjav_tpu_torch.models.vad import whisperseg
+        n_frames_total = int(len(audio) / sample_rate / self.FRAME_S)
+        # windowed batched inference over 30 s chunks
+        chunks = []
+        for a in range(0, len(audio), N_SAMPLES):
+            clip = audio[a:a + N_SAMPLES]
+            if len(clip) < N_SAMPLES:
+                clip = np.pad(clip, (0, N_SAMPLES - len(clip)))
+            chunks.append(clip)
+        probs = []
+        bs = self.config.batch_size
+        for i in range(0, len(chunks), bs):
+            batch = np.stack(chunks[i:i + bs]).astype(np.float32)
+            if batch.shape[0] < bs:   # one batch shape for every call
+                batch = np.pad(batch, ((0, bs - batch.shape[0]), (0, 0)))
+            p = whisperseg.probs(self._net,
+                                 torch.from_numpy(batch).to(self.device))
+            probs.append(p.cpu().numpy()[:len(chunks[i:i + bs])])
+        flat = np.concatenate(probs, axis=0).reshape(-1)
+        return flat[:n_frames_total]
 
     # ------------------------------------------------------------------
     def segment(self, audio: np.ndarray, sample_rate: int) -> SegmentationResult:
@@ -81,4 +118,5 @@ class WhisperSegSegmenter:
         return SegmentationResult(
             padded, groups, self.name, duration,
             {"num_segments": len(padded), "num_groups": len(groups),
-             "model": "energy-prob"})
+             "model": ("network" if self._net is not None
+                       else "energy-prob")})

@@ -40,14 +40,16 @@ class VadGroupedFramer:
 
     name = "vad-grouped"
 
-    def __init__(self, vad_backend: str = "silero", **vad_kwargs):
+    def __init__(self, vad_backend: str = "silero", device="cuda",
+                 **vad_kwargs):
         self.vad_backend = vad_backend
+        self.device = device            # of a network segmenter
         self.vad_kwargs = vad_kwargs
 
     def frame(self, audio: np.ndarray, sample_rate: int,
               max_group_s: float) -> FramingResult:
         from whisperjav_tpu_torch.modules.segmentation import create_segmenter
-        seg = create_segmenter(self.vad_backend,
+        seg = create_segmenter(self.vad_backend, device=self.device,
                                max_group_duration_s=max_group_s,
                                **self.vad_kwargs).segment(audio, sample_rate)
         frames = [

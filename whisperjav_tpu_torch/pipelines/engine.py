@@ -169,6 +169,14 @@ class TranscriptionEngine:
                 xa = xa[:, :bucket].contiguous()
         return xa
 
+    def decode_batch(self, audio: np.ndarray, temperature: float = 0.0,
+                     seed: int = 0) -> DecodeResult:
+        """audio (B, N_SAMPLES) f32 → host results of one rung: the whole
+        encoder output (no bucket), then :meth:`decode_encoded` (beam
+        search at temperature 0 when the options ask for beams)."""
+        return self.decode_encoded(self.encode_batch(audio), temperature,
+                                   seed)
+
     @torch.inference_mode()
     def decode_encoded(self, xa: torch.Tensor, temperature: float = 0.0,
                        seed: int = 0) -> DecodeResult:

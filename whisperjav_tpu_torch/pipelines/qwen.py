@@ -87,7 +87,7 @@ class QwenPipeline:
         self.scene_max_s = scene_max_s
         self.decoupled = decoupled
         self.scene_detector = create_scene_detector(
-            scene_backend, **(scene_kwargs or {}))
+            scene_backend, device=device, **(scene_kwargs or {}))
         from whisperjav_tpu_torch.modules.enhancement import (
             create_enhancer, is_passthrough_backend,
         )

@@ -30,7 +30,7 @@ def build_qwen_pipeline(cfg, checkpoint: Optional[str] = None,
 
     model_size = (cfg.model if cfg.model.startswith("qwen")
                   else "qwen3-asr-1.7b")
-    framer_kwargs = {"vad_backend": cfg.mode.vad_backend}
+    framer_kwargs = {"vad_backend": cfg.mode.vad_backend, "device": device}
     if cfg.vad_kwargs:
         framer_kwargs.update(cfg.vad_kwargs)
     decoupled = DecoupledSubtitlePipeline(

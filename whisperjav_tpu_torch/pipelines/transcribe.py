@@ -72,12 +72,14 @@ class TranscribePipeline:
         keep_intermediates: bool = False,  # write raw pre-sanitize SRT
     ):
         self.engine = engine
+        # the scene detector, enhancer and segmenter run on the engine's
+        # device
         self.scene_detector = create_scene_detector(scene_backend,
+                                                    device=engine.device,
                                                     **(scene_kwargs or {}))
         self.vad_backend = vad_backend
         self.vad_kwargs = vad_kwargs or {}
         self.language = language
-        # the enhancer runs on the engine's device
         self.enhancer = (None if is_passthrough_backend(enhancer_backend)
                          else create_enhancer(enhancer_backend,
                                               device=engine.device,
@@ -107,7 +109,9 @@ class TranscribePipeline:
         t0 = time.time()
         scene_result = self.scene_detector.detect(audio, sample_rate)
         stage_s = {"scene": time.time() - t0, "enhance": 0.0, "vad": 0.0}
-        segmenter = create_segmenter(self.vad_backend, **self.vad_kwargs)
+        segmenter = create_segmenter(self.vad_backend,
+                                     device=self.engine.device,
+                                     **self.vad_kwargs)
         windows: List[Window] = []
         vad_stats = {"scenes": len(scene_result.scenes), "groups": 0,
                      "failovers": 0}
