@@ -3,7 +3,8 @@
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
                                           # turbo, large-v2, fidelity,
-                                          # qwen, vad, serve (comma list)
+                                          # qwen, vad, serve, enhance
+                                          # (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -77,7 +78,19 @@ Phases, in order; any failure exits non-zero before the result line:
    service (4 concurrent requests, the same 4 serially, a WAV body; the
    serial SRTs must equal the in-process CLI's byte for byte), then
    ``--daemon`` (autostart on the card, /health naming it and the torch
-   backend, both SRTs written) and ``--daemon-stop`` (the port freed).
+   backend, both SRTs written) and ``--daemon-stop`` (the port freed);
+10. the enhance phase: the heavy enhancers at their published widths from
+   seeded weights, BS-RoFormer (viperx, 44.1 kHz stereo), MossFormer2_SE_48K,
+   FRCRN_SE_16K and the legacy band-split (48 kHz, 20 bands, 3 layers),
+   each on one 8 s chunk at its native rate on the GPU and, with the same
+   weights, on the CPU (waveforms within ENH_TOL_REL of the input's
+   largest magnitude; BS-RoFormer's CPU comparison on 2 s), with the
+   chunk's device time, peak memory, FLOP bound and largest kernels; then
+   the flagless turbo CLI on the ~23 s clip with ``--enhancer clearvoice``
+   (MossFormer2), ``--enhancer clearvoice --enhancer-arg
+   model=FRCRN_SE_16K`` and ``--enhancer bs-roformer``, each from an
+   ``.npz`` the port's save_params wrote: every scene must be enhanced, by
+   the expected network, and Kernel A and Kernel B's bf16 form launch.
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -168,6 +181,13 @@ WS_TOL_P = 0.05
 VAD_CLIP_S = 30.0
 # the served clips (distinct seeds), in seconds
 SERVE_CLIPS_S = (20.0, 14.0, 26.0, 9.0)
+# the heavy enhancers: f32 on both sides (no TF32), sums in other orders
+# -> waveforms within 1e-3 of the chunk's largest input magnitude
+ENH_TOL_REL = 1e-3
+# one chunk of the backends, in seconds; BS-RoFormer's CPU comparison
+# takes a shorter one (its full chunk is ~9 TFLOP on the host)
+ENHANCE_CHUNK_S = 8.0
+BSR_COMPARE_S = 2.0
 # what the autostarted daemon's /health must report as its device
 DAEMON_DEVICE = "cuda:NVIDIA"
 # an older version of the kernels, when present, is timed beside these
@@ -1037,9 +1057,10 @@ def check_zipenhancer(dev) -> dict:
             "max_abs_err": err}
 
 
-def speech_like(duration_s: float, seed: int) -> np.ndarray:
+def speech_like(duration_s: float, seed: int, rate: int = SR) -> np.ndarray:
+    """A 180 Hz carrier under a 4 Hz envelope, with noise, at ``rate``."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(duration_s * SR)) / SR
+    t = np.arange(int(duration_s * rate)) / rate
     x = (0.3 * np.sin(2 * np.pi * 180 * t)
          * (1 + 0.5 * np.sin(2 * np.pi * 4 * t)))
     x += 0.05 * rng.standard_normal(t.size)
@@ -2072,6 +2093,258 @@ def run_daemon_route(tmp: Path, clips: list) -> None:
                         f"{port}"], check=False)
 
 
+# ---------------------------------------------------------------------------
+# the enhance phase: the heavy enhancers
+# ---------------------------------------------------------------------------
+
+def _attn_flops(n_seq: int, n: int, dim: int, heads: int, dh: int,
+                hidden: int, gates: bool) -> float:
+    """One pre-norm transformer layer over ``n_seq`` sequences of ``n``:
+    the q/k/v and output projections, the logits and weighted sums, the
+    per-head gates (BS-RoFormer) and the two FFN matrices."""
+    inner = heads * dh
+    rows = n_seq * n
+    ops = 2 * rows * dim * 3 * inner + 2 * rows * inner * dim
+    ops += 2 * 2 * n_seq * heads * n * n * dh
+    ops += 2 * rows * dim * hidden * 2
+    if gates:
+        ops += 2 * rows * dim * heads
+    return ops
+
+
+def _stft_flops(n_fft: int, frames: int, forward: int = 1,
+                inverse: int = 1) -> float:
+    """``forward`` transforms (a strided conv with the (2F, n_fft) basis)
+    and ``inverse`` ones (a matmul with it) over ``frames`` frames."""
+    return 2 * (forward + inverse) * frames * (n_fft + 2) * n_fft
+
+
+def bsr_flops(cfg, frames: int) -> float:
+    """Operations of one BS-RoFormer separation of one chunk: the band
+    split, ``depth`` time and band transformers, the mask heads, the
+    STFT and ISTFT; 2 per multiply-add (norms and activations left
+    out)."""
+    nb, dim = len(cfg.freqs_per_bands), cfg.dim
+    hidden_ff = dim * cfg.ff_mult
+    ops = 2 * frames * sum(cfg.dim_inputs) * dim
+    for _ in range(cfg.depth):
+        ops += cfg.time_transformer_depth * _attn_flops(
+            nb, frames, dim, cfg.heads, cfg.dim_head, hidden_ff, True)
+        ops += cfg.freq_transformer_depth * _attn_flops(
+            frames, nb, dim, cfg.heads, cfg.dim_head, hidden_ff, True)
+    hid = dim * cfg.mlp_expansion_factor
+    for d_in in cfg.dim_inputs:
+        per = dim * hid + hid * hid * (cfg.mask_estimator_depth - 1) \
+            + hid * 2 * d_in
+        ops += cfg.num_stems * 2 * frames * per
+    return float(ops + _stft_flops(cfg.n_fft, frames, cfg.channels,
+                                   cfg.channels * cfg.num_stems))
+
+
+def mf2_flops(cfg, frames: int) -> float:
+    """Operations of one MossFormer2 enhance of one chunk: the fbank (rFFT
+    counted as 5 n log2 n, the mel matrix), the mask net (per block the
+    FLASH projections, group and linear attention, the gated FSMN block;
+    the encoder, gates and decoder), the hamming STFT and inverse."""
+    s, d, h, qk = frames, cfg.d_model, cfg.hidden, cfg.qk_dim
+    inner, g = cfg.fsmn_inner, cfg.group_size
+    groups = -(-s // g)
+    per = 2 * s * d * 2 * h + 2 * s * d * qk + 2 * s * h * d
+    per += 2 * groups * g * g * qk + 2 * 2 * groups * g * g * h
+    per += 2 * 2 * 2 * s * qk * h
+    per += 2 * s * d * inner + 2 * 2 * s * inner * inner
+    per += 2 * 2 * s * inner * inner + 2 * s * inner * (2 * cfg.lorder - 1)
+    per += 2 * s * inner * d + 2 * s * 17 * (2 * h + qk + d + 2 * inner)
+    ops = cfg.num_blocks * per
+    ops += 2 * s * cfg.n_mels * d + 3 * 2 * s * d * d + 2 * s * d * cfg.n_freqs
+    ops += s * (5 * cfg.n_fft * math.log2(cfg.n_fft)
+                + 2 * cfg.n_freqs * cfg.n_mels)
+    return float(ops + _stft_flops(cfg.n_fft, frames))
+
+
+def frcrn_flops(cfg, frames: int) -> float:
+    """Operations of one FRCRN denoise of one chunk: per U-Net the four
+    real convolutions of every complex (transposed) convolution and the
+    four FSMN passes of every complex FSMN, twice (the cascade), and the
+    STFT and ISTFT."""
+    def stage(geom, f_in, t_in, transpose):
+        kh, kw = geom.kernel
+        if transpose:
+            f_out, t_out = 2 * f_in, t_in - 1
+            conv = 2 * geom.c_in * geom.c_out * kh * kw * f_in * t_in
+        else:
+            f_out, t_out = (f_in + 2 * 2 - kh) // 2 + 1, t_in + 1
+            conv = 2 * geom.c_in * geom.c_out * kh * kw * f_out * t_out
+        ops = 4 * conv
+        if geom.fsmn:
+            c = geom.c_out
+            ops += 4 * (2 * 2 * c * c + 2 * c * (2 * cfg.lorder - 1)) \
+                * f_out * t_out
+        return ops, f_out, t_out
+
+    ops, f, t, sizes = 0.0, cfg.n_freqs, frames, []
+    for geom in cfg.encoders:
+        o, f, t = stage(geom, f, t, False)
+        ops += o
+        sizes.append((f, t))
+    for i, geom in enumerate(cfg.decoders):
+        o, f, t = stage(geom, f, t, True)
+        ops += o
+        if i < len(cfg.decoders) - 1:
+            f, t = sizes[len(cfg.decoders) - 2 - i]
+    return float(2 * ops + _stft_flops(cfg.n_fft, frames))
+
+
+def bandsplit_flops(cfg, frames: int) -> float:
+    """Operations of the legacy band-split network on one chunk: the band
+    embeddings and masks, ``n_layers`` time and band blocks, the STFT and
+    ISTFT."""
+    n_freqs = cfg.n_fft // 2 + 1
+    d = cfg.d_model
+    ops = 2 * 2 * frames * 2 * n_freqs * d
+    for _ in range(cfg.n_layers):
+        ops += _attn_flops(cfg.n_bands, frames, d, cfg.n_heads,
+                           d // cfg.n_heads, 4 * d, False)
+        ops += _attn_flops(frames, cfg.n_bands, d, cfg.n_heads,
+                           d // cfg.n_heads, 4 * d, False)
+    return float(ops + _stft_flops(cfg.n_fft, frames))
+
+
+def check_enhancer_network(dev, label: str, cpu_model, run, rate: int,
+                           flop: float, compare_s: float) -> dict:
+    """One network at its published width on one ENHANCE_CHUNK_S chunk of
+    synthetic speech at its native ``rate``: ``run(model, x)`` on the GPU
+    (device time with CUDA events, the median of three; peak memory) and,
+    with the same weights, GPU against CPU on the first ``compare_s``
+    seconds (waveforms within ENH_TOL_REL of the input's largest
+    magnitude); the kernels of one call from the profiler, their sum
+    against the chunk's time (the device's busy share). ``flop``: the
+    operations of one chunk."""
+    import copy
+    n = int(ENHANCE_CHUNK_S * rate)
+    audio = speech_like(ENHANCE_CHUNK_S, 11, rate)[None]
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    xg = torch.from_numpy(audio).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run(gpu_model, xg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if out.shape != xg.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"{label}: bad output on the GPU")
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(gpu_model, xg)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    # where the chunk's device time goes: one call under the profiler
+    per_kernel, _ = kernel_device_ms(lambda: run(gpu_model, xg), reps=1)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
+    log(f"{label}: profiler: {busy:.3f} ms of kernels in the chunk "
+        f"({100 * busy / ms:.1f}% of its {ms:.3f} ms); largest: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+    m = int(compare_s * rate)
+    x = torch.from_numpy(audio[:, :m])
+    t0 = time.perf_counter()
+    want = run(cpu_model, x)
+    cpu_s = time.perf_counter() - t0
+    got = run(gpu_model, x.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    tol = ENH_TOL_REL * x.abs().max().item()
+    params = sum(p.numel() for p in cpu_model.parameters())
+    # the weights read once, the chunk in and out
+    bnd = bound(4 * (2 * n + params), flop, PEAK_F32)
+    short = (" (shorter than the chunk: the CPU pass of a full one is "
+             "slow)" if compare_s < ENHANCE_CHUNK_S else "")
+    log(f"{label}: {params} parameters; one {ENHANCE_CHUNK_S:.0f} s chunk "
+        f"at {rate} Hz: device {ms:.3f} ms (median of "
+        f"{[round(t, 3) for t in times]}), bound {bnd[0]:.3f} ms by "
+        f"{bnd[1]} ({flop / 1e12:.4f} TFLOP at {PEAK_F32 / 1e12:.0f} TFLOP/s "
+        f"f32, {100 * bnd[0] / ms:.1f}% of it), peak memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB) over {base} resident; GPU vs CPU on "
+        f"{compare_s:g} s{short}: max_abs_err {err:.6g} (tol {tol:.6g}), "
+        f"CPU {cpu_s:.3f} s")
+    if err > tol:
+        raise RuntimeError(f"{label} on the GPU disagrees with the CPU")
+    del gpu_model, xg, out
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bnd[0], "peak_bytes": peak,
+            "max_abs_err": err}
+
+
+def run_enhance_phase(dev, tmp: Path) -> dict:
+    """The heavy enhancers at their published widths from seeded weights:
+    BS-RoFormer (viperx), MossFormer2_SE_48K, FRCRN_SE_16K and the legacy
+    band-split at ClearVoice's 48 kHz / 20 bands / 3 layers, each GPU
+    against CPU on one chunk; then the flagless turbo CLI on the ~20 s
+    clip with ``--enhancer clearvoice`` (MossFormer2), ``--enhancer-arg
+    model=FRCRN_SE_16K`` and ``--enhancer bs-roformer``, each from weights
+    written by the port's save_params: every scene enhanced by the
+    expected network, Kernel A and Kernel B's bf16 form launched."""
+    from whisperjav_tpu_torch.models.enhancement import (
+        bandsplit, bs_roformer, frcrn, mossformer2,
+    )
+    nets = [
+        ("bs_roformer", "BS-RoFormer viperx", bs_roformer,
+         bs_roformer.BSRoformerConfig(),
+         lambda m, x: bs_roformer.isolate_vocals(m, x), bsr_flops,
+         BSR_COMPARE_S),
+        ("mossformer2", "MossFormer2_SE_48K", mossformer2,
+         mossformer2.MOSSFORMER2_SE_48K,
+         lambda m, x: mossformer2.enhance(m, x, x.shape[-1]), mf2_flops,
+         ENHANCE_CHUNK_S),
+        ("frcrn", "FRCRN_SE_16K", frcrn, frcrn.FRCRN_SE_16K,
+         lambda m, x: frcrn.denoise(m, x), frcrn_flops, ENHANCE_CHUNK_S),
+        ("bandsplit", "legacy band-split (48 kHz, 20 bands, 3 layers)",
+         bandsplit, bandsplit.BandSplitConfig(
+             sample_rate=48_000, target="noise", n_bands=20, n_layers=3),
+         lambda m, x: bandsplit.apply(m, x, x.shape[-1]), bandsplit_flops,
+         ENHANCE_CHUNK_S)]
+    files = {}
+    for seed, (key, label, module, cfg, run, flops, compare_s) in \
+            enumerate(nets):
+        model = module.init_params(cfg, torch.Generator().manual_seed(seed))
+        rate = getattr(cfg, "sample_rate", frcrn.SAMPLE_RATE)
+        frames = int(ENHANCE_CHUNK_S * rate) // cfg.hop + 1   # centred
+        check_enhancer_network(dev, label, model, run, rate,
+                               flops(cfg, frames), compare_s)
+        if key != "bandsplit":
+            files[key] = tmp / f"{key}.npz"
+            t0 = time.perf_counter()
+            module.save_params(str(files[key]), model)
+            log(f"{label}: wrote {files[key].stat().st_size} bytes with "
+                f"save_params in {time.perf_counter() - t0:.3f} s")
+        del model
+    launches = {}
+    for key, flags in (
+            ("mossformer2", ["--enhancer", "clearvoice"]),
+            ("frcrn", ["--enhancer", "clearvoice", "--enhancer-arg",
+                       "model=FRCRN_SE_16K"]),
+            ("bs_roformer", ["--enhancer", "bs-roformer"])):
+        launches[f"enhance_{key}"], stats = run_cli_path(
+            tmp, f"enhance {key}", FIDELITY_CLIP_S,
+            [*flags, "--enhancer-weights", str(files[key])], TURBO_NEEDS)
+        enh = stats.get("enhancer", {})
+        log(f"enhance {key}: {stats['enhanced_scenes']} of {stats['scenes']} "
+            f"scenes enhanced by {enh}; stage_s.enhance "
+            f"{stats['stage_s']['enhance']} s, e2e_wall_s "
+            f"{stats['e2e_wall_s']} s")
+        if not stats["enhanced_scenes"] == stats["scenes"] > 0:
+            raise RuntimeError(f"enhance {key}: {stats['enhanced_scenes']} "
+                               f"of {stats['scenes']} scenes enhanced")
+        if enh.get("engines") != [key]:
+            raise RuntimeError(f"enhance {key}: the backend reports {enh}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 # the qwen3 generator runs no kernel of the port (the Qwen LM and the
 # aligner are PyTorch matmuls); the anime-whisper generator runs the
 # Whisper engine's unfused bf16 decoder
@@ -2083,7 +2356,7 @@ WHISPERSEG_NEEDS = TURBO_NEEDS
 
 
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
-          "vad", "serve")
+          "vad", "serve", "enhance")
 
 
 @contextlib.contextmanager
@@ -2188,6 +2461,9 @@ def main(argv=None) -> int:
         if "serve" in only:
             with phase("serve"):
                 launches["serve"] = run_serve_phase(dev, Path(tmp))
+        if "enhance" in only:
+            with phase("enhance"):
+                launches.update(run_enhance_phase(dev, Path(tmp)))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

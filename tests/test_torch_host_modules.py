@@ -252,12 +252,18 @@ def test_enhancement_framework_matches():
     from whisperjav_tpu_torch.modules import enhancement as tenh
     for b in ("none", "NULL", "", None, "passthrough", "dsp", "zip"):
         assert tenh.is_passthrough_backend(b) == jenh.is_passthrough_backend(b)
-    for b in ("none", "dsp", "zipenhancer"):
+    for b in ("none", "dsp", "zipenhancer", "bs-roformer", "clearvoice"):
         assert tenh.get_extraction_sample_rate(b) == \
             jenh.get_extraction_sample_rate(b)
-    for b in ("bs-roformer", "clearvoice"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tenh.create_enhancer(b)
+    for b in ("bs-roformer", "vocals", "clearvoice", "mossformer"):
+        got, want = tenh.create_enhancer(b), jenh.create_enhancer(b)
+        assert (got.name, got.is_lightweight,
+                got.get_preferred_sample_rate()) == \
+            (want.name, want.is_lightweight,
+             want.get_preferred_sample_rate())
+    assert (tenh.get_extraction_sample_rate("bs-roformer"),
+            tenh.get_extraction_sample_rate("clearvoice")) == (44_100,
+                                                               48_000)
 
     class Failing:
         name = "failing"

@@ -42,7 +42,14 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.models.vad.whisperseg",
                  "whisperjav_tpu_torch.modules.segmentation.ten",
                  "whisperjav_tpu_torch.modules.segmentation.whisper_vad",
-                 "whisperjav_tpu_torch.modules.scene_detection.silero_scene"):
+                 "whisperjav_tpu_torch.modules.scene_detection.silero_scene",
+                 "whisperjav_tpu_torch.utils.pytree_npz",
+                 "whisperjav_tpu_torch.models.enhancement.bandsplit",
+                 "whisperjav_tpu_torch.models.enhancement.bs_roformer",
+                 "whisperjav_tpu_torch.models.enhancement.frcrn",
+                 "whisperjav_tpu_torch.models.enhancement.mossformer2",
+                 "whisperjav_tpu_torch.modules.enhancement"
+                 ".bandsplit_backends"):
         assert name in mods
 
 
@@ -236,6 +243,67 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in _Blocked.NAMES)
 print("LOADED:" + ",".join(bad))
 """
+
+
+_CLEARVOICE_RUN = """
+import sys, tempfile
+from pathlib import Path
+
+
+class _Blocked:
+    NAMES = ("jax", "jaxlib", "whisperjav_tpu")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import json
+import numpy as np
+import torch
+from whisperjav_tpu_torch import cli
+from whisperjav_tpu_torch.models.enhancement import mossformer2
+from whisperjav_tpu_torch.modules.audio_io import write_wav
+
+torch.set_num_threads(1)
+sr, rng = 16000, np.random.default_rng(0)
+t = np.arange(5 * sr) / sr
+burst = (0.3 * np.sin(2 * np.pi * 180 * t)
+         + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+gap = np.zeros(sr, np.float32)
+with tempfile.TemporaryDirectory() as tmp:
+    wav = Path(tmp) / "clip.wav"
+    write_wav(wav, np.concatenate([gap, burst, gap]), sr)
+    weights = str(Path(tmp) / "mf2.npz")
+    mossformer2.save_params(weights, mossformer2.init_params(
+        mossformer2.MF2_TEST, torch.Generator().manual_seed(0)))
+    out = Path(tmp) / "out"
+    assert cli.main([str(wav), "--output-dir", str(out), "--device", "cpu",
+                     "--model", "tiny", "--batch-size", "1",
+                     "--logprob-threshold", "-100", "--enhancer",
+                     "clearvoice", "--enhancer-weights", weights]) == 0
+    stats = json.loads((out / "clip.whisperjav.json").read_text())["stats"]
+    assert stats["enhanced_scenes"] == stats["scenes"] >= 1
+    assert stats["enhancer"]["engines"] == ["mossformer2"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in _Blocked.NAMES)
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_clearvoice_cli_runs_without_jax():
+    """``--enhancer clearvoice`` (MossFormer2 from a seeded ``.npz``)
+    runs on the CPU with jax and the JAX package blocked from import, and
+    enhances every scene."""
+    proc = subprocess.run([sys.executable, "-c", _CLEARVOICE_RUN],
+                          cwd=str(PKG_DIR.parent), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    loaded = [line for line in proc.stdout.splitlines()
+              if line.startswith("LOADED:")]
+    assert loaded == ["LOADED:"], f"blocked modules loaded: {loaded}"
 
 
 def test_qwen_cli_runs_without_jax_sklearn_transformers():

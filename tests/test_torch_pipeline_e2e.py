@@ -148,18 +148,13 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--enhancer", "bs-roformer"],
-    ["--mode", "qwen", "--qwen-enhancer", "bs-roformer"],
-    ["--enhancer", "clearvoice"],
-    ["--mode", "qwen", "--qwen-enhancer", "clearvoice"],
-    ["--mode", "fidelity", "--enhancer", "vocals"],
     ["--ensemble"], ["--daemon", "--devices", "2"], ["--check"],
     ["--multihost"],
     ["--async-processing"], ["--translate", "ollama"],
     ["--daemon", "--ensemble"], ["--check-verbose"],
     ["--mode", "transformers", "--devices", "8"],
     ["--devices", "4"],
-    ["--trace-params", "trace.jsonl"], ["--enhancer", "mossformer"],
+    ["--trace-params", "trace.jsonl"],
     ["--mode", "qwen", "--ensemble"],
     ["--mode", "qwen", "--multihost"],
     ["--mode", "qwen", "--translate", "ollama"],
@@ -167,6 +162,56 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
     assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+# the qwen-mode CPU run: the test-width Qwen3-ASR
+_QWEN_CPU_RUN = ["--device", "cpu", "--qwen-model-id", "qwen3-asr-test",
+                 "--qwen-batch-size", "2"]
+
+
+@pytest.mark.parametrize("flags,backend,engines", [
+    (["--enhancer", "bs-roformer", "--enhancer-weights", "{bsr}",
+      "--enhancer-arg", "chunk_s=1", "--enhancer-arg", "crossfade_s=0.1"],
+     "bs-roformer", ["bs_roformer"]),
+    (["--mode", "qwen", "--qwen-enhancer", "bs-roformer"], "bs-roformer",
+     []),
+    (["--enhancer", "clearvoice", "--enhancer-weights", "{mf2}"],
+     "clearvoice", ["mossformer2"]),
+    # --qwen-enhancer-model does not reach the enhancer (as in the JAX
+    # CLI): the backend passes audio through
+    (["--mode", "qwen", "--qwen-enhancer", "clearvoice",
+      "--qwen-enhancer-model", "{mf2}"], "clearvoice", []),
+    (["--mode", "fidelity", "--enhancer", "vocals"], "bs-roformer", []),
+    (["--enhancer", "mossformer", "--enhancer-weights", "{frcrn}",
+      "--enhancer-arg", "model=FRCRN_SE_16K"], "clearvoice", ["frcrn"]),
+])
+def test_cli_runs_the_heavy_enhancers(tmp_path, flags, backend, engines):
+    """The heavy enhancers and their aliases through the CLI on the CPU
+    (test widths, seeded weights written by the port): exit 0, and the
+    metadata names the backend and the network that enhanced each scene
+    (none without weights)."""
+    from whisperjav_tpu_torch.models.enhancement import (
+        bs_roformer, frcrn, mossformer2,
+    )
+    gen = torch.Generator().manual_seed(0)
+    files = {"bsr": (bs_roformer, bs_roformer.BSR_TEST),
+             "mf2": (mossformer2, mossformer2.MF2_TEST),
+             "frcrn": (frcrn, frcrn.FRCRN_TEST)}
+    for key, (module, cfg) in files.items():
+        if any(f"{{{key}}}" in f for f in flags):
+            path = str(tmp_path / f"{key}.npz")
+            module.save_params(path, module.init_params(cfg, gen))
+            flags = [f.replace(f"{{{key}}}", path) for f in flags]
+    qwen = "qwen" in flags
+    wav = _short_wav(tmp_path)
+    assert cli.main([str(wav), "--output-dir", str(tmp_path / "out"),
+                     *(_QWEN_CPU_RUN if qwen else _CPU_RUN), *flags]) == 0
+    stats = json.loads((tmp_path / "out" / "short.whisperjav.json")
+                       .read_text())["stats"]
+    assert stats["enhancer"] == {"backend": backend, "engines": engines}
+    assert stats["enhanced_scenes"] == (stats["scenes"] if engines else 0)
+    if engines:
+        assert stats["scenes"] >= 1
 
 
 def _short_wav(tmp_path):

@@ -172,6 +172,27 @@ def test_state_dict_names_are_the_canonical_torch_names():
         _same_spectra(got, want)
 
 
+def test_onnx_file_written_by_jax_loads_in_the_port(tmp_path):
+    """An ONNX file of the vendor names under the ``generator.`` prefix,
+    written by the JAX package's ``write_onnx``: the port's
+    params_from_onnx reads the same tensors the JAX one does."""
+    from whisperjav_tpu.utils.onnx_io import OnnxGraph, write_onnx
+    _, _, model = _pair("test", 12)
+    sd = {f"generator.{k}": v.numpy() for k, v in model.state_dict().items()}
+    path = str(tmp_path / "zip.onnx")
+    write_onnx(path, OnnxGraph(initializers=sd))
+    got = tzz.params_from_onnx(path, tzz.ZIP_TEST)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(got.state_dict()[k], v, rtol=0, atol=0)
+    params = jzz.params_from_onnx(path, jzz.ZIP_TEST)
+    mag, pha = _spectra(9, 13)
+    want = [np.asarray(a) for a in jzz.forward(params, jzz.ZIP_TEST,
+                                               jnp.asarray(mag),
+                                               jnp.asarray(pha))]
+    _same_spectra([a.numpy() for a in tzz.forward(
+        got, torch.from_numpy(mag), torch.from_numpy(pha))], want)
+
+
 def test_init_draws_the_jax_distribution():
     """He-normal convolutions and FFN matrices, N(0, 1/d) attention, the
     constant leaves as in the JAX init."""

@@ -14,11 +14,14 @@ turns it on and ``float*`` off, as in the JAX CLI. ``--mode fidelity``
 (overlapped 30 s / 5 s chunks; the ``--hf-*`` flags as the JAX CLI maps
 them) and ``--mode anime`` run as in the JAX CLI, with
 ``--word-timestamps``, ``--vocab-slice``, ``--enhancer`` (zipenhancer,
-dsp, none), ``--enhancer-arg`` and ``--enhance-for-vad``. ``--mode
-qwen`` runs the decoupled subtitle pipeline (semantic scenes, the
-whisperseg VAD-grouped framer, the Qwen3-ASR generator on an int8 LM,
-the forced aligner) with the JAX CLI's framer, generator, cleaner,
-aligner, step-down, hardening, context and ``--qwen-*`` flags.
+dsp, bs-roformer, clearvoice: MossFormer2_SE_48K, or FRCRN_SE_16K with
+``--enhancer-arg model=FRCRN_SE_16K``; none), ``--enhancer-arg`` and
+``--enhance-for-vad``. ``--mode qwen`` runs the decoupled subtitle
+pipeline (semantic scenes, the whisperseg VAD-grouped framer, the
+Qwen3-ASR generator on an int8 LM, the forced aligner) with the JAX
+CLI's framer, generator, cleaner, aligner, step-down, hardening, context
+and ``--qwen-*`` flags; as in the JAX CLI, ``--qwen-enhancer-model``
+does not reach the qwen-mode enhancer, which then passes audio through.
 
 The VAD networks run on the device with ``--vad-arg weights=<.npz>``
 (silero, whisperseg, ten) and ``--vad-backend whisper-vad``; ``--daemon``
@@ -26,13 +29,14 @@ routes the files through a resident ``whisperjav-torch-serve`` engine
 (autostarted on ``--device``), and ``--daemon-stop`` stops it.
 
 What the port does not cover yet makes it exit with "not ported yet"
-before any work: the band-split enhancers, ``--devices`` above 1, and
-the flags listed in ``_UNPORTED``.
+before any work: ``--devices`` above 1 and the flags listed in
+``_UNPORTED``.
 
     whisperjav-torch clip.wav --output-dir out/
     whisperjav-torch clip.wav --model large-v2 --int8-weights
     whisperjav-torch clip.wav --mode fidelity --enhancer-weights zip.npz \
         --word-timestamps
+    whisperjav-torch clip.wav --enhancer clearvoice --enhancer-weights mf2.npz
     whisperjav-torch clip.wav --mode qwen
     whisperjav-torch a.wav b.wav --daemon --daemon-port 8479
     whisperjav-torch --daemon-stop --daemon-port 8479
@@ -55,9 +59,6 @@ from whisperjav_tpu_torch.cli_args import (
 
 PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
                 "anime", "qwen")
-# the band-split enhancement backends (and their aliases)
-_UNPORTED_ENHANCERS = ("bs-roformer", "bsroformer", "vocals", "clearvoice",
-                       "mossformer")
 # argparse dest -> the flag a user typed, for flags outside the port
 _UNPORTED = {
     "ensemble": "--ensemble", "multihost": "--multihost",
@@ -74,10 +75,6 @@ def _unported(args) -> List[str]:
         out.append(f"--mode {args.mode}")
     if args.devices is not None and args.devices > 1:
         out.append(f"--devices {args.devices}")
-    for flag, enh in (("--enhancer", args.enhancer),
-                      ("--qwen-enhancer", args.qwen_enhancer)):
-        if enh and enh.lower() in _UNPORTED_ENHANCERS:
-            out.append(f"{flag} {enh}")
     return out
 
 

@@ -495,6 +495,16 @@ def params_from_vendor(sd: Mapping[str, Any], cfg: ZipConfig = ZIP_BASE,
     return _module(sd, cfg, device)
 
 
+def params_from_onnx(src, cfg: ZipConfig = ZIP_BASE,
+                     device="cpu") -> ZipEnhancerNet:
+    """An ONNX export (the published ``ZipEnhancer-se-16k-base-onnx``
+    file): torch.onnx.export keeps the state-dict names as initializer
+    names, so the file's initializers are the vendor state dict."""
+    from whisperjav_tpu_torch.utils.onnx_io import read_initializers
+
+    return params_from_vendor(read_initializers(src), cfg, device)
+
+
 # ---------------------------------------------------------------------------
 # npz round trip (the JAX package's layout)
 # ---------------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """Speech enhancement framework: protocol, negotiation, graceful failure.
 
 The port's copy of ``whisperjav_tpu/modules/enhancement/base.py``. The
-ZipEnhancer backend runs on a torch device (``device`` in
-:func:`create_enhancer`); the band-split backends (``bs-roformer``,
-``clearvoice``) raise "not ported yet".
+network backends (the ZipEnhancer, ``bs-roformer`` and ``clearvoice``)
+run on a torch device (``device`` in :func:`create_enhancer`).
 
 Contract parity with the reference's enhancement framework (reference:
 whisperjav/modules/speech_enhancement/base.py:117-380 — sample-rate
@@ -65,7 +64,7 @@ def is_passthrough_backend(backend: Optional[str]) -> bool:
 
 def create_enhancer(backend: Optional[str] = "none", device="cpu",
                     **kwargs) -> SpeechEnhancer:
-    """The enhancer for ``backend``; the ZipEnhancer runs on ``device``."""
+    """The enhancer for ``backend``; the networks run on ``device``."""
     b = (backend or "none").lower()
     if is_passthrough_backend(b):
         return PassthroughEnhancer()
@@ -79,8 +78,12 @@ def create_enhancer(backend: Optional[str] = "none", device="cpu",
         return ZipEnhancer(device=device, **kwargs)
     if b in ("bs-roformer", "bsroformer", "vocals", "clearvoice",
              "mossformer"):
-        raise NotImplementedError(
-            f"enhancer backend {backend!r} is not ported yet")
+        from whisperjav_tpu_torch.modules.enhancement import (
+            bandsplit_backends as heavy,
+        )
+        cls = (heavy.ClearVoiceBackend if b in ("clearvoice", "mossformer")
+               else heavy.BsRoformerBackend)
+        return cls(device=device, **kwargs)
     logger.warning("unknown enhancer backend %r; using passthrough", backend)
     return PassthroughEnhancer()
 
@@ -88,7 +91,8 @@ def create_enhancer(backend: Optional[str] = "none", device="cpu",
 def get_extraction_sample_rate(backend: Optional[str]) -> int:
     """Negotiate the extraction rate with the configured enhancer
     (reference: balanced_pipeline.py:172-175 extracts 48 kHz for real
-    enhancers). Every ported backend is 16 kHz-native."""
+    enhancers): 44.1 kHz for bs-roformer, 48 kHz for clearvoice, 16 kHz
+    for the others."""
     if is_passthrough_backend(backend):
         return 16_000
     return create_enhancer(backend).get_preferred_sample_rate()

@@ -91,6 +91,9 @@ class QwenPipeline:
         from whisperjav_tpu_torch.modules.enhancement import (
             create_enhancer, is_passthrough_backend,
         )
+        # no enhancer kwargs, as in the JAX package: --qwen-enhancer-model
+        # never reaches the backend, so a network enhancer passes audio
+        # through (a fault of the reference, kept; ROADMAP section 3)
         self.enhancer = (None if is_passthrough_backend(enhancer_backend)
                          else create_enhancer(enhancer_backend,
                                               device=device))
@@ -120,6 +123,7 @@ class QwenPipeline:
         # phase 3: enhancement (graceful)
         t_ph = time.time()
         scene_audios = []
+        enhanced, engines = 0, set()
         for sc in scenes:
             a = int(sc.start * WHISPER_SAMPLE_RATE)
             b = int(sc.end * WHISPER_SAMPLE_RATE)
@@ -130,6 +134,8 @@ class QwenPipeline:
                                      WHISPER_SAMPLE_RATE)[0]
                 if res.success:
                     clip = res.audio
+                    enhanced += 1
+                    engines.add(res.stats.get("engine", res.backend))
             scene_audios.append(clip)
         stage_s["enhance"] = round(time.time() - t_ph, 3)
 
@@ -171,6 +177,10 @@ class QwenPipeline:
             "windows": sum(d.get("frames", 0) for d in diagnostics),
             "audio_s": round(duration, 3),
             "scenes": len(scenes),
+            **({"enhanced_scenes": enhanced,
+                "enhancer": {"backend": self.enhancer.name,
+                             "engines": sorted(engines)}}
+               if self.enhancer is not None else {}),
             "analytics": analytics,
             "scene_diagnostics": diagnostics,
         }

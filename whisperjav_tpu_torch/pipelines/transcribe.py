@@ -116,6 +116,7 @@ class TranscribePipeline:
         vad_stats = {"scenes": len(scene_result.scenes), "groups": 0,
                      "failovers": 0}
         enhanced_ok = 0
+        engines = set()
         for scene in scene_result.scenes:
             a = int(scene.start * sample_rate)
             b = int(scene.end * sample_rate)
@@ -126,6 +127,8 @@ class TranscribePipeline:
                 res = enhance_scenes(self.enhancer, [scene_audio],
                                      sample_rate)[0]
                 stage_s["enhance"] += time.time() - t0
+                if res.success:
+                    engines.add(res.stats.get("engine", res.backend))
                 if res.success and self.enhance_for_vad:
                     # dual track: the enhanced audio drives segmentation
                     # only; the engine decodes the original samples
@@ -160,6 +163,10 @@ class TranscribePipeline:
                  "groups_packed": raw_windows,
                  "windows": len(windows),
                  "stage_s": {k: round(v, 3) for k, v in stage_s.items()}}
+        if self.enhancer is not None:
+            # which backend ran, and the networks that enhanced a scene
+            stats["enhancer"] = {"backend": self.enhancer.name,
+                                 "engines": sorted(engines)}
         return windows, stats
 
     # ------------------------------------------------------------------
