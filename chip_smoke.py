@@ -3,8 +3,8 @@
     python3 chip_smoke.py                 # every phase, as below
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
                                           # turbo, large-v2, fidelity,
-                                          # qwen, vad, serve, enhance
-                                          # (comma list)
+                                          # qwen, vad, serve, enhance,
+                                          # train, multihost (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -90,7 +90,27 @@ Phases, in order; any failure exits non-zero before the result line:
    (MossFormer2), ``--enhancer clearvoice --enhancer-arg
    model=FRCRN_SE_16K`` and ``--enhancer bs-roformer``, each from an
    ``.npz`` the port's save_params wrote: every scene must be enhanced, by
-   the expected network, and Kernel A and Kernel B's bf16 form launch.
+   the expected network, and Kernel A and Kernel B's bf16 form launch;
+11. the train phase: two f32 train steps (``parallel/train.py``) from one
+   seeded tree at a test width on the GPU and on the CPU (losses,
+   gradients and updated parameters within the TRAIN_TOL_* tolerances);
+   then ``whisperjav-torch-finetune`` in-process on turbo at full width
+   and depth from the seeded f32 init (B = TRAIN_BATCH, 448 tokens, a
+   few steps on one repeated batch of synthetic pairs, the last under
+   the profiler): step walls, samples and target tokens a second, peak
+   memory, the step's FLOP count and bound, the device's busy share and
+   largest kernels, a finite and falling loss; two steps each at the
+   batch sizes of TRAIN_SCAN (wall, peak memory); the last checkpoint read
+   back with the port's ``load_checkpoint`` into a TranscriptionEngine
+   (bf16) that transcribes one clip, where Kernel A (32 launches an
+   encoder batch) and Kernel B's bf16 form must launch;
+12. the multihost phase: two ``whisperjav-torch --multihost --coordinator
+   127.0.0.1:<free port> --num-hosts 2 --host-id {0,1} --skip-existing``
+   processes (turbo, flagless, on the one card) over 4 clips of different
+   lengths write disjoint SRTs covering all 4 (each process's wall and
+   peak memory printed); a re-run of both writes nothing; a process
+   whose partner never comes exits non-zero within its rendezvous
+   timeout, having written nothing.
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -1332,7 +1352,6 @@ def profile_decode(engine, xa, label: str, tokens: int = 16) -> None:
     """A short decode under torch.profiler: the device's busy share of the
     wall and the kernels that took the most device time."""
     import dataclasses
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     opts = engine.options
     engine.options = dataclasses.replace(opts, max_new_tokens=tokens)
@@ -1344,6 +1363,13 @@ def profile_decode(engine, xa, label: str, tokens: int = 16) -> None:
             _, wall = _timed(lambda: engine.decode_encoded(xa, 0.0, 0))
     finally:
         engine.options = opts
+    log_profile(prof, wall, label)
+
+
+def log_profile(prof, wall: float, label: str) -> None:
+    """The device's busy share of ``wall`` and the kernels that took the
+    most device time, from a finished ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2348,6 +2374,422 @@ def run_enhance_phase(dev, tmp: Path) -> dict:
 # the qwen3 generator runs no kernel of the port (the Qwen LM and the
 # aligner are PyTorch matmuls); the anime-whisper generator runs the
 # Whisper engine's unfused bf16 decoder
+# ---------------------------------------------------------------------------
+# the train phase: the fine-tuning path
+# ---------------------------------------------------------------------------
+
+# GPU f32 (no TF32) against CPU f32 train steps at a test width: the
+# loss within 1e-5 relative, each gradient leaf within 1e-4 of its
+# largest |g|; the updated parameters within 0.05 lr per step where the
+# first step's |g| is above 1e-6, everywhere within the 2 lr a step that
+# Adam's sign of a gradient at rounding level can part them, and on
+# average within 1e-3 lr per leaf
+TRAIN_TOL_LOSS = 1e-5
+TRAIN_TOL_GRAD = 1e-4
+TRAIN_TOL_LR_STEP = 0.05
+TRAIN_CONDITIONED_G = 1e-6
+TRAIN_PARITY_LR = 1e-3
+# the full-width run: turbo, B = 4 (49.5 GiB peak on an H100, PERF.md
+# §5; about 9.5 GiB a sample, so 8 would not fit), 448 tokens, a few
+# steps on one repeated batch, the last under the profiler
+TRAIN_BATCH = 4
+TRAIN_STEPS = 7
+# the batch sizes measured beside it (two steps each)
+TRAIN_SCAN = (2, 6)
+TRAIN_MAX_TOKENS = 448
+TRAIN_CUES_PER_WINDOW = 12
+TRAIN_CLIP_S = 20.0
+
+
+def _flat_params(model) -> dict:
+    return {n: p.detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def check_train_parity(dev) -> None:
+    """Two f32 train steps from one seeded tree at a test width (128
+    mels, d = 256, 4 heads x 64, 2 + 2 layers, the real vocab) on the GPU
+    and on the CPU, one batch whose rows hold 7 and 3 targets: losses,
+    the first step's gradients and the updated parameters must agree."""
+    from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+    from whisperjav_tpu_torch.models.whisper.weights import init_params
+    from whisperjav_tpu_torch.parallel import train as tt
+    cfg = WhisperConfig(name="train-test", n_mels=128, n_audio_state=256,
+                        n_audio_head=4, n_audio_layer=2, n_text_state=256,
+                        n_text_head=4, n_text_layer=2, n_vocab=51866)
+    tree = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal((2, 128, 3000)).astype(np.float32)
+    tokens = rng.integers(0, cfg.n_vocab, (2, 24)).astype(np.int32)
+    mask = np.zeros((2, 24), np.float32)
+    mask[0, 3:10] = 1.0
+    mask[1, 3:6] = 1.0
+    runs = {}
+    for where in ("cpu", dev):
+        mesh = tt.make_train_mesh(device=where)
+        init_fn, step_fn = tt.build_sharded_train_step(
+            cfg, mesh, tt.make_optimizer(TRAIN_PARITY_LR, 0.01))
+        state = init_fn(tree)
+        losses, grads = [], None
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, loss = step_fn(state, mel, tokens, mask)
+            losses.append(loss)
+            if grads is None:
+                grads = {n: p.grad.cpu().numpy()
+                         for n, p in state.params.named_parameters()}
+        runs[str(where)] = (losses, grads, _flat_params(state.params),
+                            time.perf_counter() - t0)
+    (lc, gc, pc, sc), (lg, gg, pg, sg) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    grad_err = max(np.abs(gg[n] - gc[n]).max() / np.abs(gc[n]).max()
+                   for n in gc)
+    lr = TRAIN_PARITY_LR
+    worst_cond = worst_any = worst_mean = 0.0
+    for n in pc:
+        err = np.abs(pg[n] - pc[n]) / lr
+        cond = np.abs(gc[n]) > TRAIN_CONDITIONED_G
+        worst_cond = max(worst_cond, float(err[cond].max(initial=0.0)))
+        worst_any = max(worst_any, float(err.max()))
+        worst_mean = max(worst_mean, float(err.mean()))
+    log(f"train parity (d=256, 2+2 layers, B=2, 2 steps, lr {lr}): losses "
+        f"GPU {lg} CPU {lc}, loss rel err {loss_err:.3e} (tol "
+        f"{TRAIN_TOL_LOSS}); worst gradient leaf {grad_err:.3e} of its "
+        f"max |g| (tol {TRAIN_TOL_GRAD}); parameters {worst_cond:.3e} lr "
+        f"where |g| > {TRAIN_CONDITIONED_G} (tol {2 * TRAIN_TOL_LR_STEP}), "
+        f"{worst_any:.3e} lr anywhere (tol 4.2), mean {worst_mean:.3e} lr "
+        f"(tol 1e-3); walls GPU {sg:.3f} s CPU {sc:.3f} s")
+    if not (loss_err <= TRAIN_TOL_LOSS and grad_err <= TRAIN_TOL_GRAD
+            and worst_cond <= 2 * TRAIN_TOL_LR_STEP and worst_any <= 4.2
+            and worst_mean <= 1e-3 and lg[1] < lg[0]):
+        raise RuntimeError("train parity: the GPU step disagrees with the "
+                           "CPU step")
+
+
+def train_step_flops(cfg, seq: int) -> float:
+    """Products of one sample's forward through ``forward`` at ``seq``
+    decoder tokens, times 3 for forward plus backward (two products of
+    the backward for each of the forward)."""
+    d, t, n_mels = cfg.n_audio_state, cfg.n_audio_ctx, cfg.n_mels
+    conv = 2 * n_mels * 3 * d * 2 * t + 2 * d * 3 * d * t
+    enc = cfg.n_audio_layer * (24 * t * d * d + 4 * t * t * d)
+    s = seq
+    dec = cfg.n_text_layer * (28 * s * d * d + 4 * s * s * d
+                              + 4 * t * d * d + 4 * s * t * d)
+    head = 2 * s * d * cfg.n_vocab
+    return 3.0 * (conv + enc + dec + head)
+
+
+def write_train_pairs(data: Path, n_clips: int) -> None:
+    """``n_clips`` 60 s WAVs of speech-like bursts, each with an SRT of
+    TRAIN_CUES_PER_WINDOW cues of 18-30 characters in each 30 s window."""
+    from whisperjav_tpu_torch.modules.srt import Subtitle, save_srt
+    data.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(7)
+    kana = [chr(c) for c in range(0x3042, 0x3094)]
+    for i in range(n_clips):
+        synthetic_clip_seeded(data / f"pair{i}.wav", 60.0, 20 + i)
+        subs, start = [], 0.3
+        for w in range(2):
+            span = 30.0 / TRAIN_CUES_PER_WINDOW
+            for c in range(TRAIN_CUES_PER_WINDOW):
+                t0 = 30.0 * w + c * span + 0.1
+                text = "".join(rng.choice(kana, int(rng.integers(18, 31))))
+                subs.append(Subtitle(len(subs) + 1, t0, t0 + span - 0.3,
+                                     text))
+        save_srt(data / f"pair{i}.srt", subs)
+
+
+def train_batch_scan(dev, data: Path, cfg) -> None:
+    """The batch sizes of TRAIN_SCAN around TRAIN_BATCH: a fresh seeded
+    turbo, two train steps on the pairs of ``data`` (the batch padded by
+    repeats), the second step's wall and the peak device memory."""
+    from whisperjav_tpu_torch import finetune
+    from whisperjav_tpu_torch.models.whisper.tokenizer import (
+        WhisperTokenizer,
+    )
+    from whisperjav_tpu_torch.models.whisper.weights import init_params
+    from whisperjav_tpu_torch.parallel import train as tt
+    tok = WhisperTokenizer(cfg)
+    examples = [ex for wav, srt in finetune.discover_pairs(data)
+                for ex in finetune.build_examples(wav, srt, tok, cfg,
+                                                  TRAIN_MAX_TOKENS)]
+    mesh = tt.make_train_mesh(device=dev)
+    for batch in TRAIN_SCAN:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mel, tokens, mask = next(finetune.batch_examples(
+            examples[:batch], batch, cfg.n_mels, dev))
+        init_fn, step_fn = tt.build_sharded_train_step(
+            cfg, mesh, tt.make_optimizer())
+        state = init_fn(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev))
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, mel, tokens, mask)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        log(f"train batch scan B={batch}: second step {walls[1]:.4f} s, "
+            f"{batch / walls[1]:.3f} samples/s, peak device memory {peak} "
+            f"bytes ({peak / 2**30:.3f} GiB)")
+    torch.cuda.empty_cache()
+
+
+def run_finetune(dev, tmp: Path) -> dict:
+    """``whisperjav-torch-finetune`` in-process on turbo at full width and
+    depth from the seeded f32 init: B = TRAIN_BATCH, 448 tokens,
+    TRAIN_STEPS steps on one repeated batch (each step timed to a sync);
+    then the last checkpoint through the port's load_checkpoint into a
+    TranscriptionEngine (bf16) that transcribes one clip, where Kernel A
+    and Kernel B's bf16 form must launch. Returns that run's launches."""
+    from whisperjav_tpu_torch import finetune
+    from whisperjav_tpu_torch.models.whisper.config import WHISPER_SIZES
+    from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
+    from whisperjav_tpu_torch.parallel import train as tt
+    from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
+    from whisperjav_tpu_torch.pipelines.transcribe import TranscribePipeline
+    from whisperjav_tpu_torch.utils.checkpoint import (
+        checkpoint_metadata, load_checkpoint,
+    )
+    data, out = tmp / "ft-data", tmp / "ft-out"
+    write_train_pairs(data, TRAIN_BATCH // 2)
+    steps = []
+    build = tt.build_sharded_train_step
+
+    def timed_build(*a, **k):
+        init_fn, run_step = build(*a, **k)
+
+        def run(state, mel, tokens, mask):
+            from torch.profiler import ProfilerActivity, profile
+            last = len(steps) == TRAIN_STEPS - 1
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) \
+                if last else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            with prof:
+                t0 = time.perf_counter()
+                state, loss = run_step(state, mel, tokens, mask)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            steps.append((wall, loss, float(np.sum(mask[:, 1:]))))
+            if last:
+                log_profile(prof, wall, f"train step B={TRAIN_BATCH} "
+                            "(the last, under the profiler)")
+            return state, loss
+        return init_fn, run
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tt.build_sharded_train_step = timed_build
+    t0 = time.perf_counter()
+    try:
+        rc = finetune.main(["--data", str(data), "--model", "turbo",
+                            "--batch-size", str(TRAIN_BATCH),
+                            "--max-tokens", str(TRAIN_MAX_TOKENS),
+                            "--steps", str(TRAIN_STEPS), "--save-every",
+                            "0", "--output-dir", str(out)])
+    finally:
+        tt.build_sharded_train_step = build
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"whisperjav-torch-finetune exited {rc}")
+    cfg = WHISPER_SIZES["turbo"]
+    walls = [s[0] for s in steps]
+    losses = [s[1] for s in steps]
+    step_s = statistics.median(walls[1:-1])
+    targets = statistics.mean(s[2] for s in steps)
+    flop = TRAIN_BATCH * train_step_flops(cfg, TRAIN_MAX_TOKENS - 1)
+    bound_s = flop / PEAK_F32
+    log(f"finetune turbo (128 mels, d=1280, 20x64, 32+4 layers, vocab "
+        f"51866, f32, no TF32): B={TRAIN_BATCH}, {TRAIN_MAX_TOKENS} tokens, "
+        f"{len(steps)} steps in {wall:.3f} s of main (load, data, steps, "
+        f"checkpoint); step walls {[round(w, 4) for w in walls]} s, median "
+        f"of those between the first and the profiled last {step_s:.4f} s; {TRAIN_BATCH / step_s:.3f} "
+        f"samples/s, {targets / step_s:.1f} target tokens/s ({targets:.0f} "
+        f"a step); losses {losses}; peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB); {flop / 1e12:.3f} TFLOP a step, bound "
+        f"{bound_s:.4f} s at {PEAK_F32 / 1e12:.0f} TFLOP/s f32 "
+        f"({bound_s / step_s:.1%} of it)")
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"finetune: losses {losses} over {len(steps)} "
+                           "steps: not finite and falling")
+    train_batch_scan(dev, data, cfg)
+    ckpt = out / f"step_{TRAIN_STEPS:06d}"
+    meta = checkpoint_metadata(ckpt)
+    if meta.get("step") != TRAIN_STEPS or meta.get("backend") != "npz":
+        raise RuntimeError(f"finetune: checkpoint metadata {meta}")
+    # the fine-tuned weights transcribe a clip: the engine casts to bf16
+    # and takes ownership of the (freshly built) model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = params_from_jax(load_checkpoint(ckpt), cfg)
+    load_s = time.perf_counter() - t0
+    engine = TranscriptionEngine(cfg, model, batch_size=32, device=dev)
+    wav = tmp / "ft-clip.wav"
+    duration = synthetic_clip_seeded(wav, TRAIN_CLIP_S, 5)
+    from whisperjav_tpu_torch.modules.audio_extraction import AudioExtractor
+    audio, _ = AudioExtractor(SR).extract(wav)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    subs, stats = TranscribePipeline(engine).process_audio(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    a = launches["encoder_attention"]
+    log(f"finetuned turbo transcribes {duration:.3f} s: wall {wall:.3f} s "
+        f"(checkpoint read and built in {load_s:.3f} s), windows "
+        f"{stats.get('windows')}, raw subtitles {len(subs)}; launches "
+        f"{json.dumps(launches)}")
+    if a < 32 or a % cfg.n_audio_layer \
+            or launches["decode_cross_attention_bf16"] < 1:
+        raise RuntimeError(f"finetuned transcription: Kernel A {a} launches "
+                           f"(32 an encoder batch), Kernel B bf16 "
+                           f"{launches['decode_cross_attention_bf16']}")
+    for s in subs:
+        if not 0.0 <= s.start < s.end <= duration + 1.0:
+            raise RuntimeError(f"finetuned transcription: subtitle outside "
+                               f"the clip: {s.start}-{s.end}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the multihost phase: --multihost file sharding, two processes
+# ---------------------------------------------------------------------------
+
+MULTIHOST_CLIPS_S = (8.0, 12.0, 16.0, 20.0)
+# the partner that never comes: the rendezvous waits this long, and the
+# process must be gone well within MULTIHOST_DEAD_LIMIT_S
+MULTIHOST_DEAD_TIMEOUT_S = 10
+MULTIHOST_DEAD_LIMIT_S = 120.0
+
+_MULTIHOST_CHILD = """
+import json, sys, time
+import torch
+from whisperjav_tpu_torch import cli
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+if torch.cuda.is_initialized():
+    torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() \\
+    else 0
+print("MULTIHOST_CHILD " + json.dumps({"rc": rc, "peak": peak,
+      "wall_s": time.perf_counter() - t0}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _multihost_run(media: Path, out: Path, hosts, env=None,
+                   timeout: float = 600.0) -> list:
+    """``whisperjav-torch <media> --multihost`` as one process per host id
+    in ``hosts`` (of 2), each through ``cli.main`` in its own interpreter,
+    its output in files beside ``out``; every process is waited for and
+    killed past ``timeout``. Returns per host (exit code, seconds from
+    start to exit, its child record or None, the end of its log)."""
+    import os
+    repo = Path(__file__).resolve().parent
+    coord = f"127.0.0.1:{free_port()}"
+    procs = []
+    for host in hosts:
+        argv = [str(media), "--multihost", "--coordinator", coord,
+                "--num-hosts", "2", "--host-id", str(host),
+                "--skip-existing", "--output-dir", str(out),
+                "--stats-file", f"{out}-stats{host}.json"]
+        logs = (Path(f"{out}-{host}.out"), Path(f"{out}-{host}.err"))
+        with open(logs[0], "w") as fo, open(logs[1], "w") as fe:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _MULTIHOST_CHILD, *argv], cwd=repo,
+                stdout=fo, stderr=fe, env={**os.environ, **(env or {})})
+        procs.append((time.perf_counter(), proc, logs))
+    ends = {}
+    try:
+        deadline = time.perf_counter() + timeout
+        while len(ends) < len(procs) and time.perf_counter() < deadline:
+            for i, (_, proc, _) in enumerate(procs):
+                if i not in ends and proc.poll() is not None:
+                    ends[i] = time.perf_counter()
+            time.sleep(0.05)
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for i, (t0, proc, (out_log, err_log)) in enumerate(procs):
+        rec = next((json.loads(line.split(" ", 1)[1])
+                    for line in out_log.read_text().splitlines()
+                    if line.startswith("MULTIHOST_CHILD ")), None)
+        wall = ends[i] - t0 if i in ends else float("inf")
+        results.append((proc.returncode, wall, rec,
+                        err_log.read_text()[-2000:]))
+    return results
+
+
+def run_multihost_phase(tmp: Path) -> None:
+    """Two ``--multihost`` processes (turbo, the flagless defaults, on the
+    one card) over 4 clips of different lengths: their SRTs disjoint and
+    covering; a ``--skip-existing`` re-run of both writes nothing; a
+    process whose partner never comes exits non-zero within its
+    rendezvous timeout, having written nothing."""
+    media, out = tmp / "mh-media", tmp / "mh-out"
+    media.mkdir()
+    for i, seconds in enumerate(MULTIHOST_CLIPS_S):
+        synthetic_clip_seeded(media / f"mh{i}.wav", seconds, 40 + i)
+    names = sorted(p.stem for p in media.glob("*.wav"))
+    runs = _multihost_run(media, out, (0, 1))
+    done = []
+    for host, (rc, wall, rec, err) in enumerate(runs):
+        if rc != 0 or rec is None:
+            raise RuntimeError(f"multihost host {host} exited {rc}: "
+                               f"{err}")
+        stats = json.loads(Path(f"{out}-stats{host}.json").read_text())
+        mine = sorted(Path(r["input"]).stem for r in stats["results"])
+        done.append(mine)
+        log(f"multihost host {host}/2: files {mine}, wall {wall:.3f} s "
+            f"(cli.main {rec['wall_s']:.3f} s), peak device memory "
+            f"{rec['peak']} bytes ({rec['peak'] / 2**30:.3f} GiB)")
+    if set(done[0]) & set(done[1]) or sorted(done[0] + done[1]) != names \
+            or not all(done):
+        raise RuntimeError(f"multihost: slices {done} are not disjoint and "
+                           f"covering {names}")
+    for stem in names:
+        srt_cues(out / f"{stem}.ja.whisperjav.srt")
+    stamps = {p.name: p.stat().st_mtime_ns for p in out.iterdir()}
+    rerun = _multihost_run(media, out, (0, 1))
+    for host, (rc, wall, rec, err) in enumerate(rerun):
+        if rc != 0:
+            raise RuntimeError(f"multihost re-run host {host} exited {rc}: "
+                               f"{err}")
+        log(f"multihost --skip-existing re-run host {host}/2: wall "
+            f"{wall:.3f} s, peak device memory {rec['peak']} bytes")
+    if {p.name: p.stat().st_mtime_ns for p in out.iterdir()} != stamps:
+        raise RuntimeError("multihost: the --skip-existing re-run wrote "
+                           "outputs")
+    lone_out = tmp / "mh-lone"
+    (rc, wall, _, err), = _multihost_run(
+        media, lone_out, (0,), timeout=MULTIHOST_DEAD_LIMIT_S,
+        env={"WJAV_RENDEZVOUS_TIMEOUT_S": str(MULTIHOST_DEAD_TIMEOUT_S)})
+    wrote = list(lone_out.glob("*.srt")) if lone_out.exists() else []
+    log(f"multihost host 0 of 2 without its partner: exit {rc} after "
+        f"{wall:.3f} s (rendezvous timeout {MULTIHOST_DEAD_TIMEOUT_S} s), "
+        f"{len(wrote)} SRTs written")
+    if rc == 0 or wrote or wall > MULTIHOST_DEAD_LIMIT_S:
+        raise RuntimeError("multihost: a process without its partner did "
+                           f"not fail alone (exit {rc}, {len(wrote)} SRTs)")
+
+
 QWEN_NEEDS = ()
 QWEN_WHISPER_NEEDS = TURBO_NEEDS
 # the WhisperSeg framer's network: its encoder takes Kernel A, its bf16
@@ -2356,7 +2798,7 @@ WHISPERSEG_NEEDS = TURBO_NEEDS
 
 
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
-          "vad", "serve", "enhance")
+          "vad", "serve", "enhance", "train", "multihost")
 
 
 @contextlib.contextmanager
@@ -2464,6 +2906,13 @@ def main(argv=None) -> int:
         if "enhance" in only:
             with phase("enhance"):
                 launches.update(run_enhance_phase(dev, Path(tmp)))
+        if "train" in only:
+            with phase("train"):
+                check_train_parity(dev)
+                launches["finetuned_turbo"] = run_finetune(dev, Path(tmp))
+        if "multihost" in only:
+            with phase("multihost"):
+                run_multihost_phase(Path(tmp))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

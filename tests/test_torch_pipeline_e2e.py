@@ -149,14 +149,14 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 
 @pytest.mark.parametrize("flags", [
     ["--ensemble"], ["--daemon", "--devices", "2"], ["--check"],
-    ["--multihost"],
+    ["--multihost", "--devices", "2"],
     ["--async-processing"], ["--translate", "ollama"],
     ["--daemon", "--ensemble"], ["--check-verbose"],
     ["--mode", "transformers", "--devices", "8"],
     ["--devices", "4"],
     ["--trace-params", "trace.jsonl"],
     ["--mode", "qwen", "--ensemble"],
-    ["--mode", "qwen", "--multihost"],
+    ["--mode", "qwen", "--multihost", "--ensemble"],
     ["--mode", "qwen", "--translate", "ollama"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):

@@ -28,6 +28,10 @@ The VAD networks run on the device with ``--vad-arg weights=<.npz>``
 routes the files through a resident ``whisperjav-torch-serve`` engine
 (autostarted on ``--device``), and ``--daemon-stop`` stops it.
 
+``--multihost`` (``--coordinator``, ``--num-hosts``, ``--host-id``)
+splits the discovered files over processes that meet at a gloo
+rendezvous; one that is asked for and fails exits 1.
+
 What the port does not cover yet makes it exit with "not ported yet"
 before any work: ``--devices`` above 1 and the flags listed in
 ``_UNPORTED``.
@@ -40,6 +44,8 @@ before any work: ``--devices`` above 1 and the flags listed in
     whisperjav-torch clip.wav --mode qwen
     whisperjav-torch a.wav b.wav --daemon --daemon-port 8479
     whisperjav-torch --daemon-stop --daemon-port 8479
+    whisperjav-torch /data --multihost --coordinator host0:8476 \
+        --num-hosts 2 --host-id 0 --skip-existing
     python -m whisperjav_tpu_torch.cli clip.wav --output-dir out/
 """
 
@@ -61,7 +67,7 @@ PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
                 "anime", "qwen")
 # argparse dest -> the flag a user typed, for flags outside the port
 _UNPORTED = {
-    "ensemble": "--ensemble", "multihost": "--multihost",
+    "ensemble": "--ensemble",
     "async_processing": "--async-processing", "translate": "--translate",
     "check": "--check", "check_verbose": "--check-verbose",
     "trace_params": "--trace-params",
@@ -504,6 +510,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not media:
         logger.error("no media files found in inputs: %s", args.inputs)
         return 1
+    if args.multihost:
+        from whisperjav_tpu_torch.parallel.multihost import (
+            initialize_distributed, shard_files,
+        )
+        try:
+            proc, nprocs = initialize_distributed(
+                args.coordinator, args.num_hosts, args.host_id)
+        except (RuntimeError, ValueError) as e:
+            logger.error("%s", e)
+            return 1
+        media = shard_files(media, proc, nprocs)
+        if not media:
+            logger.info("multihost: no files assigned to this process")
+            return 0
     out_lang = cfg.language if task == "transcribe" else "en"
     if args.skip_existing:
         remaining = []

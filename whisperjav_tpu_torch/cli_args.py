@@ -374,11 +374,12 @@ def parse_arguments(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "batches over (default: all visible; 1 = "
                         "single-chip)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host batch job: initialize jax.distributed "
-                        "and take this process's slice of the file list "
-                        "(see parallel/multihost.py)")
+                   help="multi-host batch job: join the processes' "
+                        "torch.distributed (gloo) rendezvous and take "
+                        "this process's slice of the file list (see "
+                        "parallel/multihost.py)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="jax.distributed coordinator address")
+                   help="rendezvous address, served by --host-id 0")
     p.add_argument("--num-hosts", type=int, default=None)
     p.add_argument("--host-id", type=int, default=None)
     p.add_argument("--daemon", action="store_true",

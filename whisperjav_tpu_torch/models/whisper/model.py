@@ -18,6 +18,12 @@ and of every prefill) and, on int8 weights at q_len == 1, the three
 fused blocks of ``ops/cuda/fused_decode.py`` (every decoder layer of
 every step, beam rungs included); all run their plain PyTorch versions
 on CPU tensors.
+
+Fine-tuning differentiates :func:`forward` (the JAX package's
+``forward`` and ``decode_train``): plain attention, unquantised cross
+K/V and no cache, in f32 on a :meth:`Whisper.trainable` model, with
+hooks for tensor parallelism (``parallel/train.py``). It reaches no
+kernel, as the JAX train step reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -153,6 +159,17 @@ class Whisper(nn.Module):
         self.encoder = _Part(tree["encoder"])
         self.decoder = _Part(tree["decoder"])
 
+    def trainable(self) -> "Whisper":
+        """This model, in place, in f32 with every parameter requiring
+        gradients: the form :func:`forward` trains
+        (``parallel/train.py``). Int8 weights do not train."""
+        if any(isinstance(m, Int8Weight) for m in self.modules()):
+            raise ValueError("int8 weights do not train: load the float "
+                             "weights")
+        self.float()
+        self.requires_grad_(True)
+        return self
+
 
 # ---------------------------------------------------------------------------
 # encoder
@@ -172,12 +189,18 @@ def _encoder_block(x: torch.Tensor, p: nn.ParameterDict, i: int,
                      p["w2"][i], p["b2"][i])
 
 
+def _encoder_stem(enc: _Part, mel: torch.Tensor) -> torch.Tensor:
+    """The two convolutions and the positions: mel (B, n_mels, 3000) ->
+    (B, 1500, d)."""
+    x = F.gelu(F.conv1d(mel, enc.conv1_w, enc.conv1_b, padding=1))
+    x = F.gelu(F.conv1d(x, enc.conv2_w, enc.conv2_b, stride=2, padding=1))
+    return (x.transpose(1, 2) + enc.pos).contiguous()       # (B, T, d)
+
+
 def encode(model: Whisper, mel: torch.Tensor) -> torch.Tensor:
     """mel (B, n_mels, 3000) -> encoder states (B, 1500, d)."""
     enc = model.encoder
-    x = F.gelu(F.conv1d(mel, enc.conv1_w, enc.conv1_b, padding=1))
-    x = F.gelu(F.conv1d(x, enc.conv2_w, enc.conv2_b, stride=2, padding=1))
-    x = (x.transpose(1, 2) + enc.pos).contiguous()          # (B, T, d)
+    x = _encoder_stem(enc, mel)
     for i in range(enc.blocks["wq"].shape[0]):
         x = _encoder_block(x, enc.blocks, i, model.config.n_audio_head)
     return layer_norm(x, enc.ln_s, enc.ln_b)
@@ -414,3 +437,133 @@ def decode_step(model: Whisper, tokens: torch.Tensor, pos: int,
     emb = model.decoder.tok_emb
     logits = torch.matmul(x.float(), emb.float().t())
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward (fine-tuning)
+# ---------------------------------------------------------------------------
+
+class Replicated:
+    """Tensor-parallel hooks of the teacher-forced forward when every
+    weight is whole: each is the identity. ``parallel/train.py`` gives
+    the collective ones (Megatron's f and g, and a feature all-gather)
+    for weights split over ``size`` ranks.
+
+    ``copy`` marks a replicated tensor entering split weights (backward:
+    sum over ranks), ``reduce`` sums the partial outputs of a split
+    contraction (backward: identity), ``gather`` concatenates split
+    features on the last axis (backward: this rank's slice)."""
+    rank, size = 0, 1
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, -1, hd)
+
+
+def plain_cross_attention(q: torch.Tensor, ck: torch.Tensor,
+                          cv: torch.Tensor) -> torch.Tensor:
+    """q (B, Tq, H, hd) x unquantised cross K/V (B, H, hd, T) ->
+    (B, Tq, H, hd): the JAX package's ``cross_attention`` without scales
+    (``int8=False``), logits and softmax in f32."""
+    hd = q.shape[-1]
+    scale = (hd ** -0.25) * (hd ** -0.25)
+    logits = torch.matmul((q * scale).float().transpose(1, 2), ck.float())
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)     # (B, H, Tq, T)
+    return torch.matmul(weights, cv.transpose(2, 3)).transpose(1, 2)
+
+
+def _mlp(x: torch.Tensor, p: nn.ParameterDict, i: int, tp) -> torch.Tensor:
+    h = tp.copy(layer_norm(x, p["ln2_s"][i], p["ln2_b"][i]))
+    out = dense(F.gelu(dense(h, p["w1"][i], p["b1"][i])), p["w2"][i])
+    return x + tp.reduce(out) + p["b2"][i]
+
+
+def _train_encoder_block(x, p, i, hd, tp):
+    b, t, _ = x.shape
+    h = tp.copy(layer_norm(x, p["ln1_s"][i], p["ln1_b"][i]))
+    q = _heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+    k = _heads(dense(h, p["wk"][i]), hd)
+    v = _heads(dense(h, p["wv"][i], p["bv"][i]), hd)
+    a = attention(q, k, v).reshape(b, t, -1)
+    x = x + tp.reduce(dense(a, p["wo"][i])) + p["bo"][i]
+    return _mlp(x, p, i, tp)
+
+
+def _train_decoder_block(x, p, i, ck, cv, causal, hd, tp):
+    b, s, _ = x.shape
+    h = tp.copy(layer_norm(x, p["ln1_s"][i], p["ln1_b"][i]))
+    q = _heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+    k = _heads(dense(h, p["wk"][i]), hd)
+    v = _heads(dense(h, p["wv"][i], p["bv"][i]), hd)
+    a = attention(q, k, v, causal).reshape(b, s, -1)
+    x = x + tp.reduce(dense(a, p["wo"][i])) + p["bo"][i]
+    h = tp.copy(layer_norm(x, p["lnx_s"][i], p["lnx_b"][i]))
+    cq = _heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
+    a = plain_cross_attention(cq, ck, cv).reshape(b, s, -1)
+    x = x + tp.reduce(dense(a, p["cwo"][i])) + p["cbo"][i]
+    return _mlp(x, p, i, tp)
+
+
+def decode_train(model: Whisper, tokens: torch.Tensor, xa: torch.Tensor,
+                 tp=None) -> torch.Tensor:
+    """Teacher-forced decoder over whole sequences (the JAX package's
+    ``decode_train``): tokens (B, S), encoder states xa (B, T, d) ->
+    logits (B, S, vocab) f32.
+
+    Causal self-attention over the sequence with no cache, unquantised
+    cross K/V in the (B, H, hd, T) layout with
+    :func:`plain_cross_attention`, and the tied head ``x @ tok_emb.T`` in
+    f32; differentiable throughout. ``tp`` holds the tensor-parallel hooks
+    (:class:`Replicated` when None); under it the head count is each
+    rank's share, read from the weights' widths."""
+    tp = tp or Replicated()
+    dec = model.decoder
+    p = dec.blocks
+    hd = model.config.n_text_state // model.config.n_text_head
+    s = tokens.shape[1]
+    x = tp.gather(dec.tok_emb[tokens]) + dec.pos_emb[:s]
+    xa = tp.copy(xa)
+    idx = torch.arange(s, device=tokens.device)
+    causal = torch.where(idx[None, :] <= idx[:, None], 0.0,
+                         float("-inf"))[None, None]
+    for i in range(p["wq"].shape[0]):
+        ck = _heads(dense(xa, p["cwk"][i]), hd).permute(0, 2, 3, 1)
+        cv = _heads(dense(xa, p["cwv"][i], p["cbv"][i]),
+                    hd).permute(0, 2, 3, 1)
+        x = _train_decoder_block(x, p, i, ck, cv, causal, hd, tp)
+    x = layer_norm(x, dec.ln_s, dec.ln_b)
+    emb = dec.tok_emb
+    lo = tp.rank * emb.shape[1]
+    x = tp.copy(x.float())[..., lo:lo + emb.shape[1]]
+    return tp.reduce(torch.matmul(x, emb.float().t()))
+
+
+def forward(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """The teacher-forced forward the train step differentiates (the JAX
+    package's ``forward``): mel (B, n_mels, 3000) and tokens (B, S) ->
+    logits (B, S, vocab) f32.
+
+    Its encoder is not :func:`encode`: every layer's attention is the
+    plain :func:`attention` (the JAX train step's own; Kernel A has no
+    backward and takes bf16 only), so this runs on any device and dtype,
+    as the train step mirrors the JAX one. Inference keeps :func:`encode`
+    and its kernel."""
+    tp = tp or Replicated()
+    enc = model.encoder
+    hd = model.config.n_audio_state // model.config.n_audio_head
+    x = _encoder_stem(enc, mel)
+    for i in range(enc.blocks["wq"].shape[0]):
+        x = _train_encoder_block(x, enc.blocks, i, hd, tp)
+    xa = layer_norm(x, enc.ln_s, enc.ln_b)
+    return decode_train(model, tokens, xa, tp)

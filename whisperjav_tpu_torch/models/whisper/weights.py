@@ -3,7 +3,8 @@
 The JAX package keeps its parameters as a nested dict with per-layer
 leaves stacked on a leading axis and matrices as (in, out)
 (``whisperjav_tpu/models/whisper/model.py:145-195``); :class:`Whisper`
-keeps the same names and layouts, so conversion is a copy per leaf. The
+keeps the same names and layouts, so conversion is a copy per leaf,
+both ways (:func:`params_from_jax`, :func:`params_to_jax`). The
 enhancement models' trees (the ZipEnhancer and the legacy U-Net) carry
 across with the ``params_from_jax`` of their own modules under
 ``models/enhancement/``.
@@ -53,6 +54,35 @@ def params_from_jax(tree: Dict, config: WhisperConfig,
             t = t.to(dtype)
         return t
     return Whisper(config, _tree_map(leaf, tree))
+
+
+def nest(flat: Dict[str, object]) -> Dict:
+    """State-dict names ("decoder.blocks.wq") -> the nested tree
+    :class:`Whisper` takes and the JAX package keeps."""
+    tree: Dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16, which numpy does not hold, as
+    float32."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def params_to_jax(model: Whisper) -> Dict:
+    """:class:`Whisper` -> the JAX parameter tree of numpy arrays, under
+    the same keys and layouts (the inverse of :func:`params_from_jax`;
+    int8 leaves come back as ``{"q", "s"}``, bfloat16 leaves as
+    float32)."""
+    return nest({name: to_numpy(t)
+                 for name, t in model.state_dict().items()})
 
 
 def _block_shapes(n_layer: int, d: int, cross: bool) -> Dict[str, tuple]:
