@@ -4,7 +4,8 @@
     python3 chip_smoke.py --only kernels  # a subset: kernels, reference,
                                           # turbo, large-v2, fidelity,
                                           # qwen, vad, serve, enhance,
-                                          # train, multihost (comma list)
+                                          # train, multihost, ensemble,
+                                          # async, translate (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -110,7 +111,29 @@ Phases, in order; any failure exits non-zero before the result line:
    lengths write disjoint SRTs covering all 4 (each process's wall and
    peak memory printed); a re-run of both writes nothing; a process
    whose partner never comes exits non-zero within its rendezvous
-   timeout, having written nothing.
+   timeout, having written nothing;
+13. the ensemble phase: ``whisperjav-torch a.wav b.wav --ensemble
+   --pass1-mode balanced --pass2-mode fidelity --merge-strategy
+   smart_merge`` on 25.8 s and 34.4 s clips (turbo beam 2 bf16, then
+   large-v2 bf16 at aggressive; the fidelity enhancer passes audio
+   through without weights): ``ensemble_batch.json`` ok 2, each pass's
+   parameters on the card, Kernel A and Kernel B's bf16 form launched in
+   each pass, the memory allocated when pass 2 is built back within
+   ENSEMBLE_DROP_SLACK of where it was before pass 1; each pass's wall,
+   the merge stats and the peak memory;
+14. the async phase: three clips of 15.6-23.6 s through the flagless path
+   (no sanitizer) as a file loop and with ``--async-processing
+   --output-format both --trace-params``: identical cues, every async
+   SRT signed with its VTT, the trace's events; both walls;
+15. the translate phase: ``generate_text`` at the test widths on the GPU
+   against the CPU (tokens identical, first-step logits within
+   TRANSLATE_TOL_REL of the largest); the seeded LM-only tree at
+   Qwen3-1.7B widths (f32, fused q/k/v, built on the card) translating the
+   async phase's first SRT through ``translate_srt`` and the ``tpu-local``
+   backend (every call returns; parameters on the card), with ms per
+   generate step at B=1, tokens a second, the prefill of a 400-token
+   prompt and the step's byte bound; then ``--translate identity`` end
+   to end and ``whisperjav-torch --check`` (exit 0, naming the card).
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -128,8 +151,10 @@ its bytes over 3.35 TB/s and its operations over the peak rate of their
 type, 989 TFLOP/s bf16 on the tensor cores or 67 TFLOP/s f32, from the
 shapes of this run), the time of one PyTorch call computing the same
 function where there is one (``library_ms``: scaled_dot_product_attention
-beside Kernel A; null elsewhere), and the launches on the large-v2 int8
-path. The kernels inside the fused blocks are timed by the profiler at
+beside Kernel A and beside the self attention inside the self block;
+null elsewhere), and the launches on the large-v2 int8 path
+(``launches_by_path`` holds every CLI path's, the ensemble's and the
+async run's included). The kernels inside the fused blocks are timed by the profiler at
 the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
 holds an older version of the kernels (an unpacked earlier commit), it
 is built too, and Kernel A, Kernel B (f32 form, every case), the fused
@@ -791,6 +816,18 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
         return (torch.einsum("rht,rthd->rhd", lg[..., :-1], cv)
                 + lg[..., -1:] * qkv[:, 2 * d:].reshape(rows, h, 64))
 
+    # the library call computing the self attention's function: SDPA of
+    # the new query over the cache up to pos and the new key and value
+    qkv_lib = qkv.to(sa["cache_k"].dtype)
+    q_lib = qkv_lib[:, :d].reshape(rows, h, 1, 64)
+    k_lib, v_lib = (torch.cat([
+        sa[c][layer, :, :pos].reshape(rows, pos, h, 64),
+        qkv_lib[:, off:off + d].reshape(rows, 1, h, 64)], 1).transpose(1, 2)
+        .contiguous() for c, off in (("cache_k", d), ("cache_v", 2 * d)))
+
+    def library_self_attention():
+        torch.nn.functional.scaled_dot_product_attention(q_lib, k_lib, v_lib)
+
     v1 = v1_prof or {}
     sum_v1 = lambda *names: sum(v1.get(n, 0.0) for n in names) or None  # noqa
     ln_epis = ("0", "3", "1")
@@ -821,11 +858,17 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
                device_ms(plain_self_attention, iters=10),
                bound(2 * rows * pos * d * 2 + rows * 3 * d * 4
                      + 2 * rows * d * 2, 4 * rows * pos * d, PEAK_F32),
-               v1_ms=v1.get("self_attention_kernel")),
+               v1_ms=v1.get("self_attention_kernel"),
+               library_ms=device_ms(library_self_attention, iters=10),
+               library="scaled_dot_product_attention of the new query "
+                       "over the cache slice up to pos and the new column "
+                       "(bf16)"),
     ]
     for r in recs:
         log(f"  {r['name']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+            + (f", library {r['library_ms']:.4f} ms" if r["library_ms"]
+               else "")
             + (f", older version {r['v1_ms']:.4f} ms" if r.get("v1_ms")
                else ""))
     return recs
@@ -2790,6 +2833,351 @@ def run_multihost_phase(tmp: Path) -> None:
                            f"not fail alone (exit {rc}, {len(wrote)} SRTs)")
 
 
+# the ensemble, async and translate phases
+# (seed, target seconds) of synthetic_clip_seeded: 25.8 s and 34.4 s
+ENSEMBLE_CLIPS = ((61, 20.0), (60, 26.0))
+# 15.6, 21.7 and 23.6 s
+ASYNC_CLIPS = ((70, 15.0), (71, 20.0), (72, 20.0))
+# memory pass 1 may leave behind when it is dropped (allocator slack)
+ENSEMBLE_DROP_SLACK = 256 * 2**20
+TRANSLATE_TOL_REL = 1e-4
+TRANSLATE_MAX_NEW = 128
+# Qwen3-1.7B's LM widths: those of the port's qwen3-asr-1.7b config
+QWEN3_LM = "qwen3-asr-1.7b"
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def zero_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def run_ensemble_phase(tmp: Path) -> dict:
+    """``whisperjav-torch a.wav b.wav --ensemble --pass1-mode balanced
+    --pass2-mode fidelity --merge-strategy smart_merge``: turbo beam-2 bf16
+    then large-v2 bf16 at aggressive (the fidelity enhancer passes audio
+    through without weights), full width and depth. ``ensemble_batch.json``
+    must say ok 2; each pass's parameters on the card; Kernel A and Kernel
+    B's bf16 form launched in each pass; the memory allocated when pass 2
+    is built back within ENSEMBLE_DROP_SLACK of where it was before pass
+    1. Prints each pass's wall, the merge stats and the peak memory."""
+    from whisperjav_tpu_torch import cli
+    from whisperjav_tpu_torch.ensemble import orchestrator as orch
+    media = tmp / "ens-media"
+    media.mkdir()
+    clips = [media / f"ens{i}.wav" for i in range(len(ENSEMBLE_CLIPS))]
+    audio_s = [synthetic_clip_seeded(c, s, seed)
+               for c, (seed, s) in zip(clips, ENSEMBLE_CLIPS)]
+    marks, devices = [], []
+    build = orch.EnsembleOrchestrator._build
+
+    def spy(self, cfg):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), torch.cuda.memory_allocated(),
+                      launch_counts(), cfg.mode.name, cfg.model))
+        pipeline = build(self, cfg)
+        devices.append({p.device.type
+                        for p in pipeline.engine.model.parameters()})
+        return pipeline
+
+    out = tmp / "ens-out"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    orch.EnsembleOrchestrator._build = spy
+    try:
+        rc = cli.main([*map(str, clips), "--output-dir", str(out),
+                       "--ensemble", "--pass1-mode", "balanced",
+                       "--pass2-mode", "fidelity", "--merge-strategy",
+                       "smart_merge"])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        orch.EnsembleOrchestrator._build = build
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    summary = json.loads((out / "ensemble_batch.json").read_text())
+    if rc != 0 or summary["ok"] != len(clips) or len(marks) != 2:
+        raise RuntimeError(f"ensemble: exit {rc}, {summary['ok']} ok, "
+                           f"{len(marks)} passes built")
+    if devices != [{"cuda"}, {"cuda"}]:
+        raise RuntimeError(f"ensemble: pass parameters on {devices}")
+    per_pass = [{k: marks[1][2][k] - marks[0][2][k] for k in launches},
+                {k: launches[k] - marks[1][2][k] for k in launches}]
+    for n, counts in enumerate(per_pass, 1):
+        missing = [k for k in TURBO_NEEDS if counts[k] < 1]
+        if missing:
+            raise RuntimeError(f"ensemble pass {n}: kernels never launched: "
+                               f"{missing} ({counts})")
+    before, after = marks[0][1], marks[1][1]
+    if after > before + ENSEMBLE_DROP_SLACK:
+        raise RuntimeError(f"ensemble: {after} bytes allocated when pass 2 "
+                           f"is built, {before} before pass 1: pass 1 was "
+                           "not dropped")
+    for c, seconds in zip(clips, audio_s):
+        for start, end_s in srt_cues(out / f"{c.stem}.ja.whisperjav.srt"):
+            if not 0.0 <= start < end_s <= seconds + 3.0:
+                raise RuntimeError(f"ensemble: cue outside {c.name}: "
+                                   f"{start}-{end_s}")
+    walls = (marks[1][0] - marks[0][0], end - marks[1][0])
+    log(f"ensemble (clips {[round(s, 3) for s in audio_s]} s): pass 1 "
+        f"{marks[0][3]} {marks[0][4]} {walls[0]:.3f} s (build, both files, "
+        f"drop), pass 2 {marks[1][3]} {marks[1][4]} {walls[1]:.3f} s "
+        f"(build, both files, merge, write); memory allocated before pass "
+        f"1 {before} bytes, when pass 2 is built {after} bytes; peak "
+        f"{peak} bytes ({peak / 2**30:.3f} GiB)")
+    log(f"ensemble merge: {json.dumps([r['merge'] for r in summary['results']])}")
+    log(f"ensemble launches pass 1 {json.dumps(per_pass[0])}; pass 2 "
+        f"{json.dumps(per_pass[1])}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_async_phase(tmp: Path) -> tuple:
+    """Three clips through the flagless path (``--no-sanitize``) twice: the
+    file loop, then ``--async-processing --output-format both
+    --trace-params``. The cues
+    (times and texts) must be identical; each async SRT signed, with its
+    VTT; the trace config then file_start, segmentation and file_complete
+    per file. Prints both walls; returns the async run's launches and
+    the SRT of its first clip."""
+    from whisperjav_tpu_torch import cli
+    media = tmp / "async-media"
+    media.mkdir()
+    clips = [media / f"as{i}.wav" for i in range(len(ASYNC_CLIPS))]
+    audio_s = [synthetic_clip_seeded(c, s, seed)
+               for c, (seed, s) in zip(clips, ASYNC_CLIPS)]
+    walls, launches = {}, {}
+    trace = tmp / "async-trace.jsonl"
+    # without the sanitizer, which may empty a random-weight SRT (an
+    # empty SRT gets no signature)
+    for label, extra in (("sync", ["--no-sanitize"]),
+                         ("async", ["--no-sanitize", "--async-processing",
+                                    "--output-format", "both",
+                                    "--trace-params", str(trace)])):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = cli.main([*map(str, clips), "--output-dir",
+                       str(tmp / f"async-{label}"), *extra])
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = launch_counts()
+        if rc != 0:
+            raise RuntimeError(f"async phase: the {label} run exited {rc}")
+    for c in clips:
+        name = f"{c.stem}.ja.whisperjav.srt"
+        sync = srt_text_cues((tmp / "async-sync" / name).read_text("utf-8"))
+        srt = tmp / "async-async" / name
+        got = srt_text_cues(srt.read_text(encoding="utf-8"))
+        if got != sync:
+            raise RuntimeError(f"async phase: {name} differs from the file "
+                               f"loop's ({len(got)} against {len(sync)} "
+                               "cues)")
+        if not (got and got[-1][1].startswith("WhisperJAV-TPU")
+                and srt.with_suffix(".vtt").exists()):
+            raise RuntimeError(f"async phase: {name} unsigned or without "
+                               "its VTT")
+    events = [json.loads(line)["event"]
+              for line in trace.read_text().splitlines()]
+    if events != ["config"] + ["file_start", "segmentation",
+                               "file_complete"] * len(clips):
+        raise RuntimeError(f"async phase: trace events {events}")
+    missing = [k for k in TURBO_NEEDS if launches["async"][k] < 1]
+    if missing:
+        raise RuntimeError(f"async phase: kernels never launched: {missing}")
+    log(f"async phase (clips {[round(a, 3) for a in audio_s]} s, flagless "
+        f"turbo): file "
+        f"loop {walls['sync']:.3f} s, --async-processing "
+        f"{walls['async']:.3f} s; cues identical, {len(events)} trace "
+        f"events; launches (async) {json.dumps(launches['async'])}")
+    return launches["async"], (tmp / "async-async"
+                               / f"{clips[0].stem}.ja.whisperjav.srt")
+
+
+def synthetic_srt(path: Path, cues: int = 24) -> None:
+    """``cues`` kana cues of 1-3 s with short pauses."""
+    rng = np.random.default_rng(9)
+    kana = "あいうえおかきくけこさしすせそたちつてとなにぬねの"
+    blocks, t = [], 0.0
+    for i in range(cues):
+        t += float(rng.uniform(0.2, 1.5))
+        d = float(rng.uniform(1.0, 3.0))
+        stamp = lambda x: (f"{int(x // 3600):02d}:{int(x % 3600 // 60):02d}:"  # noqa: E731
+                           f"{int(x % 60):02d},{int(round(x % 1 * 1000)) % 1000:03d}")
+        text = "".join(rng.choice(list(kana), int(rng.integers(4, 16))))
+        blocks.append(f"{i + 1}\n{stamp(t)} --> {stamp(t + d)}\n{text}\n")
+        t += d
+    path.write_text("\n".join(blocks), encoding="utf-8")
+
+
+def _lm_bytes(model) -> int:
+    """Bytes one generate step reads: the block weights and the head
+    (the embedding gives one row)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name.startswith("blocks.") or name.startswith("lm_head"))
+
+
+def run_translate_phase(dev, tmp: Path, srt: Path) -> None:
+    """The on-device translator: ``generate_text`` at the test width on
+    the GPU against the CPU (tokens identical, first-step logits within
+    TRANSLATE_TOL_REL of the largest); then the seeded LM-only tree at
+    Qwen3-1.7B widths (f32, fused q/k/v, built on the card) translating
+    ``srt`` through ``translate_srt`` with the local backend (every batch's
+    call must return, the parameters be on the card), ms per generate
+    step at B=1,
+    tokens a second, the prefill time and the step's byte bound; then
+    ``whisperjav-torch clip.wav --translate identity`` and
+    ``whisperjav-torch --check`` (exit 0, naming the card)."""
+    import io
+    from whisperjav_tpu_torch import cli
+    from whisperjav_tpu_torch.models.qwen import model as qm
+    from whisperjav_tpu_torch.models.qwen import weights as qw
+    from whisperjav_tpu_torch.models.qwen.tokenizer import QwenTokenizer
+    from whisperjav_tpu_torch.translate.local_backend import LocalLMBackend
+    from whisperjav_tpu_torch.translate.service import translate_srt
+
+    test = qm.QWEN_SIZES["qwen3-asr-test"]
+    cpu_lm = qm.fuse_lm_qkv(qw.init_params(
+        test, torch.Generator().manual_seed(3), audio=False))
+    gpu_lm = qm.fuse_lm_qkv(qw.init_params(
+        test, torch.Generator().manual_seed(3), audio=False)).to(dev)
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        3, test.vocab_size - 1, (1, 40)))
+    outs = [qm.generate_text(m, ids.to(m.tok_emb.device), torch.tensor([40]),
+                             max_new=24, repetition_penalty=1.05)
+            for m in (cpu_lm, gpu_lm)]
+    logits = []
+    for m in (cpu_lm, gpu_lm):
+        cache = qm.LMCache.zeros(test, 1, 41, torch.float32, m.tok_emb.device)
+        with torch.inference_mode():
+            lg, _ = qm.lm_step(m, m.tok_emb[ids.to(m.tok_emb.device)], 0,
+                               cache)
+        logits.append(lg[0, -1].float().cpu())
+    err = float((logits[1] - logits[0]).abs().max())
+    scale = float(logits[0].abs().max())
+    same = torch.equal(outs[0].tokens, outs[1].tokens.cpu())
+    log(f"translate LM at test widths: GPU against CPU, first-step logits "
+        f"max |err| {err:.3e} ({err / scale:.3e} of the largest, tolerance "
+        f"{TRANSLATE_TOL_REL}); 24 tokens identical: {same}")
+    if not same or err > TRANSLATE_TOL_REL * scale:
+        raise RuntimeError("translate: the GPU's generate_text differs from "
+                           "the CPU's")
+    del cpu_lm, gpu_lm
+
+    cfg = qm.QWEN_SIZES[QWEN3_LM]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = qw.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev, audio=False)
+    backend = LocalLMBackend(params=lm, tokenizer=QwenTokenizer(),
+                             max_new_tokens=TRANSLATE_MAX_NEW, device=dev)
+    del lm
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = backend.model
+    n_params = sum(p.numel() for p in model.parameters())
+    on = {p.device.type for p in model.parameters()}
+    step_bytes = _lm_bytes(model)
+    log(f"translate LM {cfg.name} widths (d={cfg.d_model}, {cfg.n_layers} "
+        f"layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), f32, fused q/k/v: "
+        f"{n_params} parameters on {sorted(on)}, built in {build_s:.3f} s, "
+        f"{torch.cuda.memory_allocated()} bytes allocated")
+    if on != {"cuda"}:
+        raise RuntimeError(f"translate: the LM's parameters on {on}")
+
+    # the step's cost at B=1: generate at two lengths, in turns
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(
+        3, cfg.vocab_size - 1, (1, 400))).to(dev)
+    n = torch.tensor([400])
+    short, long_ = 16, TRANSLATE_MAX_NEW
+    qm.generate_text(model, prompt, n, max_new=4)
+    walls = {short: [], long_: []}
+    for steps in (short, long_, long_, short):
+        res, wall = _timed(lambda: qm.generate_text(
+            model, prompt, n, max_new=steps, repetition_penalty=1.05))
+        if int(res.length[0]) != steps:
+            raise RuntimeError(f"translate: {int(res.length[0])} tokens of "
+                               f"{steps} (an EOS from seeded weights)")
+        walls[steps].append(wall)
+    step_ms = 1e3 * (statistics.median(walls[long_])
+                     - statistics.median(walls[short])) / (long_ - short)
+    cache = qm.LMCache.zeros(cfg, 1, 400, torch.float32, dev)
+    with torch.inference_mode():
+        _, prefill_s = _timed(lambda: qm.lm_step(
+            model, model.tok_emb[prompt], 0, cache))
+    bound_ms = 1e3 * step_bytes / HBM_BYTES_S
+    log(f"translate generate at B=1 (400-token prompt): {step_ms:.3f} ms "
+        f"per step, {1e3 / step_ms:.1f} tokens/s; byte bound {bound_ms:.3f} "
+        f"ms a step ({step_bytes} bytes of block weights and head over 3.35 "
+        f"TB/s, {bound_ms / step_ms:.1%} of it reached); prefill of 400 "
+        f"tokens {1e3 * prefill_s:.3f} ms; walls {json.dumps(walls)}")
+    del cache
+
+    # translate_srt of the async phase's turbo SRT (a synthetic one where
+    # it holds fewer than 4 cues), up to 30 cues a batch
+    work = tmp / "translate" / srt.name
+    work.parent.mkdir()
+    work.write_bytes(srt.read_bytes())
+    cues = len(srt_text_cues(srt.read_text(encoding="utf-8")))
+    if cues < 4:
+        log(f"translate: {srt.name} holds {cues} cues; translating a "
+            "synthetic SRT instead")
+        synthetic_srt(work)
+        cues = len(srt_text_cues(work.read_text(encoding="utf-8")))
+    calls, answers = [], []
+
+    def call(prompt_text):
+        calls.append(len(prompt_text))
+        answers.append(backend(prompt_text))
+        return answers[-1]
+
+    t0 = time.perf_counter()
+    out = translate_srt(work, provider="tpu-local", call_fn=call,
+                        max_batch_size=30, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    proj = json.loads(work.with_suffix(".wjtrans.json").read_text())
+    statuses = [b["status"] for b in proj["batches"]]
+    # an error of the backend raises (translate_srt's on-device rule), so
+    # every batch's call returned; the project marks a batch 'failed'
+    # where the response holds no numbered line, as seeded weights' do
+    log(f"translate_srt on {srt.name} ({cues} cues, tpu-local, max_new "
+        f"{TRANSLATE_MAX_NEW}): {len(calls)} batches in {wall:.3f} s "
+        f"(prompts of {calls} characters, answers of "
+        f"{[len(a) for a in answers]}), project statuses {statuses} "
+        f"(no numbered lines in a seeded model's answer), peak "
+        f"{torch.cuda.max_memory_allocated()} bytes; wrote {out.name}")
+    if len(answers) != len(statuses) or not answers \
+            or not all(answers):
+        raise RuntimeError(f"translate: {len(answers)} answers for "
+                           f"{len(statuses)} batches")
+    srt_text_cues(out.read_text(encoding="utf-8"))
+    del backend, model
+    torch.cuda.empty_cache()
+
+    wav = tmp / "translate-identity.wav"
+    synthetic_clip_seeded(wav, 15.0, 80)
+    rc = cli.main([str(wav), "--output-dir", str(tmp / "tr-id"),
+                   "--translate", "identity"])
+    translated = tmp / "tr-id" / "translate-identity.ja.en.srt"
+    if rc != 0 or not translated.exists():
+        raise RuntimeError(f"--translate identity: exit {rc}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--check"])
+    log("whisperjav-torch --check:\n" + buf.getvalue().rstrip())
+    if rc != 0 or torch.cuda.get_device_name(0) not in buf.getvalue():
+        raise RuntimeError(f"--check exited {rc}")
+
+
 QWEN_NEEDS = ()
 QWEN_WHISPER_NEEDS = TURBO_NEEDS
 # the WhisperSeg framer's network: its encoder takes Kernel A, its bf16
@@ -2798,7 +3186,8 @@ WHISPERSEG_NEEDS = TURBO_NEEDS
 
 
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
-          "vad", "serve", "enhance", "train", "multihost")
+          "vad", "serve", "enhance", "train", "multihost", "ensemble",
+          "async", "translate")
 
 
 @contextlib.contextmanager
@@ -2913,6 +3302,19 @@ def main(argv=None) -> int:
         if "multihost" in only:
             with phase("multihost"):
                 run_multihost_phase(Path(tmp))
+        if "ensemble" in only:
+            with phase("ensemble"):
+                launches["ensemble"] = run_ensemble_phase(Path(tmp))
+        srt = None
+        if "async" in only:
+            with phase("async"):
+                launches["async"], srt = run_async_phase(Path(tmp))
+        if "translate" in only:
+            with phase("translate"):
+                if srt is None:
+                    srt = Path(tmp) / "translate-source.ja.whisperjav.srt"
+                    synthetic_srt(srt)
+                run_translate_phase(dev, Path(tmp), srt)
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

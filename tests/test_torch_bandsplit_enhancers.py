@@ -31,10 +31,13 @@ from whisperjav_tpu_torch.models.enhancement import bandsplit as tbs
 from whisperjav_tpu_torch.models.enhancement import (
     bs_roformer as tb, frcrn as tf, mossformer2 as tm,
 )
-from whisperjav_tpu_torch.modules.enhancement import create_enhancer as t_enh
+from whisperjav_tpu_torch.modules.enhancement import create_enhancer
 from whisperjav_tpu_torch.modules.enhancement import (
     bandsplit_backends as heavy,
 )
+
+# the factory defaults to the card; these tests run its backends on the CPU
+t_enh = functools.partial(create_enhancer, device="cpu")
 
 SR = 16000
 TOL = 1e-5

@@ -326,3 +326,75 @@ def test_vocab_subset_matches():
     adapter = tvs.SubsetTokenizerAdapter(
         tvs.VocabSubset(cfg_t, [2, 4]), Tok())
     assert adapter.decode([1]) == "\u30ab\u30ca" and adapter.is_real
+
+
+@pytest.mark.parametrize("module,names", [
+    ("translate.providers", ("PROVIDERS",)),
+    ("translate.instructions", ("_BUNDLED", "INSTRUCTION_URLS")),
+    ("translate.settings", ("DEFAULT_SETTINGS", "SETTINGS_VERSION")),
+    ("translate.project", ("SCHEMA_VERSION", "DEFAULT_SCENE_THRESHOLD")),
+    ("translate.ollama_manager", ("MODEL_LADDER", "DEFAULT_BASE_URL")),
+    ("ensemble.merge", ("MERGE_STRATEGIES",)),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_copied_tables_match(module, names):
+    """The tables the ensemble and translate copies hold (providers and
+    their limits, bundled instructions, settings defaults, the project
+    schema, the Ollama VRAM ladder, the merge strategies' names) equal
+    the JAX package's."""
+    import importlib
+    ref = importlib.import_module(f"whisperjav_tpu.{module}")
+    out = importlib.import_module(f"whisperjav_tpu_torch.{module}")
+    for name in names:
+        a, b = getattr(out, name), getattr(ref, name)
+        if name == "MERGE_STRATEGIES":
+            a, b = sorted(a), sorted(b)
+        assert json.dumps(a, sort_keys=True, default=repr) == \
+            json.dumps(b, sort_keys=True, default=repr), name
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_translation_batching_matches(seed):
+    """Scenes, gap-aligned batches, the context block, numbered-response
+    parsing, summaries and the output-language tag of the translate copy
+    give the JAX package's results."""
+    from whisperjav_tpu.translate import project as jp
+    from whisperjav_tpu.translate import service as js
+    from whisperjav_tpu_torch.translate import project as tp
+    from whisperjav_tpu_torch.translate import service as ts
+    rng = np.random.default_rng(seed)
+    cues, t = [], 0.0
+    for i in range(60):
+        t += float(rng.choice([0.3, 1.0, 5.0, 80.0], p=[.5, .3, .15, .05]))
+        cues.append((i + 1, t, t + 1.5, f"line {i}"))
+        t += 1.5
+    out = [jp.split_batches(sc, 7) for sc in jp.split_scenes(
+        [jsrt.Subtitle(*c) for c in cues], 60.0)]
+    got = [tp.split_batches(sc, 7) for sc in tp.split_scenes(
+        [tsrt.Subtitle(*c) for c in cues], 60.0)]
+    assert [[[s.index for s in b] for b in sc] for sc in got] == \
+        [[[s.index for s in b] for b in sc] for sc in out]
+    text = "1: a\n2：b\n 3) c\nx\n4. d\n<summary> s </summary>"
+    assert ts.parse_numbered_response(text) == \
+        js.parse_numbered_response(text)
+    assert tp.extract_summary(text) == jp.extract_summary(text) == "s"
+    for lang in ("English", "pt", "Klingon", ""):
+        assert ts._iso_tag(lang) == js._iso_tag(lang)
+
+
+def test_tracer_records_match(tmp_path):
+    """The tracer copy writes the JAX tracer's records (numpy values made
+    JSON-safe), ``t``/``ts`` aside; the null tracer writes nothing."""
+    from whisperjav_tpu.utils import tracer as jt
+    from whisperjav_tpu_torch.utils import tracer as tt
+    data = {"a": np.int64(3), "b": np.float32(0.5), "c": np.arange(3),
+            "d": (1, {"e": np.float64(2.0)})}
+    for mod, name in ((jt, "j.jsonl"), (tt, "t.jsonl")):
+        with mod.create_tracer(tmp_path / name) as tr:
+            tr.event("segmentation", data)
+            tr.event("file_complete")
+        mod.create_tracer(None).event("x", data)
+    recs = {n: [json.loads(x) for x in (tmp_path / n).read_text()
+                .splitlines()] for n in ("j.jsonl", "t.jsonl")}
+    strip = lambda rs: [(r["event"], r["data"]) for r in rs]  # noqa: E731
+    assert strip(recs["t.jsonl"]) == strip(recs["j.jsonl"])
+    assert recs["t.jsonl"][0]["data"]["c"] == [0, 1, 2]

@@ -49,8 +49,38 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.models.enhancement.frcrn",
                  "whisperjav_tpu_torch.models.enhancement.mossformer2",
                  "whisperjav_tpu_torch.modules.enhancement"
-                 ".bandsplit_backends"):
+                 ".bandsplit_backends",
+                 "whisperjav_tpu_torch.utils.tracer",
+                 "whisperjav_tpu_torch.utils.progress",
+                 "whisperjav_tpu_torch.utils.preflight",
+                 "whisperjav_tpu_torch.utils.async_processor",
+                 "whisperjav_tpu_torch.ensemble.merge",
+                 "whisperjav_tpu_torch.ensemble.orchestrator",
+                 "whisperjav_tpu_torch.translate.providers",
+                 "whisperjav_tpu_torch.translate.instructions",
+                 "whisperjav_tpu_torch.translate.settings",
+                 "whisperjav_tpu_torch.translate.project",
+                 "whisperjav_tpu_torch.translate.ollama_manager",
+                 "whisperjav_tpu_torch.translate.local_backend",
+                 "whisperjav_tpu_torch.translate.service",
+                 "whisperjav_tpu_torch.translate.cli"):
         assert name in mods
+
+
+def test_every_port_script_names_a_port_module():
+    """Each ``whisperjav-torch*`` script of pyproject.toml points into the
+    port, at a module that exists and has the named function."""
+    import importlib
+    text = (PKG_DIR.parent / "pyproject.toml").read_text(encoding="utf-8")
+    scripts = dict(re.findall(
+        r'^(whisperjav-torch[\w-]*) = "([\w.:]+)"$', text, re.M))
+    assert set(scripts) == {"whisperjav-torch", "whisperjav-torch-serve",
+                            "whisperjav-torch-finetune",
+                            "whisperjav-torch-translate"}
+    for target in scripts.values():
+        module, func = target.split(":")
+        assert module.startswith("whisperjav_tpu_torch.")
+        assert callable(getattr(importlib.import_module(module), func))
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -298,6 +328,85 @@ def test_clearvoice_cli_runs_without_jax():
     runs on the CPU with jax and the JAX package blocked from import, and
     enhances every scene."""
     proc = subprocess.run([sys.executable, "-c", _CLEARVOICE_RUN],
+                          cwd=str(PKG_DIR.parent), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    loaded = [line for line in proc.stdout.splitlines()
+              if line.startswith("LOADED:")]
+    assert loaded == ["LOADED:"], f"blocked modules loaded: {loaded}"
+
+
+_REST_RUN = """
+import sys, tempfile
+from pathlib import Path
+
+
+class _Blocked:
+    NAMES = ("jax", "jaxlib", "transformers", "whisperjav_tpu")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import numpy as np
+import torch
+from whisperjav_tpu_torch import cli
+from whisperjav_tpu_torch.models.qwen import model as qm
+from whisperjav_tpu_torch.models.qwen import weights as qw
+from whisperjav_tpu_torch.models.qwen.tokenizer import QwenTokenizer
+from whisperjav_tpu_torch.modules.audio_io import write_wav
+from whisperjav_tpu_torch.translate import cli as tcli
+from whisperjav_tpu_torch.translate.local_backend import LocalLMBackend
+from whisperjav_tpu_torch.translate.service import translate_srt
+
+torch.set_num_threads(1)
+sr, rng = 16000, np.random.default_rng(0)
+t = np.arange(5 * sr) / sr
+burst = (0.3 * np.sin(2 * np.pi * 180 * t)
+         + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+gap = np.zeros(sr, np.float32)
+run = ["--device", "cpu", "--model", "tiny", "--batch-size", "2",
+       "--logprob-threshold", "-100", "--no-sanitize"]
+with tempfile.TemporaryDirectory() as tmp:
+    wav = Path(tmp) / "clip.wav"
+    write_wav(wav, np.concatenate([gap, burst, gap]), sr)
+    ens = Path(tmp) / "ens"
+    assert cli.main([str(wav), "--output-dir", str(ens), "--ensemble",
+                     "--pass2-mode", "balanced", *run]) == 0
+    assert (ens / "ensemble_batch.json").exists()
+    out = Path(tmp) / "async"
+    assert cli.main([str(wav), "--output-dir", str(out),
+                     "--async-processing", "--output-format", "both",
+                     "--translate", "identity", "--trace-params",
+                     str(Path(tmp) / "t.jsonl"), *run]) == 0
+    assert (out / "clip.ja.whisperjav.vtt").exists()
+    assert (out / "clip.ja.en.srt").exists()
+    lm = qw.init_params(qm.QWEN_SIZES["qwen3-asr-test"],
+                        torch.Generator().manual_seed(0), audio=False)
+    backend = LocalLMBackend(params=lm, tokenizer=QwenTokenizer(),
+                             max_new_tokens=4, device="cpu")
+    translate_srt(out / "clip.ja.whisperjav.srt", provider="tpu-local",
+                  call_fn=backend, device="cpu")
+    import os
+    os.environ["WJAV_CONFIG_DIR"] = tmp
+    assert tcli.main(["--show-settings"]) == 0
+    assert cli.main(["--check"]) in (0, 1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in _Blocked.NAMES)
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_ensemble_async_translate_run_without_jax():
+    """``--ensemble``, ``--async-processing`` with ``--translate
+    identity`` and ``--trace-params``, the tpu-local backend on a seeded
+    LM-only tree, ``whisperjav-torch-translate --show-settings`` and
+    ``--check`` run on the CPU with jax, transformers and the JAX package
+    blocked from import, and load none of them."""
+    proc = subprocess.run([sys.executable, "-c", _REST_RUN],
                           cwd=str(PKG_DIR.parent), capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

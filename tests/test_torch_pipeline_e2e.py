@@ -148,16 +148,10 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--ensemble"], ["--daemon", "--devices", "2"], ["--check"],
+    ["--daemon", "--devices", "2"],
     ["--multihost", "--devices", "2"],
-    ["--async-processing"], ["--translate", "ollama"],
-    ["--daemon", "--ensemble"], ["--check-verbose"],
     ["--mode", "transformers", "--devices", "8"],
     ["--devices", "4"],
-    ["--trace-params", "trace.jsonl"],
-    ["--mode", "qwen", "--ensemble"],
-    ["--mode", "qwen", "--multihost", "--ensemble"],
-    ["--mode", "qwen", "--translate", "ollama"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
     assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2
@@ -167,6 +161,82 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
 # the qwen-mode CPU run: the test-width Qwen3-ASR
 _QWEN_CPU_RUN = ["--device", "cpu", "--qwen-model-id", "qwen3-asr-test",
                  "--qwen-batch-size", "2"]
+
+
+def _ollama_injected(monkeypatch):
+    """The ollama provider with its server and model calls injected: a
+    ready server, and each numbered line translated as "EN <text>"."""
+    from whisperjav_tpu_torch.translate import ollama_manager, service
+    monkeypatch.setattr(
+        ollama_manager.OllamaManager, "ensure_ready",
+        lambda self, model=None, auto_start=True: {
+            "model": "qwen2.5:7b", "num_ctx": 8192, "batch_size": 8,
+            "server_started": False, "base_url": self.base_url})
+
+    def call(cfg, prompt, model):
+        assert (cfg.api_style, model) == ("ollama", "qwen2.5:7b")
+        lines = prompt.split("---\n", 1)[-1].splitlines()
+        return "\n".join(f"{ln.split(':', 1)[0]}: EN{ln.split(':', 1)[1]}"
+                         for ln in lines)
+    monkeypatch.setattr(service, "_call_provider", call)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--ensemble"], ["--check"], ["--async-processing"],
+    ["--translate", "ollama"], ["--daemon", "--ensemble"],
+    ["--check-verbose"], ["--trace-params", "trace.jsonl"],
+    ["--mode", "qwen", "--ensemble"],
+    ["--mode", "qwen", "--multihost", "--ensemble"],
+    ["--mode", "qwen", "--translate", "ollama"],
+])
+def test_cli_reaches_the_branch_of_each_flag(tmp_path, capsys, monkeypatch,
+                                             flags):
+    """The flags the CLI once refused now run their branch on the CPU:
+    the Whisper runs at tiny widths (``test_torch_ensemble.
+    tiny_builders``), qwen mode at the test widths, the ollama provider's
+    server and calls injected. A qwen-mode ``--ensemble`` raises in both
+    packages: their orchestrators build every pass with the Whisper
+    factory, which has no qwen model."""
+    from test_torch_ensemble import tiny_builders
+    from whisperjav_tpu import cli as jcli
+    wav = _short_wav(tmp_path)
+    out = tmp_path / "out"
+    argv = [str(wav), "--output-dir", str(out), "--no-sanitize",
+            "--batch-size", "2",
+            *[f.replace("trace.jsonl", str(tmp_path / "trace.jsonl"))
+              for f in flags]]
+    qwen = "qwen" in flags
+    if "--translate" in flags:
+        _ollama_injected(monkeypatch)
+    if not qwen:
+        tiny_builders(monkeypatch)
+    if qwen and "--ensemble" in flags:
+        for main in (cli.main, jcli.main):
+            with pytest.raises(ValueError, match="unknown model "
+                               "'qwen3-asr-1.7b'"):
+                main([*argv, "--device", "cpu"])
+        return
+    rc = cli.main([*argv, *(_QWEN_CPU_RUN if qwen else ["--device", "cpu"])])
+    captured = capsys.readouterr()
+    assert "not ported yet" not in captured.err
+    if flags[0].startswith("--check"):
+        # no card here: the accelerator and nvcc rows fail
+        assert rc == 1 and "[FAIL] accelerator" in captured.out
+        return
+    assert rc == 0
+    srt = out / "short.ja.whisperjav.srt"
+    assert srt.exists()
+    if "--ensemble" in flags:
+        assert json.loads((out / "ensemble_batch.json").read_text())[
+            "ok"] == 1
+    if "--translate" in flags:
+        cues = load_srt(out / "short.ja.en.srt")
+        assert cues and all(c.text.startswith("EN") for c in cues)
+    if "--trace-params" in flags:
+        events = [json.loads(line)["event"] for line in
+                  (tmp_path / "trace.jsonl").read_text().splitlines()]
+        assert events == ["config", "file_start", "segmentation",
+                          "file_complete"]
 
 
 @pytest.mark.parametrize("flags,backend,engines", [

@@ -60,23 +60,16 @@ from typing import Dict, List, Optional
 
 from whisperjav_tpu_torch.cli_args import (
     _ASR_TO_MODE, _FEATURE_TO_SCENE, _json_flag, _parse_kv_args,
-    parse_arguments,
+    _pass_overrides, parse_arguments,
 )
 
 PORTED_MODES = ("faster", "fast", "balanced", "fidelity", "transformers",
                 "anime", "qwen")
-# argparse dest -> the flag a user typed, for flags outside the port
-_UNPORTED = {
-    "ensemble": "--ensemble",
-    "async_processing": "--async-processing", "translate": "--translate",
-    "check": "--check", "check_verbose": "--check-verbose",
-    "trace_params": "--trace-params",
-}
 
 
 def _unported(args) -> List[str]:
     """Every requested flag, mode or backend the port does not run."""
-    out = [flag for dest, flag in _UNPORTED.items() if getattr(args, dest)]
+    out = []
     if args.mode not in PORTED_MODES:
         out.append(f"--mode {args.mode}")
     if args.devices is not None and args.devices > 1:
@@ -368,12 +361,101 @@ def _daemon_batch(client, media, cfg, output_dir, out_lang: str,
     summary = {"files": len(media), "failures": failures,
                "wall_s": round(time.time() - t_start, 2),
                "daemon_port": port, "results": batch_stats}
-    if stats_file:
-        Path(stats_file).write_text(
-            json.dumps(summary, indent=2, default=str), encoding="utf-8")
+    _write_summary(stats_file, summary)
     logger.info("done (daemon): %d file(s), %d failure(s), %.1fs",
                 len(media), failures, summary["wall_s"])
     return 0 if failures == 0 else 2
+
+
+def _translate_output(args, srt_path: Path, device) -> None:
+    """Translate a written SRT with the ``--translate-*`` flags, as the JAX
+    CLI does (tone, movie context, endpoint and API-key overrides, the
+    Ollama context-window override, quiet mode); ``tpu-local`` runs its LM
+    on ``device``."""
+    import dataclasses
+    import logging
+    import os
+
+    from whisperjav_tpu_torch.translate.providers import (
+        max_batch_lines, resolve_provider,
+    )
+    from whisperjav_tpu_torch.translate.service import translate_srt
+    from whisperjav_tpu_torch.translate.settings import movie_context_block
+
+    if args.translate_api_key:
+        pcfg = resolve_provider(args.translate,
+                                base_url=args.translate_endpoint,
+                                model=args.translate_model)
+        if pcfg.api_key_env:
+            os.environ[pcfg.api_key_env] = args.translate_api_key
+    max_batch = None
+    if args.ollama_num_ctx:
+        pcfg = resolve_provider(args.translate,
+                                base_url=args.translate_endpoint,
+                                model=args.translate_model)
+        max_batch = max_batch_lines(
+            dataclasses.replace(pcfg, context_window=args.ollama_num_ctx))
+    ctx = movie_context_block({
+        "movie_title": args.translate_title,
+        "movie_plot": args.translate_plot,
+        "actress": args.translate_actress,
+    })
+    wj_logger = logging.getLogger("whisperjav_tpu")
+    prev_level = wj_logger.level
+    if args.translate_quiet:
+        wj_logger.setLevel(logging.WARNING)
+    try:
+        translate_srt(srt_path, provider=args.translate,
+                      model=args.translate_model,
+                      target_language=args.translate_target,
+                      base_url=args.translate_endpoint,
+                      tone=args.translate_tone,
+                      max_batch_size=max_batch,
+                      movie_context=ctx, device=device)
+    finally:
+        if args.translate_quiet:
+            wj_logger.setLevel(prev_level)
+
+
+def _ensemble_configs(args, overrides: Dict, dot: Dict):
+    """The two passes' configs, as the JAX CLI resolves them: the shared
+    override set plus each pass's ``--passN-*`` flags, ``--passN-mode``
+    (default ``--mode``) and ``--passN-sensitivity`` (pass 1: default
+    ``--sensitivity``; pass 2: ``aggressive``), then ``--passN-overrides``,
+    the JSON ``--passN-params`` (and ``-hf-``/``-qwen-params`` for those
+    modes) and last the shared ``--overrides``."""
+    from whisperjav_tpu_torch.config.presets import (
+        apply_dot_overrides, resolve_pipeline_config,
+    )
+    cfgs = []
+    for n, sens in ((1, args.pass1_sensitivity or args.sensitivity),
+                    (2, args.pass2_sensitivity)):
+        mode_n = getattr(args, f"pass{n}_mode") or args.mode
+        c = resolve_pipeline_config(mode=mode_n, sensitivity=sens,
+                                    **_pass_overrides(args, n, overrides))
+        if getattr(args, f"pass{n}_overrides"):
+            c = apply_dot_overrides(c, _parse_kv_args(
+                getattr(args, f"pass{n}_overrides"),
+                f"--pass{n}-overrides", keep_dots=True))
+        merged = _json_flag(getattr(args, f"pass{n}_params"),
+                            f"--pass{n}-params")
+        for mode, kind in (("transformers", "hf"), ("qwen", "qwen")):
+            if mode_n == mode:
+                merged.update(_json_flag(
+                    getattr(args, f"pass{n}_{kind}_params"),
+                    f"--pass{n}-{kind}-params"))
+        if merged:
+            c = apply_dot_overrides(c, merged)
+        if dot:
+            c = apply_dot_overrides(c, dot)
+        cfgs.append(c)
+    return cfgs
+
+
+def _write_summary(stats_file: Optional[str], summary: Dict) -> None:
+    if stats_file:
+        Path(stats_file).write_text(
+            json.dumps(summary, indent=2, default=str), encoding="utf-8")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -384,6 +466,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         mini.add_argument("--daemon-port", type=int, default=8478)
         known, _ = mini.parse_known_args(raw)
         return _daemon_stop(known.daemon_port)
+    if "--check" in raw or "--check-verbose" in raw:
+        # management action: no inputs required (the JAX parser asks for
+        # one), rc 0 when every hard requirement passes
+        from whisperjav_tpu_torch.utils.preflight import (
+            run_preflight_checks,
+        )
+        return 0 if run_preflight_checks(verbose=True) else 1
     args = parse_arguments(raw)
     if args.asr:
         args.mode = _ASR_TO_MODE[args.asr]
@@ -540,6 +629,30 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.info("nothing to do")
             return 0
 
+    from whisperjav_tpu_torch.utils.tracer import create_tracer
+    tracer = create_tracer(Path(args.trace_params) if args.trace_params
+                           else None)
+    tracer.event("config", {"mode": cfg.mode.name,
+                            "sensitivity": cfg.sensitivity.name,
+                            "model": cfg.model})
+    try:
+        return _process(args, cfg, media, overrides, dot, checkpoint,
+                        output_format, out_lang,
+                        tracer if args.trace_params else None)
+    finally:
+        tracer.close()
+
+
+def _process(args, cfg, media, overrides: Dict, dot: Dict,
+             checkpoint: Optional[str], output_format: str, out_lang: str,
+             tracer) -> int:
+    """Transcribe ``media`` by the route the flags pick (resident engine,
+    ensemble, async, or the file loop) and finalise every SRT written;
+    the exit code."""
+    from whisperjav_tpu_torch.modules.media_discovery import (
+        resolve_output_dir,
+    )
+    from whisperjav_tpu_torch.utils.logger import logger
     postprocessor = None
     if not args.no_sanitize:
         from whisperjav_tpu_torch.modules.sanitize import SRTPostProcessor
@@ -549,20 +662,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = args.device or "cuda"
 
     def finalize(srt_path: Path) -> None:
-        """Signatures, then VTT conversion."""
+        """Signatures, then translation, then VTT conversion."""
         if args.credit or not args.no_signature:
             from whisperjav_tpu_torch.modules.srt import add_signatures
             add_signatures(srt_path, producer_credit=args.credit,
                            add_technical_sig=not args.no_signature,
                            mode=cfg.mode.name,
                            sensitivity=cfg.sensitivity.name)
+        if args.translate:
+            _translate_output(args, srt_path, device)
         if output_format in ("vtt", "both"):
             from whisperjav_tpu_torch.modules.srt import srt_to_vtt
             srt_to_vtt(srt_path)
             if output_format == "vtt":
                 srt_path.unlink()
 
-    daemon_eligible = args.daemon
+    daemon_eligible = args.daemon and not args.ensemble
+    if args.daemon and args.ensemble:
+        logger.warning("--daemon does not cover ensemble mode (two engine "
+                       "configs per file); continuing in-process")
     if daemon_eligible and cfg.mode.name == "qwen":
         # the resident qwen engine runs the DEFAULT decoupled stack
         # (pipelines/qwen_factory.py); stack-level knobs can't reach it
@@ -585,7 +703,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if daemon_eligible:
         # the daemon owns scenes/VAD/decode/sanitize under ITS config
         # (fingerprint-matched in find_daemon); this process discovers
-        # media, writes outputs, and runs signatures/VTT
+        # media, writes outputs, and runs signatures/translation/VTT
         from whisperjav_tpu_torch.pipelines.daemon_client import get_daemon
         client = get_daemon(cfg, port=args.daemon_port,
                             checkpoint=checkpoint, device=device,
@@ -597,31 +715,81 @@ def main(argv: Optional[List[str]] = None) -> int:
         logger.warning("--daemon requested but no resident engine is "
                        "available; continuing in-process")
 
+    if args.ensemble:
+        from whisperjav_tpu_torch.ensemble.orchestrator import (
+            EnsembleOrchestrator,
+        )
+        cfg1, cfg2 = _ensemble_configs(args, overrides, dot)
+        summary = EnsembleOrchestrator(
+            cfg1, cfg2, merge_strategy=args.merge_strategy,
+            checkpoint=checkpoint, postprocessor=postprocessor,
+            serial_mode=args.ensemble_serial, device=device,
+        ).process_batch(media, args.output_dir)
+        for r in summary.get("results", []):
+            if r.get("output"):
+                finalize(Path(r["output"]))
+        _write_summary(args.stats_file, summary)
+        logger.info("ensemble done: %d ok, %d degraded, %d failed",
+                    summary["ok"], summary["degraded"], summary["failed"])
+        return 0 if summary["failed"] == 0 else 2
+
     if cfg.mode.name == "qwen":
         pipeline = _qwen_pipeline(args, cfg, checkpoint, device)
     else:
         from whisperjav_tpu_torch.pipelines.factory import build_pipeline
         pipeline = build_pipeline(cfg, checkpoint=checkpoint,
                                   postprocessor=postprocessor,
-                                  device=device)
+                                  device=device, tracer=tracer)
 
+    if args.async_processing and cfg.mode.name != "qwen":
+        # as in the JAX CLI, qwen mode takes the file loop below
+        from whisperjav_tpu_torch.utils.async_processor import (
+            AsyncPipelineManager,
+        )
+        t_start = time.time()
+        outcomes = AsyncPipelineManager(
+            pipeline, max_prefetch=max(args.max_workers, 1),
+        ).process_files(media, args.output_dir)
+        failures = sum(1 for o in outcomes if not o.ok)
+        # every written SRT is finalised, as in the file loop (the JAX
+        # CLI reads a srt_path attribute the written Path does not have)
+        for o in outcomes:
+            if o.ok:
+                finalize(Path(o.result))
+        summary = {
+            "files": len(media), "failures": failures,
+            "wall_s": round(time.time() - t_start, 2),
+            "results": [{"file": str(o.media.path), "ok": o.ok,
+                         "output": str(o.result) if o.ok else None,
+                         "error": o.error} for o in outcomes]}
+        _write_summary(args.stats_file, summary)
+        logger.info("done (async): %d file(s), %d failure(s), %.1fs",
+                    len(media), failures, summary["wall_s"])
+        return 0 if failures == 0 else 2
+
+    from whisperjav_tpu_torch.utils.progress import ProgressManager
+    progress = ProgressManager(
+        enabled=False if (args.no_progress or args.verbosity == "quiet")
+        else None)
+    progress.task("files", len(media))
     results, failures = [], 0
     t_start = time.time()
     for m in media:
         try:
-            result = pipeline.process(
-                m, resolve_output_dir(args.output_dir, m))
+            with progress.suppress_external():
+                result = pipeline.process(
+                    m, resolve_output_dir(args.output_dir, m))
             finalize(Path(result.srt_path))
             results.append(result.metadata)
         except Exception as e:  # keep the batch going
             logger.error("failed on %s: %s", m.path.name, e, exc_info=True)
             failures += 1
+        progress.advance("files")
+    progress.finish("files")
     summary = {"files": len(media), "failures": failures,
                "wall_s": round(time.time() - t_start, 2),
                "results": results}
-    if args.stats_file:
-        Path(args.stats_file).write_text(
-            json.dumps(summary, indent=2, default=str), encoding="utf-8")
+    _write_summary(args.stats_file, summary)
     logger.info("done: %d file(s), %d failure(s), %.1fs", len(media),
                 failures, summary["wall_s"])
     return 0 if failures == 0 else 2

@@ -1,9 +1,9 @@
 """The ``whisperjav`` argument parser, for the port's command line.
 
 A copy of ``whisperjav_tpu/cli.py``'s ``parse_arguments`` and its
-helpers, so that ``whisperjav-torch`` accepts every flag of the JAX CLI
-(and refuses the ones it does not run with "not ported yet") without
-importing the JAX package.
+helpers (``_pass_overrides`` among them), so that ``whisperjav-torch``
+accepts every flag of the JAX CLI (and refuses the ones it does not run
+with "not ported yet") without importing the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import argparse
 import json
 import sys
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 def parse_arguments(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -547,6 +547,30 @@ def _json_flag(value: Optional[str], flag: str) -> dict:
     if not isinstance(loaded, dict):
         raise SystemExit(f"{flag} expects a JSON object")
     return loaded
+
+
+def _pass_overrides(args, n: int, base: Dict) -> Dict:
+    """Per-pass ensemble overrides on top of the shared CLI override set
+    (reference: main.py pass1/pass2 flag groups, :155-695)."""
+    out = dict(base)
+    get = lambda name: getattr(args, f"pass{n}_{name}")  # noqa: E731
+    if get("model"):
+        out["model"] = get("model")
+    if get("vad_threshold") is not None:
+        out["vad_threshold"] = get("vad_threshold")
+    if get("speech_segmenter"):
+        out["vad_backend"] = get("speech_segmenter")
+    if get("scene_detector"):
+        out["scene_backend"] = get("scene_detector")
+    if get("speech_enhancer"):
+        out["enhancer_backend"] = get("speech_enhancer")
+    if get("enhance_for_vad"):
+        out["enhance_for_vad"] = True
+    if get("speech_pad_ms") is not None:
+        pad_s = get("speech_pad_ms") / 1000.0
+        out["vad_kwargs"] = {**(out.get("vad_kwargs") or {}),
+                             "pad_start_s": pad_s, "pad_end_s": pad_s}
+    return out
 
 
 _ASR_TO_MODE = {

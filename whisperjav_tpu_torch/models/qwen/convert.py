@@ -3,7 +3,9 @@
 The port's copy of ``whisperjav_tpu/models/qwen/convert.py`` (numpy
 only): the tree it builds goes to :class:`QwenASR` through
 ``weights.params_from_jax``. Reading a checkpoint needs ``transformers``;
-without it :func:`load_pretrained` raises.
+without it :func:`load_pretrained` and :func:`load_lm` raise.
+:func:`load_lm` reads a text-only Qwen3 causal LM (an instruct
+checkpoint for the local translation backend) into an LM-only tree.
 
 Maps the published qwen-asr / Qwen3-Omni-style state dict (reference
 binding: whisperjav/modules/qwen_asr.py:545,581-608 loads
@@ -130,6 +132,24 @@ def _stack_audio_blocks(sd, cfg: QwenASRConfig, dtype) -> Dict[str, np.ndarray]:
     }
 
 
+def lm_params_from_state_dict(sd: Mapping[str, Any], cfg: QwenASRConfig,
+                              dtype=np.float32) -> Dict[str, Any]:
+    """LM-only param tree (no audio tower) from a text-only Qwen state
+    dict: the local translation backend loads instruct checkpoints this
+    way. The head falls back to the tied embedding, copied."""
+    sd = _strip_prefixes(sd)
+    if "lm_head.weight" in sd:
+        lm_head = _np(sd["lm_head.weight"]).T.astype(dtype)
+    else:
+        lm_head = _np(sd["model.embed_tokens.weight"]).T.astype(dtype)
+    return {
+        "tok_emb": _np(sd["model.embed_tokens.weight"]).astype(dtype),
+        "blocks": _stack_lm_blocks(sd, cfg, dtype),
+        "ln_f": _np(sd["model.norm.weight"]).astype(dtype),
+        "lm_head": lm_head,
+    }
+
+
 def params_from_hf_state_dict(
     sd: Mapping[str, Any], cfg: QwenASRConfig, dtype=np.float32,
     audio_fallback: Optional[Dict] = None,
@@ -140,18 +160,7 @@ def params_from_hf_state_dict(
     has no ``audio_tower.*`` keys (text-only checkpoints).
     """
     sd = _strip_prefixes(sd)
-
-    if "lm_head.weight" in sd:
-        lm_head = _np(sd["lm_head.weight"]).T.astype(dtype)
-    else:  # tied embeddings (Qwen3 0.6B/1.7B)
-        lm_head = _np(sd["model.embed_tokens.weight"]).T.astype(dtype)
-
-    params: Dict[str, Any] = {
-        "tok_emb": _np(sd["model.embed_tokens.weight"]).astype(dtype),
-        "blocks": _stack_lm_blocks(sd, cfg, dtype),
-        "ln_f": _np(sd["model.norm.weight"]).astype(dtype),
-        "lm_head": lm_head,
-    }
+    params = lm_params_from_state_dict(sd, cfg, dtype)
 
     if any(k.startswith("audio_tower.") for k in sd):
         params["audio"] = {
@@ -198,3 +207,32 @@ def load_pretrained(model_name_or_path: str, dtype=np.float32):
     cfg = config_from_hf(hf.config)
     params = params_from_hf_state_dict(hf.state_dict(), cfg, dtype)
     return cfg, params
+
+
+def load_lm(model_name_or_path: str, dtype=np.float32):
+    """Load a text-only Qwen3-family causal LM (e.g. a local Qwen3
+    instruct checkpoint) for text generation on the card.
+
+    Returns (config, numpy tree) with no ``audio`` subtree, for
+    :func:`whisperjav_tpu_torch.models.qwen.model.generate_text` through
+    ``weights.params_from_jax``. A checkpoint without Qwen3's per-head
+    q/k norms (Qwen2.5-style) is refused: the LM implements the Qwen3
+    block. Raises ImportError where transformers is not installed.
+    """
+    try:
+        import transformers
+    except ImportError as e:
+        raise ImportError(
+            f"reading the Qwen3 checkpoint {model_name_or_path!r} needs the "
+            "transformers package, which is not installed") from e
+
+    hf = transformers.AutoModelForCausalLM.from_pretrained(
+        model_name_or_path, trust_remote_code=False, local_files_only=True)
+    cfg = config_from_hf(hf.config)
+    sd = hf.state_dict()
+    if "model.layers.0.self_attn.q_norm.weight" not in _strip_prefixes(sd):
+        raise ValueError(
+            "checkpoint lacks q/k-norm weights (Qwen2.5-style); the LM "
+            "implements the Qwen3 block — use a Qwen3-family instruct "
+            "checkpoint")
+    return cfg, lm_params_from_state_dict(sd, cfg, dtype)

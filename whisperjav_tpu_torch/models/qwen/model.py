@@ -14,7 +14,9 @@ JAX tree one to one:
   embeddings, grouped-query attention (query head h reads KV group
   h // rep), SwiGLU MLP, a (L, B, T, n_kv * hd) cache;
 - :func:`generate`: the audio prefix [+ context] + BOS, then greedy or
-  Gumbel-max sampled steps with a repetition penalty.
+  Gumbel-max sampled steps with a repetition penalty;
+  :func:`generate_text` the same steps after a text prompt alone (the
+  local translation backend; a tree without ``audio`` serves it).
 
 Int8 LM weights (:func:`quantize_lm_weights`) are the JAX tree's
 ``{"q": int8, "s": f32}`` leaves, held as :class:`Int8Weight`; their
@@ -464,45 +466,27 @@ class QwenGenResult(NamedTuple):
 FINISHED_CHECK_EVERY = 8
 
 
-@torch.inference_mode()
-def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
-             audio_len: int, repetition_penalty: float = 1.1,
-             temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None,
-             gumbel: Optional[Callable[[int], torch.Tensor]] = None,
-             ctx_ids: Optional[torch.Tensor] = None) -> QwenGenResult:
-    """Transcribe mel windows: audio prefix [+ context] + BOS, then up to
-    ``max_new`` greedy (temperature 0) or sampled steps.
+def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
+            max_new: int, repetition_penalty: float, temperature: float,
+            generator: Optional[torch.Generator],
+            gumbel: Optional[Callable[[int], torch.Tensor]]
+            ) -> QwenGenResult:
+    """Up to ``max_new`` greedy (temperature 0) or sampled steps from the
+    logits ``cur`` (B, vocab) of the prefix's last position; generated
+    token i lands at cache position ``start + i``.
 
-    audio_len: audio embedding positions kept as the LM prefix (at most
-    ``cfg.audio_tokens_for(mel frames)``). ctx_ids: optional (1, L) or
-    (B, L) context token ids between the audio prefix and BOS. Sampling is
-    ``argmax(logits + T * gumbel)`` with the noise of step i from
-    ``gumbel(i)`` when given, else drawn from ``generator``. The
+    Sampling is ``argmax(logits + T * gumbel)`` with the noise of step i
+    from ``gumbel(i)`` when given, else drawn from ``generator``. The
     repetition penalty divides positive and multiplies negative logits of
-    every id emitted so far except EOS. Finished rows emit EOS;
-    ``avg_logprob = sum_lp / (length + 1)``."""
+    every id emitted so far except EOS (the prefix is not "seen").
+    Finished rows emit EOS; ``avg_logprob = sum_lp / (length + 1)``."""
     cfg = model.config
     sample = temperature != 0.0
     if sample and gumbel is None and generator is None:
         raise ValueError("sampling at temperature > 0 needs a generator "
                          "or a gumbel callable")
-    b = mel.shape[0]
-    dev = mel.device
-    audio_emb = encode_audio(model, mel)[:, :audio_len]
-    ctx_len = 0 if ctx_ids is None else ctx_ids.shape[-1]
-    t_max = audio_len + ctx_len + 1 + max_new
+    b, dev = cur.shape[0], cur.device
     tok_emb = model.tok_emb
-    cache = LMCache.zeros(cfg, b, t_max, tok_emb.dtype, dev)
-    parts = [audio_emb]
-    if ctx_ids is not None:
-        ctx = torch.as_tensor(ctx_ids, device=dev).long().expand(b, ctx_len)
-        parts.append(tok_emb[ctx].to(audio_emb.dtype))
-    bos = torch.full((b, 1), cfg.bos_id, dtype=torch.long, device=dev)
-    parts.append(tok_emb[bos].to(audio_emb.dtype))
-    logits, cache = lm_step(model, torch.cat(parts, dim=1), 0, cache)
-    cur = logits[:, -1]
-
     eos = cfg.eos_id
     tokens = torch.full((b, max_new), eos, dtype=torch.long, device=dev)
     sum_lp = torch.zeros((b,), device=dev)
@@ -539,12 +523,76 @@ def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
         if penalize:
             seen.scatter_(1, tok[:, None], True)
             seen[:, eos] = False
-        pos = audio_len + ctx_len + 1 + step
-        nxt, cache = lm_step(model, tok_emb[tok[:, None]], pos, cache)
+        nxt, cache = lm_step(model, tok_emb[tok[:, None]], start + step,
+                             cache)
         cur = nxt[:, 0]
         finished = finished | is_eos
     avg_lp = sum_lp / (length.float() + 1.0)
     return QwenGenResult(tokens, length, avg_lp)
+
+
+@torch.inference_mode()
+def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
+             audio_len: int, repetition_penalty: float = 1.1,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             gumbel: Optional[Callable[[int], torch.Tensor]] = None,
+             ctx_ids: Optional[torch.Tensor] = None) -> QwenGenResult:
+    """Transcribe mel windows: audio prefix [+ context] + BOS, then up to
+    ``max_new`` greedy (temperature 0) or sampled steps (:func:`_decode`).
+
+    audio_len: audio embedding positions kept as the LM prefix (at most
+    ``cfg.audio_tokens_for(mel frames)``). ctx_ids: optional (1, L) or
+    (B, L) context token ids between the audio prefix and BOS."""
+    cfg = model.config
+    b = mel.shape[0]
+    dev = mel.device
+    audio_emb = encode_audio(model, mel)[:, :audio_len]
+    ctx_len = 0 if ctx_ids is None else ctx_ids.shape[-1]
+    t_max = audio_len + ctx_len + 1 + max_new
+    tok_emb = model.tok_emb
+    cache = LMCache.zeros(cfg, b, t_max, tok_emb.dtype, dev)
+    parts = [audio_emb]
+    if ctx_ids is not None:
+        ctx = torch.as_tensor(ctx_ids, device=dev).long().expand(b, ctx_len)
+        parts.append(tok_emb[ctx].to(audio_emb.dtype))
+    bos = torch.full((b, 1), cfg.bos_id, dtype=torch.long, device=dev)
+    parts.append(tok_emb[bos].to(audio_emb.dtype))
+    logits, cache = lm_step(model, torch.cat(parts, dim=1), 0, cache)
+    return _decode(model, logits[:, -1], cache, audio_len + ctx_len + 1,
+                   max_new, repetition_penalty, temperature, generator,
+                   gumbel)
+
+
+@torch.inference_mode()
+def generate_text(model: QwenASR, prompt_ids, prompt_len, max_new: int,
+                  repetition_penalty: float = 1.0, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  gumbel: Optional[Callable[[int], torch.Tensor]] = None
+                  ) -> QwenGenResult:
+    """LM-only generation (no audio tower): the local translation
+    backend's decode loop (``models/qwen/model.py:generate_text`` of the
+    JAX package).
+
+    prompt_ids: (B, L) prompt ids, right-padded past ``prompt_len`` (B,),
+    which every row shares (callers pass B=1). Only the real prompt is
+    prefilled: the JAX package pads it to a bucket to bound its
+    compiles, which changes no result, and eager PyTorch compiles
+    nothing. Then up to ``max_new`` steps as :func:`_decode`; tokens are
+    EOS-padded to ``max_new`` and ``length`` excludes the EOS."""
+    dev = model.tok_emb.device
+    lens = torch.as_tensor(prompt_len).reshape(-1)
+    n = int(lens[0])
+    if not bool((lens == n).all()) or n < 1:
+        raise ValueError(f"prompt lengths {lens.tolist()}: every row must "
+                         "share one length of at least 1")
+    ids = torch.as_tensor(prompt_ids, device=dev).long()[:, :n]
+    tok_emb = model.tok_emb
+    cache = LMCache.zeros(model.config, ids.shape[0], n + max_new,
+                          tok_emb.dtype, dev)
+    logits, cache = lm_step(model, tok_emb[ids], 0, cache)
+    return _decode(model, logits[:, -1], cache, n, max_new,
+                   repetition_penalty, temperature, generator, gumbel)
 
 
 def token_budget(cfg: QwenASRConfig, audio_seconds: float) -> int:

@@ -54,12 +54,14 @@ def params_from_jax(tree: Dict, cfg: QwenASRConfig,
 
 def init_params(cfg: QwenASRConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device="cpu") -> QwenASR:
+                device="cpu", audio: bool = True) -> QwenASR:
     """Random weights with the JAX init's shapes and scales: LM matrices,
     token embedding and lm head N(0, 1/d_model), audio-tower matrices
     N(0, 1/d_audio), convolution kernels N(0, 0.01), norm scales one,
     biases zero. Drawn from ``generator``, which must live on
-    ``device``."""
+    ``device``, where every leaf is made. ``audio=False`` leaves the
+    audio tower out: the LM-only tree ``convert.load_lm`` gives, with the
+    embedding and the head as separate arrays."""
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, device=device)
                 * scale).to(dtype)
@@ -83,6 +85,11 @@ def init_params(cfg: QwenASRConfig, generator: torch.Generator,
         "w_up": normal((L, d, cfg.d_ff), s),
         "w_down": normal((L, cfg.d_ff, d), s),
     }
+    lm = {"blocks": blocks}
+    if not audio:
+        return QwenASR(cfg, {"tok_emb": normal((cfg.vocab_size, d), s),
+                             **lm, "ln_f": ones(d),
+                             "lm_head": normal((d, cfg.vocab_size), s)})
     da, h, La = cfg.d_audio, cfg.audio_downsample_hidden, cfg.audio_layers
     sa = da ** -0.5
     freq_out = cfg.n_mels

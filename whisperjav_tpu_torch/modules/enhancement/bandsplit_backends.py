@@ -50,7 +50,7 @@ class _ChunkedModelBackend:
     is_lightweight = False
     sample_rate = 16_000
 
-    def __init__(self, device="cpu", **kwargs):
+    def __init__(self, device="cuda", **kwargs):
         self.config = _HeavyConfig(**kwargs)
         self.device = torch.device(device)
         self._model = None
@@ -130,7 +130,7 @@ class ClearVoiceBackend(_ChunkedModelBackend):
     sample_rate = 48_000
     DEFAULT_MODEL = "MossFormer2_SE_48K"     # the reference's default
 
-    def __init__(self, device="cpu", **kwargs):
+    def __init__(self, device="cuda", **kwargs):
         model = kwargs.get("model") or self.DEFAULT_MODEL
         if model.upper().startswith("FRCRN"):
             self.sample_rate = 16_000

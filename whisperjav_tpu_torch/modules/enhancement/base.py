@@ -62,7 +62,7 @@ def is_passthrough_backend(backend: Optional[str]) -> bool:
         isinstance(backend, str) and backend.lower() in _PASSTHROUGH)
 
 
-def create_enhancer(backend: Optional[str] = "none", device="cpu",
+def create_enhancer(backend: Optional[str] = "none", device="cuda",
                     **kwargs) -> SpeechEnhancer:
     """The enhancer for ``backend``; the networks run on ``device``."""
     b = (backend or "none").lower()

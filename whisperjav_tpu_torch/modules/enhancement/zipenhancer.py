@@ -42,7 +42,7 @@ class ZipEnhancer:
     name = "zipenhancer"
     is_lightweight = True   # ~2 M params
 
-    def __init__(self, device="cpu", **kwargs):
+    def __init__(self, device="cuda", **kwargs):
         self.config = ZipEnhancerConfig(**kwargs)
         self.device = torch.device(device)
         self._model = None

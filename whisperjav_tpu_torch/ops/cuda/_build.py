@@ -6,17 +6,21 @@ shared library with a plain C interface. The library
 lands in ``build/whisperjav_tpu_torch/`` at the root of the checkout,
 named by a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads what is there. Nothing is built or
-loaded at import time: :func:`load_library` does both at first use.
+loaded at import time: :func:`load_library` does both at first use,
+once per process however many threads make that first call together
+(``--async-processing`` runs the VAD networks in a producer thread while
+the engine decodes in the caller's). A build's temporary files carry the
+process and thread ids, so concurrent builds never share one.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -65,9 +69,10 @@ def build(csrc_dir: Path = CSRC_DIR,
     out = library_path(csrc_dir, build_dir)
     if out.exists():
         return out, 0.0, ""
-    tmp_dir = Path(build_dir) / f"objects.{os.getpid()}"
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp_dir = Path(build_dir) / f"objects.{tag}"
     tmp_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
@@ -135,10 +140,19 @@ def open_library(path: Path) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY: Optional[ctypes.CDLL] = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
-    """Build if needed and load once per process."""
-    return open_library(build()[0])
+    """Build if needed and load once per process; threads that make the
+    first call together wait for one build."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = open_library(build()[0])
+    return _LIBRARY
 
 
 def check(err: int, what: str) -> None:

@@ -113,6 +113,7 @@ def build_pipeline(
     checkpoint: Optional[str] = None,
     postprocessor=None,
     device="cuda",
+    tracer=None,
 ) -> TranscribePipeline:
     """The file pipeline for ``cfg`` (default: the flagless balanced
     mode and sensitivity) on one device, computing in bf16, with int8
@@ -121,7 +122,7 @@ def build_pipeline(
     ("ja": the JA-plausible ids of a real tokenizer; an integer: that
     many evenly spaced text ids), the enhancer ``cfg.enhancer_backend`` on
     the same device, and overlapped chunks instead of scenes and VAD in
-    transformers mode."""
+    transformers mode; ``tracer`` receives the pipeline's events."""
     if cfg is None:
         cfg = resolve_pipeline_config()
     model_config, model = load_model(cfg.model, checkpoint, device=device)
@@ -176,6 +177,7 @@ def build_pipeline(
         enhancer_backend=cfg.enhancer_backend,
         enhancer_kwargs=cfg.enhancer_kwargs,
         postprocessor=postprocessor,
+        tracer=tracer,
         pack=cfg.pack_windows,
         chunked=cfg.mode.name == "transformers",
         chunk_s=cfg.chunk_s,

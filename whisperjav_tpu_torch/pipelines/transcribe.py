@@ -9,7 +9,9 @@ scene is denoised on the engine's device before VAD, and the enhanced
 audio is what the engine decodes, unless ``enhance_for_vad`` keeps the
 enhanced track for VAD only. ``chunked`` (transformers mode) replaces
 scenes and VAD by fixed overlapped chunks, each keeping the segments
-whose midpoint falls in its own span.
+whose midpoint falls in its own span. A ``tracer`` (``--trace-params``)
+receives the JAX package's ``file_start``, ``segmentation`` and
+``file_complete`` events with the same data.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class TranscribePipeline:
         enhancer_backend: Optional[str] = None,
         enhancer_kwargs: Optional[Dict] = None,
         postprocessor=None,          # SRTPostProcessor-compatible, optional
+        tracer=None,                 # ParameterTracer-compatible, optional
         pack: bool = True,           # pack short groups into shared windows
         chunked: bool = False,       # overlapped fixed chunking, no VAD
         chunk_s: float = 30.0,
@@ -85,6 +88,7 @@ class TranscribePipeline:
                                               device=engine.device,
                                               **(enhancer_kwargs or {})))
         self.postprocessor = postprocessor
+        self.tracer = tracer
         self.pack = pack
         self.chunked = chunked
         self.chunk_s = chunk_s
@@ -177,6 +181,8 @@ class TranscribePipeline:
         t0 = time.time()
         windows, stats = self.collect_windows(audio, sample_rate)
         t_seg = time.time() - t0
+        if self.tracer:
+            self.tracer.event("segmentation", stats)
         t0 = time.time()
         results = self.engine.transcribe_windows(windows, seed=seed)
         t_asr = time.time() - t0
@@ -239,6 +245,9 @@ class TranscribePipeline:
         audio, duration = AudioExtractor(WHISPER_SAMPLE_RATE).extract(
             media.path)
         t_extract = time.time() - t_extract
+        if self.tracer:
+            self.tracer.event("file_start", {"file": str(media.path),
+                                             "duration": duration})
 
         subtitles, stats = self.process_audio(audio, WHISPER_SAMPLE_RATE,
                                               seed=seed)
@@ -284,6 +293,8 @@ class TranscribePipeline:
         (output_dir / f"{media.basename}.transcribe.json").write_text(
             json.dumps({"windows": self._last_window_diagnostics}, indent=1,
                        default=str), encoding="utf-8")
+        if self.tracer:
+            self.tracer.event("file_complete", stats)
         logger.info("wrote %s (%d subtitles, RTF %sx)", srt_path.name,
                     len(subtitles), stats.get("rtf_x"))
         return PipelineResult(media, srt_path, subtitles, metadata)
