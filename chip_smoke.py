@@ -5,7 +5,8 @@
                                           # turbo, large-v2, fidelity,
                                           # qwen, vad, serve, enhance,
                                           # train, multihost, ensemble,
-                                          # async, translate (comma list)
+                                          # async, translate, tools
+                                          # (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -115,8 +116,8 @@ Phases, in order; any failure exits non-zero before the result line:
 13. the ensemble phase: ``whisperjav-torch a.wav b.wav --ensemble
    --pass1-mode balanced --pass2-mode fidelity --merge-strategy
    smart_merge`` on 25.8 s and 34.4 s clips (turbo beam 2 bf16, then
-   large-v2 bf16 at aggressive; the fidelity enhancer passes audio
-   through without weights): ``ensemble_batch.json`` ok 2, each pass's
+   large-v2 bf16 at aggressive, its decoder cut to ENSEMBLE_PASS2_LAYERS
+   layers; the fidelity enhancer passes audio through without weights): ``ensemble_batch.json`` ok 2, each pass's
    parameters on the card, Kernel A and Kernel B's bf16 form launched in
    each pass, the memory allocated when pass 2 is built back within
    ENSEMBLE_DROP_SLACK of where it was before pass 1; each pass's wall,
@@ -133,7 +134,22 @@ Phases, in order; any failure exits non-zero before the result line:
    backend (every call returns; parameters on the card), with ms per
    generate step at B=1, tokens a second, the prefill of a 400-token
    prompt and the step's byte bound; then ``--translate identity`` end
-   to end and ``whisperjav-torch --check`` (exit 0, naming the card).
+   to end and ``whisperjav-torch --check`` (exit 0, naming the card);
+16. the tools phase: ``python -m whisperjav_tpu_torch.tools.e2e_bench``
+   on a 2-minute synthetic file, flagless, with ``WJAV_TRACE_BATCHES=1``
+   (its JSON line: ``e2e_file_rtf_balanced`` above 0, the stage and
+   batch-phase walls, the rungs, a cuda engine); ``decode_profile`` at
+   large-v2 greedy B=64 (budgets 32, 80, 128, every group, the bf16
+   phase; every variant timed but ``int4_cross_kv``, an error row; the
+   base slope above 0; launches per step of each variant; one timed
+   round);
+   ``whisperjav-torch-first-weights`` on a narrow HF Whisper that
+   transformers writes from a seed (hd = 64): stages 0 and 1 pass, stage
+   2's bf16 and int8 arms on the card launch Kernel A and B and the
+   three fused blocks (the verdict is printed: random weights set it);
+   ``determinism_suite``, two flagless runs on a ~20 s clip with one SRT
+   hash and byte-identical window diagnostics; ``whisperjav-torch-bench`` grading the e2e SRT against itself
+   (CER 0, IoU 1).
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -167,6 +183,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import io
 import json
 import math
 import re
@@ -2840,6 +2857,9 @@ ENSEMBLE_CLIPS = ((61, 20.0), (60, 26.0))
 ASYNC_CLIPS = ((70, 15.0), (71, 20.0), (72, 20.0))
 # memory pass 1 may leave behind when it is dropped (allocator slack)
 ENSEMBLE_DROP_SLACK = 256 * 2**20
+# the ensemble's pass 2 (large-v2 on bf16 weights: unfused, host-bound
+# decode layers) runs at full width with its decoder cut to this depth
+ENSEMBLE_PASS2_LAYERS = 8
 TRANSLATE_TOL_REL = 1e-4
 TRANSLATE_MAX_NEW = 128
 # Qwen3-1.7B's LM widths: those of the port's qwen3-asr-1.7b config
@@ -2855,11 +2875,27 @@ def zero_launches() -> None:
         fn.launches = 0
 
 
+@contextlib.contextmanager
+def decoder_depth(model: str, n_layers: int):
+    """The named Whisper size with its decoder cut to ``n_layers`` layers
+    (widths kept) inside the block."""
+    import dataclasses
+    from whisperjav_tpu_torch.models.whisper import config as wc
+    saved = wc.WHISPER_SIZES[model]
+    wc.WHISPER_SIZES[model] = dataclasses.replace(saved,
+                                                  n_text_layer=n_layers)
+    try:
+        yield
+    finally:
+        wc.WHISPER_SIZES[model] = saved
+
+
 def run_ensemble_phase(tmp: Path) -> dict:
     """``whisperjav-torch a.wav b.wav --ensemble --pass1-mode balanced
     --pass2-mode fidelity --merge-strategy smart_merge``: turbo beam-2 bf16
     then large-v2 bf16 at aggressive (the fidelity enhancer passes audio
-    through without weights), full width and depth. ``ensemble_batch.json``
+    through without weights), full width, the decoder cut to
+    ENSEMBLE_PASS2_LAYERS layers. ``ensemble_batch.json``
     must say ok 2; each pass's parameters on the card; Kernel A and Kernel
     B's bf16 form launched in each pass; the memory allocated when pass 2
     is built back within ENSEMBLE_DROP_SLACK of where it was before pass
@@ -2890,10 +2926,11 @@ def run_ensemble_phase(tmp: Path) -> dict:
     zero_launches()
     orch.EnsembleOrchestrator._build = spy
     try:
-        rc = cli.main([*map(str, clips), "--output-dir", str(out),
-                       "--ensemble", "--pass1-mode", "balanced",
-                       "--pass2-mode", "fidelity", "--merge-strategy",
-                       "smart_merge"])
+        with decoder_depth("large-v2", ENSEMBLE_PASS2_LAYERS):
+            rc = cli.main([*map(str, clips), "--output-dir", str(out),
+                           "--ensemble", "--pass1-mode", "balanced",
+                           "--pass2-mode", "fidelity", "--merge-strategy",
+                           "smart_merge"])
         torch.cuda.synchronize()
         end = time.perf_counter()
     finally:
@@ -3034,7 +3071,6 @@ def run_translate_phase(dev, tmp: Path, srt: Path) -> None:
     tokens a second, the prefill time and the step's byte bound; then
     ``whisperjav-torch clip.wav --translate identity`` and
     ``whisperjav-torch --check`` (exit 0, naming the card)."""
-    import io
     from whisperjav_tpu_torch import cli
     from whisperjav_tpu_torch.models.qwen import model as qm
     from whisperjav_tpu_torch.models.qwen import weights as qw
@@ -3178,6 +3214,282 @@ def run_translate_phase(dev, tmp: Path, srt: Path) -> None:
         raise RuntimeError(f"--check exited {rc}")
 
 
+# ---------------------------------------------------------------------------
+# the tools phase: the developer tools and whisperjav-torch-bench
+# ---------------------------------------------------------------------------
+
+# every tool's --device
+TOOLS_DEVICE = "cuda"
+# e2e_bench's synthetic file (its synth_long_wav), in minutes
+TOOLS_E2E_MINUTES = 2.0
+# e2e_bench's flags: the flagless path (turbo, beam 2, B=32)
+TOOLS_E2E_FLAGS = ()
+# decode_profile: large-v2 greedy at B=64, the JAX tool's budgets (32,
+# 128 and the mid cell 80), every group, the bf16 phase included; one
+# timed round: the int8-unfused and bf16 cells are host-bound (45-100
+# ms a step), and two rounds took 363-394 s of the script's time
+TOOLS_PROFILE_ARGS = ("--model", "large-v2", "--batch", "64", "--iters",
+                      "1", "--budgets", "32", "128", "--mid-budget", "80")
+# the greedy large-v2 int8 B=64 step of the large-v2 phase's breakdown
+# (PERF.md §5, H100 80GB HBM3 at 700 W), printed beside the profile's
+# slopes
+GREEDY_LV2_MS_PER_STEP = 12.010
+# first_weights' narrow HF Whisper: hd = 64 (Kernel A takes only that),
+# 80 mels, the real vocabulary
+TOOLS_FW_WHISPER = dict(vocab_size=51865, num_mel_bins=80, d_model=256,
+                        encoder_layers=2, decoder_layers=2,
+                        encoder_attention_heads=4, decoder_attention_heads=4,
+                        encoder_ffn_dim=1024, decoder_ffn_dim=1024,
+                        max_source_positions=1500, max_target_positions=448)
+# its stage 2 arms must launch these (bf16: Kernel A and B's bf16 form;
+# int8: the fused blocks and the kernels inside them)
+FIRST_WEIGHTS_NEEDS = INT8_NEEDS
+# determinism_suite: two flagless runs on a ~20 s clip
+TOOLS_DET_CLIP_S = 20.0
+TOOLS_DET_ARGS = ("--runs", "2", "--mode", "balanced", "--model", "turbo",
+                  "--batch-size", "32")
+
+
+def run_e2e_bench(tmp: Path) -> tuple:
+    """``python -m whisperjav_tpu_torch.tools.e2e_bench`` on a synthetic
+    file, flagless, with ``WJAV_TRACE_BATCHES=1``: the JSON line must name
+    the metric, a positive value, the stage and batch-phase walls and the
+    rungs, and a cuda engine. Returns the line and the kept SRT."""
+    import os
+    env = dict(os.environ, WJAV_TRACE_BATCHES="1", TMPDIR=str(tmp))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "whisperjav_tpu_torch.tools.e2e_bench",
+         "--minutes", str(TOOLS_E2E_MINUTES), "--keep", "--budget-s", "600",
+         "--stall-s", "300", "--device", TOOLS_DEVICE, "--",
+         *TOOLS_E2E_FLAGS],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"e2e_bench exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    kept = re.search(r"outputs kept in (\S+)", proc.stderr)
+    missing = [k for k in ("stage_s", "batch_phase_s", "rungs_each")
+               if k not in line]
+    if (line.get("metric") != "e2e_file_rtf_balanced"
+            or not line.get("value", 0) > 0 or missing or kept is None):
+        raise RuntimeError(f"e2e_bench line: {line} (missing {missing})")
+    if not str(line.get("device")).startswith(TOOLS_DEVICE):
+        raise RuntimeError(f"e2e_bench: the CLI child ran on "
+                           f"{line.get('device')!r}, not the card")
+    srt = Path(kept.group(1)) / "out" / "e2e_input.ja.whisperjav.srt"
+    log(f"e2e_bench (flagless, {line['audio_s']} s synthetic file, "
+        f"engine {line['device']}): e2e_file_rtf_balanced {line['value']}x "
+        f"(vs_baseline {line['vs_baseline']}), wall_s {line['wall_s']}, "
+        f"process_wall_s {line['process_wall_s']}, tool wall {wall:.3f} s; "
+        f"beside it: a 128.9 s clip took 5.2-9.1 s of flagless CLI wall "
+        f"(PERF.md §5)")
+    log(f"e2e_bench stages (s) {json.dumps(line['stage_s'])}; batch phases "
+        f"(s) {json.dumps(line['batch_phase_s'])}; batch_s_each "
+        f"{line['batch_s_each']}; rungs_each {line['rungs_each']}; windows "
+        f"{line['windows']}, subtitles {line['subtitles']}")
+    return line, srt
+
+
+def run_decode_profile(tmp: Path) -> dict:
+    """decode_profile in-process at TOOLS_PROFILE_ARGS: every variant but
+    int4_cross_kv gives timed rows, int4_cross_kv its error rows, and the
+    base slope is positive. Prints the slopes and launches per step."""
+    from whisperjav_tpu_torch.tools import decode_profile
+    out = tmp / "decode_profile.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = decode_profile.main([*TOOLS_PROFILE_ARGS, "--json", str(out),
+                                  "--device", TOOLS_DEVICE])
+    wall = time.perf_counter() - t0
+    data = json.loads(out.read_text())
+    rows, summary = data["rows"], data["summary"]
+    by_variant: dict = {}
+    for r in rows:
+        by_variant.setdefault(r["variant"].split("@")[0], []).append(r)
+    from whisperjav_tpu_torch.models.whisper.config import WHISPER_SIZES
+    n_layer = WHISPER_SIZES[summary["model"]].n_text_layer
+    # the layer ablations run on models deeper than their layer counts
+    expected = {v for g in summary["groups"] for v in g
+                if not (v.startswith("layers") and int(v[6:]) >= n_layer)}
+    expected = (expected - {"__mid__"}) | {"base", "bf16_weights"}
+    bad = sorted(v for v in expected if v != "int4_cross_kv" and not (
+        by_variant.get(v) and all(r.get("seconds", 0) > 0
+                                  for r in by_variant[v])))
+    int4 = by_variant.get("int4_cross_kv", [])
+    if rc != 0 or bad or not int4 or not all("error" in r for r in int4):
+        raise RuntimeError(f"decode_profile: exit {rc}, variants without "
+                           f"timed rows {bad}, int4 rows {int4}")
+    slopes = summary["ms_per_step"]
+    if not slopes.get("base", 0) > 0:
+        raise RuntimeError(f"decode_profile: base slope {slopes}")
+    log(f"decode_profile ({' '.join(TOOLS_PROFILE_ARGS)}, {wall:.1f} s): "
+        f"ms/step {json.dumps(slopes)}; base early "
+        f"{summary['ms_per_step_base_early']} late "
+        f"{summary['ms_per_step_base_late']}; attribution "
+        f"{json.dumps(summary['attribution_ms'])}; layers "
+        f"{json.dumps(summary.get('layer_decomposition'))}")
+    log(f"decode_profile: base (int8, q/k/v apart: unfused layers) "
+        f"{slopes['base']} ms/step, fused_qkv (the engine's tree: fused "
+        f"blocks) {slopes.get('fused_qkv')} ms/step, beside the large-v2 "
+        f"breakdown's greedy B=64 {GREEDY_LV2_MS_PER_STEP} ms/step (fused "
+        f"blocks, prefill and host loop included); int4_cross_kv: "
+        f"{int4[0]['error']}")
+    for name, per_step in summary["launches_per_step"].items():
+        log(f"decode_profile launches per step, {name}: "
+            f"{json.dumps(per_step)}")
+    return summary
+
+
+def write_fw_checkpoint(path: Path) -> None:
+    """A narrow HF Whisper written by transformers from seed 0."""
+    import transformers
+    cfg = transformers.WhisperConfig(
+        **TOOLS_FW_WHISPER, pad_token_id=50257, bos_token_id=50257,
+        eos_token_id=50257, decoder_start_token_id=50258)
+    torch.manual_seed(0)
+    transformers.WhisperForConditionalGeneration(cfg).eval() \
+        .save_pretrained(path)
+
+
+def run_first_weights(tmp: Path) -> dict:
+    """whisperjav-torch-first-weights on the narrow checkpoint: stages 0
+    and 1 must pass; stage 2's two arms run on the card and launch every
+    kernel of FIRST_WEIGHTS_NEEDS. Its verdict is printed, not required."""
+    from whisperjav_tpu_torch.tools import first_weights
+    ckpt = tmp / "fw-whisper"
+    write_fw_checkpoint(ckpt)
+    walls, arm_launches = [], []
+    transcribe = first_weights._transcribe_text
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = transcribe(*a, **k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        arm_launches.append(launch_counts())
+        return out
+
+    report_path = tmp / "first_weights.json"
+    first_weights._transcribe_text = timed
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = first_weights.main(["--checkpoint", str(ckpt), "--report",
+                                     str(report_path), "--device",
+                                     TOOLS_DEVICE])
+    finally:
+        first_weights._transcribe_text = transcribe
+    report = json.loads(report_path.read_text())
+    s0, s1 = report["stage0_structural"], report.get("stage1_oracle", {})
+    if not s0["ok"] or s1.get("status") != "pass" or len(walls) != 2:
+        raise RuntimeError(f"first_weights: exit {rc}, stage 0 {s0}, "
+                           f"stage 1 {s1}, {len(walls)} stage-2 arms")
+    launches = {k: arm_launches[0][k] + arm_launches[1][k]
+                for k in arm_launches[0]}
+    for arm, needs in ((0, TURBO_NEEDS), (1, FIRST_WEIGHTS_NEEDS)):
+        missing = [k for k in needs if arm_launches[arm][k] < 1]
+        if missing:
+            raise RuntimeError(f"first_weights stage 2 arm {arm}: kernels "
+                               f"never launched: {missing}")
+    s2 = report["stage2_int8_gate"]
+    log(f"first_weights (d=256, 4 x 64 heads, 2 + 2 layers, seeded): stage "
+        f"0 {s0['family']} {s0['n_leaves']} leaves ok; stage 1 encoder "
+        f"max err {s1['encoder_max_err']:.3e}, argmax agreement "
+        f"{s1['logit_argmax_agreement']}; stage 2 walls bf16 "
+        f"{walls[0]:.3f} s, int8 {walls[1]:.3f} s; stage 2 verdict "
+        f"{s2['status']} (divergence CER {s2.get('output_divergence_cer')}"
+        f"; random weights set this verdict, not the port)")
+    log(f"first_weights stage 2 launches: bf16 arm "
+        f"{json.dumps(arm_launches[0])}; int8 arm "
+        f"{json.dumps(arm_launches[1])}")
+    return launches
+
+
+def run_determinism(tmp: Path) -> tuple:
+    """determinism_suite in-process: two flagless runs on one clip must
+    write byte-identical SRTs, and byte-identical per-window decode
+    diagnostics (``.transcribe.json``: segments, avg logprob, no-speech
+    probability, characters of every window), which random weights
+    leave non-empty where the sanitizer empties the SRT."""
+    from whisperjav_tpu_torch.tools import determinism_suite
+    clip = tmp / "det.wav"
+    seconds = synthetic_clip_seeded(clip, TOOLS_DET_CLIP_S, 80)
+    root = tmp / "det"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = determinism_suite.main(["--media", str(clip), *TOOLS_DET_ARGS,
+                                     "--output-root", str(root),
+                                     "--device", TOOLS_DEVICE])
+    wall = time.perf_counter() - t0
+    summary = json.loads((root / "summary.json").read_text())
+    runs = [json.loads(ln) for ln in
+            (root / "results.jsonl").read_text().splitlines()]
+    diags = [(root / f"run_{i:03d}" / f"{clip.stem}.transcribe.json")
+             .read_bytes() for i in range(len(runs))]
+    windows = json.loads(diags[0])["windows"]
+    if (summary["distinct_outputs"] != 1 or len(runs) != 2
+            or diags[1] != diags[0] or not windows):
+        raise RuntimeError(f"determinism: {summary} ({runs}); window "
+                           f"diagnostics equal: {diags[1] == diags[0]}")
+    log(f"determinism_suite ({seconds:.3f} s clip, {' '.join(TOOLS_DET_ARGS)}"
+        f"; exit {rc}, {wall:.1f} s): {summary['distinct_outputs']} distinct "
+        f"SRT hash over {len(runs)} runs ({runs[0]['srt_sha'][:16]}), "
+        f"identical window diagnostics ({len(windows)} windows, "
+        f"{sum(w['segments'] for w in windows)} segments, "
+        f"{sum(w['chars'] for w in windows)} characters), "
+        f"cues {[r['cues'] for r in runs]}, walls "
+        f"{[r['wall_s'] for r in runs]} s, verdict {summary['verdict']} "
+        f"(catastrophic runs {summary['catastrophic_runs']})")
+    return summary, runs
+
+
+def run_bench_self(tmp: Path, srt: Path) -> None:
+    """whisperjav-torch-bench grades the e2e SRT against itself: CER 0
+    and timing IoU 1."""
+    from whisperjav_tpu_torch.bench import cli as bench_cli
+    report = tmp / "bench.json"
+    rc = bench_cli.main(["-g", str(srt), "-t", str(srt), "-o", str(report)])
+    result = json.loads(report.read_text())["results"][str(srt)]
+    if rc != 0 or result["cer"] != 0.0 or result["timing_iou"] != 1.0:
+        raise RuntimeError(f"whisperjav-torch-bench: exit {rc}, {result}")
+    log(f"whisperjav-torch-bench (the e2e SRT against itself, "
+        f"{result['gt_cues']} cues): cer {result['cer']}, timing_iou "
+        f"{result['timing_iou']}, temporal_order "
+        f"{result['temporal_order']}")
+
+
+def run_tools_phase(tmp: Path) -> dict:
+    """The developer tools on the card: e2e_bench (a child CLI), then
+    decode_profile, first_weights, determinism_suite and
+    whisperjav-torch-bench in-process, whose launches it returns."""
+    tools = tmp / "tools"
+    tools.mkdir()
+    _, srt = run_e2e_bench(tools)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_launches()
+    run_decode_profile(tools)
+    torch.cuda.synchronize()
+    profile = launch_counts()
+    torch.cuda.empty_cache()
+    fw = run_first_weights(tools)
+    torch.cuda.empty_cache()
+    zero_launches()
+    run_determinism(tools)
+    torch.cuda.synchronize()
+    det = launch_counts()
+    torch.cuda.empty_cache()
+    run_bench_self(tools, srt)
+    return {k: profile[k] + fw[k] + det[k] for k in profile}
+
+
 QWEN_NEEDS = ()
 QWEN_WHISPER_NEEDS = TURBO_NEEDS
 # the WhisperSeg framer's network: its encoder takes Kernel A, its bf16
@@ -3187,7 +3499,7 @@ WHISPERSEG_NEEDS = TURBO_NEEDS
 
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
           "vad", "serve", "enhance", "train", "multihost", "ensemble",
-          "async", "translate")
+          "async", "translate", "tools")
 
 
 @contextlib.contextmanager
@@ -3315,6 +3627,9 @@ def main(argv=None) -> int:
                     srt = Path(tmp) / "translate-source.ja.whisperjav.srt"
                     synthetic_srt(srt)
                 run_translate_phase(dev, Path(tmp), srt)
+        if "tools" in only:
+            with phase("tools"):
+                launches["tools"] = run_tools_phase(Path(tmp))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

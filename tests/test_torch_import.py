@@ -17,6 +17,18 @@ def _modules():
         [str(PKG_DIR)], prefix="whisperjav_tpu_torch."))
 
 
+# the developer tools and the bench scorer (counterparts of the JAX
+# package's tools/ and bench/)
+TOOL_MODULES = tuple(
+    [f"whisperjav_tpu_torch.bench.{m}" for m in (
+        "cli", "forensic", "loader", "matcher", "metrics", "provenance",
+        "report")]
+    + [f"whisperjav_tpu_torch.tools.{m}" for m in (
+        "e2e_bench", "decode_profile", "verify_checkpoint", "first_weights",
+        "parity_check", "decode_diagnostic", "vad_analyser",
+        "determinism_suite", "voice_classifier")])
+
+
 def test_every_module_is_listed():
     mods = _modules()
     for name in ("whisperjav_tpu_torch.cli",
@@ -63,7 +75,8 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.translate.ollama_manager",
                  "whisperjav_tpu_torch.translate.local_backend",
                  "whisperjav_tpu_torch.translate.service",
-                 "whisperjav_tpu_torch.translate.cli"):
+                 "whisperjav_tpu_torch.translate.cli",
+                 *TOOL_MODULES):
         assert name in mods
 
 
@@ -76,7 +89,10 @@ def test_every_port_script_names_a_port_module():
         r'^(whisperjav-torch[\w-]*) = "([\w.:]+)"$', text, re.M))
     assert set(scripts) == {"whisperjav-torch", "whisperjav-torch-serve",
                             "whisperjav-torch-finetune",
-                            "whisperjav-torch-translate"}
+                            "whisperjav-torch-translate",
+                            "whisperjav-torch-bench",
+                            "whisperjav-torch-verify-checkpoint",
+                            "whisperjav-torch-first-weights"}
     for target in scripts.values():
         module, func = target.split(":")
         assert module.startswith("whisperjav_tpu_torch.")
@@ -95,6 +111,38 @@ def test_importing_the_port_leaves_jax_out():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"jax loaded: {proc.stdout}"
+
+
+def test_each_tool_leaves_jax_and_the_jax_package_out():
+    """Importing each bench/ and tools/ module alone (a fresh process per
+    module) loads no jax, optax or whisperjav_tpu module."""
+    code = ("import importlib, sys\n"
+            "importlib.import_module(sys.argv[1])\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+            "                                    'whisperjav_tpu'))\n"
+            "print(','.join(bad))\n")
+    root = str(PKG_DIR.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", code, name], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for name in TOOL_MODULES]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for name, p, (out, err) in zip(TOOL_MODULES, procs, outs):
+        assert p.returncode == 0, (name, err)
+        assert out.strip() == "", f"{name} loaded: {out}"
+
+
+def test_no_tool_source_imports_optax():
+    pat = re.compile(r"^\s*(import\s+optax|from\s+optax[\s.])", re.M)
+    files = sorted((PKG_DIR / "tools").glob("*.py")) \
+        + sorted((PKG_DIR / "bench").glob("*.py"))
+    assert len(files) == len(TOOL_MODULES) + 2     # and two __init__
+    assert [str(p) for p in files
+            if pat.search(p.read_text(encoding="utf-8"))] == []
 
 
 def test_no_port_source_imports_jax():

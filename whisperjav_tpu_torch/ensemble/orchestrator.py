@@ -15,19 +15,17 @@ each file failed.
 
 from __future__ import annotations
 
-import gc
 import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-import torch
-
 from whisperjav_tpu_torch.config.presets import PipelineConfig
 from whisperjav_tpu_torch.ensemble.merge import MergeEngine
 from whisperjav_tpu_torch.modules.media_discovery import MediaInfo
 from whisperjav_tpu_torch.modules.srt import Subtitle, save_srt
+from whisperjav_tpu_torch.pipelines.engine import release_device_memory
 from whisperjav_tpu_torch.utils.logger import logger
 
 
@@ -82,12 +80,8 @@ class EnsembleOrchestrator:
                               postprocessor=None, device=self.device)
 
     def _release(self) -> None:
-        """Return a dropped pipeline's memory before the next is built:
-        collect reference cycles, then hand the allocator's cached blocks
-        back to the card."""
-        gc.collect()
-        if torch.device(self.device).type == "cuda":
-            torch.cuda.empty_cache()
+        """Return a dropped pipeline's memory before the next is built."""
+        release_device_memory(self.device)
 
     # ------------------------------------------------------------------
     def process_batch(self, media: Sequence[MediaInfo],

@@ -242,11 +242,15 @@ def decode_greedy(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     gumbel: Optional[Callable[[int], torch.Tensor]] = None,
+    stop_at: Optional[int] = None,
 ) -> DecodeResult:
     """Greedy (temperature 0) or sampled batched decode of encoded audio.
 
     At temperature > 0 the noise for step i is ``gumbel(i)`` when given,
-    otherwise a draw from ``generator`` (on xa's device).
+    otherwise a draw from ``generator`` (on xa's device). ``stop_at``
+    (profiling only) ends the loop after that many steps while the self
+    cache and token buffer stay sized for ``max_new_tokens``, so two step
+    budgets run on the same allocation.
     """
     _check_options(options)
     config = model.config
@@ -276,8 +280,9 @@ def decode_greedy(
         seen=torch.zeros((b, config.n_vocab), dtype=torch.bool,
                          device=dev))
 
+    steps = max_new if stop_at is None else min(stop_at, max_new)
     step = 0
-    while step < max_new and not bool(finished.all()):
+    while step < steps and not bool(finished.all()):
         rules.step = step
         logits = _apply_logit_rules(cur_logits, rules, config, options,
                                     static_mask, prompt_len)

@@ -15,11 +15,19 @@ alike; ``vocab_subset`` decodes against a sliced vocabulary
 before int8 quantisation (so the int8 lm head is built at subset size),
 decoding runs in subset ids, and emitted tokens map back to full-vocab
 ids on the device.
+
+``WJAV_TRACE_BATCHES=1`` records one row per batch in ``batch_trace``
+(the wall of each phase: encode, the first-rung decode, the ladder's
+rungs, segment extraction; taken after a device sync, so each phase owns
+its device time) and one row for the deferred retries; the file pipeline
+copies it into its stats.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 import zlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -63,6 +71,24 @@ class QualityThresholds:
 # the smallest bucket that covers its longest window.
 CROSS_KV_BUCKETS = (448, 960, 1500)
 FRAMES_PER_SECOND = 50   # whisper encoder frames
+
+
+def device_label(device) -> str:
+    """``cuda:<the card's name>`` or the device type (``cpu``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(dev)}"
+    return dev.type
+
+
+def release_device_memory(device) -> None:
+    """Return dropped tensors' memory before the next model is built:
+    collect reference cycles, then hand the allocator's cached blocks
+    back to the card."""
+    import gc
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def resolve_device(device) -> torch.device:
@@ -137,6 +163,7 @@ class TranscriptionEngine:
                                        requires_grad=False)
             self.model.config = self._vocab.config
         self.prompt_tokens = tuple(prompt_tokens)
+        logger.info("engine %s on %s", config.name, device_label(self.device))
         fuse_qkv_weights(self.model)
         if int8_weights:
             quantize_decoder_weights(self.model)
@@ -264,6 +291,7 @@ class TranscriptionEngine:
     # ------------------------------------------------------------------
     def finish_batch(self, batch: WindowBatch, xa, result: DecodeResult,
                      seed: int = 0, defer_pool: Optional[list] = None,
+                     trace: Optional[dict] = None,
                      ) -> List[Optional[List[DecodedSegment]]]:
         """Run the ladder on the rows that fail the gates and extract
         segments.
@@ -274,6 +302,8 @@ class TranscriptionEngine:
         it, each rung re-decodes the batch and a failed row adopts the
         retry if its avg logprob improved; the ladder stops at a rung that
         improves nothing or raises the mean logprob by less than 0.02.
+        ``trace`` receives the rungs run and the ladder's and extraction's
+        walls.
         """
         temps = self.thresholds.temperatures
         tokens = np.array(result.tokens)
@@ -296,6 +326,10 @@ class TranscriptionEngine:
             temps = temps[:1]
         prev_mean = (float(np.mean(avg_lp[:batch.n_valid]))
                      if batch.n_valid else 0.0)
+        t_ladder0 = time.perf_counter()
+        if trace is not None:
+            trace.update(bucket=int(xa.shape[1]), rows=int(xa.shape[0]),
+                         rungs=1)
         for t_i, temp in enumerate(temps[1:], start=1):
             failed = failed_rows()
             if not failed:
@@ -310,14 +344,20 @@ class TranscriptionEngine:
                     avg_lp[b] = retry.avg_logprob[b]
                     improved = True
             mean_now = float(np.mean(avg_lp[:batch.n_valid]))
+            if trace is not None:
+                trace["rungs"] = t_i + 1
             if not improved or mean_now < prev_mean + 0.02:
                 break
             prev_mean = mean_now
+        t_extract0 = time.perf_counter()
 
         out = [None if b in deferred_rows
                else self._segments(batch.windows[b], tokens[b], avg_lp[b],
                                    no_speech[b])
                for b in range(batch.n_valid)]
+        if trace is not None:
+            trace["ladder_s"] = t_extract0 - t_ladder0
+            trace["extract_s"] = time.perf_counter() - t_extract0
         if self.word_timestamps:
             self._refine_with_word_alignment(xa, tokens, batch, out)
         return out
@@ -357,18 +397,22 @@ class TranscriptionEngine:
                 if abs(new_end - seg.end) <= 0.5:
                     seg.end = max(new_end, seg.start + 0.05)
 
-    def _retry_deferred(self, pool: list, seed: int,
+    def _retry_deferred(self, pool: list, seed: int, trace: bool = False,
                         ) -> List[Tuple[Window, List[DecodedSegment]]]:
         """Run the ladder over the file's deferred rows: each rung
         re-encodes the still-failing rows in packed batches and decodes
         them at ``temperatures[t_i]``; a row adopts a retry that improves
         its avg logprob and leaves once it passes the gates; the ladder
-        stops at a rung that improves nothing."""
+        stops at a rung that improves nothing. With ``trace``, one row
+        (rows, rungs, wall) goes to ``batch_trace``."""
+        t0 = time.perf_counter()
         active = list(pool)
+        rungs_run = 0
         for t_i, temp in enumerate(self.thresholds.temperatures[1:],
                                    start=1):
             if not active:
                 break
+            rungs_run = t_i
             by_id = {id(rec["window"]): rec for rec in active}
             improved_any = False
             for rb in batch_windows([rec["window"] for rec in active],
@@ -412,27 +456,64 @@ class TranscriptionEngine:
                     tok[b, :len(row)] = row
                 self._refine_with_word_alignment(
                     xa, tok, rb, [segs_by_id[id(w)] for w in rb.windows])
+        wall = time.perf_counter() - t0
+        logger.info("deferred retry: %d row(s), %d rung(s), %.1fs",
+                    len(pool), rungs_run, wall)
+        if trace:
+            self.batch_trace.append({"retry_rows": len(pool),
+                                     "rungs": rungs_run + 1,
+                                     "ladder_s": wall, "batch_s": wall})
         return out
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (the trace's walls)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def transcribe_windows(
         self, windows: Sequence[Window], seed: int = 0,
     ) -> List[Tuple[Window, List[DecodedSegment]]]:
         """Decode a window list in fixed-shape batches, batch i with seed
         ``seed + 131*i``, then settle the deferred rows; results come back
-        in (scene, group) order."""
+        in (scene, group) order. Under ``WJAV_TRACE_BATCHES=1`` each batch
+        leaves a row of phase walls in ``batch_trace``."""
+        trace_on = os.environ.get("WJAV_TRACE_BATCHES", "0") != "0"
+        self.batch_trace: List[dict] = []
         pool: Optional[list] = (
             [] if len(self.thresholds.temperatures) > 1 else None)
         results: List[Tuple[Window, List[DecodedSegment]]] = []
-        for bi, batch in enumerate(batch_windows(windows, self.batch_size)):
+        batches = list(batch_windows(windows, self.batch_size))
+        for bi, batch in enumerate(batches):
+            t_b0 = time.perf_counter()
             max_dur = max((w.duration for w in batch.windows), default=30.0)
             xa = self.encode_batch(batch.audio, max_duration=max_dur)
+            trace = None
+            if trace_on:
+                self._sync()
+                trace = {"encode_s": time.perf_counter() - t_b0}
+                t_dec = time.perf_counter()
             result = self.decode_encoded(
                 xa, self.thresholds.temperatures[0], seed + bi * 131)
+            if trace is not None:
+                trace["decode_s"] = time.perf_counter() - t_dec
             segs = self.finish_batch(batch, xa, result, seed + bi * 131,
-                                     defer_pool=pool)
+                                     defer_pool=pool, trace=trace)
+            if trace is not None:
+                self._sync()
+                trace["batch_s"] = time.perf_counter() - t_b0
+                trace["audio_s"] = round(
+                    sum(w.duration for w in batch.windows), 1)
+                self.batch_trace.append(trace)
+                logger.info(
+                    "batch %d/%d: %.1fs (enc %.2f dec %.2f ladder %.2f "
+                    "extract %.2f) rungs=%d bucket=%d rows=%d audio=%.0fs",
+                    bi + 1, len(batches), trace["batch_s"],
+                    trace["encode_s"], trace["decode_s"], trace["ladder_s"],
+                    trace["extract_s"], trace["rungs"], trace["bucket"],
+                    trace["rows"], trace["audio_s"])
             results.extend((w, s) for w, s in zip(batch.windows, segs)
                            if s is not None)
         if pool:
-            results.extend(self._retry_deferred(pool, seed))
+            results.extend(self._retry_deferred(pool, seed, trace=trace_on))
         results.sort(key=lambda p: (p[0].scene_idx, p[0].group_idx))
         return results

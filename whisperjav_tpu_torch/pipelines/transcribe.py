@@ -187,6 +187,13 @@ class TranscribePipeline:
         results = self.engine.transcribe_windows(windows, seed=seed)
         t_asr = time.time() - t0
         subtitles = self.assemble_subtitles(results)
+        trace = getattr(self.engine, "batch_trace", None)
+        if trace:
+            # WJAV_TRACE_BATCHES=1: the per-batch phase walls, for
+            # file-level runs (tools/e2e_bench) to attribute the ASR wall
+            stats["batch_trace"] = [
+                {k: (round(v, 3) if isinstance(v, float) else v)
+                 for k, v in t.items()} for t in trace]
         stats.update({
             "segmentation_s": round(t_seg, 3),
             "asr_s": round(t_asr, 3),

@@ -31,6 +31,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from whisperjav_tpu_torch.pipelines.engine import device_label
 from whisperjav_tpu_torch.utils.logger import logger, setup_logger
 
 
@@ -97,15 +98,6 @@ class WindowCoalescer:
             finally:
                 for r in reqs:
                     r.event.set()
-
-
-def device_label(device) -> str:
-    """``cuda:<the card's name>`` or the device type (``cpu``)."""
-    import torch
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return f"cuda:{torch.cuda.get_device_name(dev)}"
-    return dev.type
 
 
 class TranscriptionService:
