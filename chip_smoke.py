@@ -5,7 +5,7 @@
                                           # turbo, large-v2, fidelity,
                                           # qwen, vad, serve, enhance,
                                           # train, multihost, ensemble,
-                                          # async, translate, tools
+                                          # async, translate, tools, gui
                                           # (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -149,7 +149,25 @@ Phases, in order; any failure exits non-zero before the result line:
    three fused blocks (the verdict is printed: random weights set it);
    ``determinism_suite``, two flagless runs on a ~20 s clip with one SRT
    hash and byte-identical window diagnostics; ``whisperjav-torch-bench`` grading the e2e SRT against itself
-   (CER 0, IoU 1).
+   (CER 0, IoU 1);
+17. the gui phase: ``python -m whisperjav_tpu_torch.gui.server --port
+   <free>`` (what ``whisperjav-torch-gui`` starts) as a child with its own
+   config directory: the page, ``/api/schema`` equal to ``schema()``,
+   every component schema, a preset saved, listed and deleted,
+   ``/api/version`` offline within GUI_VERSION_LIMIT_S; the flagless
+   turbo engine hosted in this process on the daemon's port 8478 (built
+   for the config the jobs' argv resolves to); two ~20 s clips queued
+   through ``/api/start`` with the default ``--daemon``: both jobs done
+   within GUI_JOB_DEADLINE_S, each SRT with cues, each job's result read
+   from the CLI's daemon line, a trace-derived stage, Kernel A and Kernel
+   B's bf16 form launched by the hosted engine; the first clip through
+   ``cli.main(... --daemon)`` byte-identical to its GUI job; a third job
+   (``daemon: false``) cancelled while running (child gone);
+   ``whisperjav-torch-upgrade`` offline (exit 0); ``resolve_checkpoint``
+   of a seeded narrow npz checkpoint onto the card with huggingface_hub
+   and transformers blocked; the job walls through ``MetadataManager``.
+   The GUI process and ``whisperjav-torch-upgrade`` poll for a release
+   through a proxy on a closed local port, so no outside host is asked.
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -3497,9 +3515,397 @@ QWEN_WHISPER_NEEDS = TURBO_NEEDS
 WHISPERSEG_NEEDS = TURBO_NEEDS
 
 
+# ---------------------------------------------------------------------------
+# the gui phase: whisperjav-torch-gui's jobs through the resident engine
+# ---------------------------------------------------------------------------
+
+# the two queued clips and the cancelled one: (seed, seconds)
+GUI_CLIPS = ((80, 20.0), (81, 20.0))
+GUI_CANCEL_CLIP = (82, 12.0)
+# every GUI job's options besides its input: without the sanitizer (the
+# random weights' text would leave empty SRTs) and the signature
+GUI_OPTIONS = {"no_sanitize": True, "no_signature": True}
+GUI_JOB_DEADLINE_S = 300.0
+GUI_VERSION_LIMIT_S = 5.0
+GUI_POLL_S = 0.1
+# model_loader's checkpoint: a narrow Whisper (hd = 64), seed 0
+GUI_CKPT_WIDTHS = dict(n_mels=80, n_audio_state=256, n_audio_head=4,
+                       n_audio_layer=2, n_text_state=256, n_text_head=4,
+                       n_text_layer=2, n_vocab=51865)
+ROOT = Path(__file__).resolve().parent
+
+
+def offline_env(**extra) -> dict:
+    """This process's environment with HTTPS sent to a proxy on a closed
+    local port: a release poll fails at once and asks no outside host."""
+    import os
+    env = {k: v for k, v in os.environ.items()
+           if k.lower() not in ("no_proxy", "https_proxy")}
+    proxy = f"http://127.0.0.1:{free_port()}"
+    env.update(https_proxy=proxy, HTTPS_PROXY=proxy, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def gui_get(base: str, path: str):
+    """GET ``base + path``; the parsed JSON (the page: its text)."""
+    import urllib.request
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        body = r.read()
+        if r.headers.get_content_type() == "application/json":
+            return json.loads(body)
+        return body.decode("utf-8")
+
+
+def gui_post(base: str, path: str, body: dict) -> dict:
+    import urllib.request
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def wait_gui(base: str, proc, limit_s: float = 120.0) -> None:
+    import urllib.error
+    deadline = time.time() + limit_s
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"gui: the server exited {proc.returncode}")
+        try:
+            gui_get(base, "/api/status")
+            return
+        except (urllib.error.URLError, OSError):
+            time.sleep(0.2)
+    raise RuntimeError(f"gui: no answer from {base} in {limit_s} s")
+
+
+def poll_jobs(base: str, ids: list, deadline_s: float,
+              until=("done",)) -> tuple:
+    """Poll /api/queue every GUI_POLL_S until every job in ``ids`` is in
+    a final state; each job's wall from the first poll that saw it
+    running to the first that saw it final. Returns (jobs, walls)."""
+    final = ("done", "failed", "cancelled")
+    started, walls = {}, {}
+    deadline = time.time() + deadline_s
+    while True:
+        jobs = {j["id"]: j for j in gui_get(base, "/api/queue")["jobs"]}
+        now = time.perf_counter()
+        for i in ids:
+            if jobs[i]["status"] == "running":
+                started.setdefault(i, now)
+            elif jobs[i]["status"] in final and i not in walls:
+                walls[i] = now - started.get(i, now)
+        if all(jobs[i]["status"] in final for i in ids):
+            break
+        if time.time() > deadline:
+            raise RuntimeError(f"gui: jobs {ids} not finished within "
+                               f"{deadline_s} s: {jobs}")
+        time.sleep(GUI_POLL_S)
+    bad = [jobs[i] for i in ids if jobs[i]["status"] not in until]
+    if bad:
+        raise RuntimeError(f"gui: jobs ended {bad}")
+    return [jobs[i] for i in ids], [walls[i] for i in ids]
+
+
+TRACE_STAGES = ("extracted ", "decoding ", "sanitizing")
+
+
+@contextlib.contextmanager
+def blocked_imports(*names):
+    """Inside the block, importing any of the top-level packages
+    ``names`` raises ImportError, loaded or not."""
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in names:
+                raise ImportError(f"blocked: {name}")
+            return None
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m.split(".")[0] in names}
+    finder = Block()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved)
+
+
+def check_gui_pages(base: str, card: str) -> None:
+    """The page, the schemas, the presets and the release poll."""
+    from whisperjav_tpu_torch.gui.server import _COMPONENT_CONFIGS, schema
+    page = gui_get(base, "/")
+    if "<title>WhisperJAV PyTorch</title>" not in page \
+            or "loadVersion" not in page:
+        raise RuntimeError("gui: / is not the app page")
+    if gui_get(base, "/api/schema") != json.loads(json.dumps(schema())):
+        raise RuntimeError("gui: /api/schema differs from schema()")
+    n = 0
+    for ctype, names in _COMPONENT_CONFIGS.items():
+        for name in names:
+            got = gui_get(base, f"/api/component_schema?type={ctype}"
+                                f"&name={name}")
+            if not (got["success"] and got["fields"]):
+                raise RuntimeError(f"gui: component {ctype}/{name}: {got}")
+            n += 1
+    preset = {"mode": "balanced", "no_sanitize": True}
+    if gui_post(base, "/api/presets", {"name": "smoke 字幕",
+                                       "options": preset}) != {"ok": True}:
+        raise RuntimeError("gui: preset not saved")
+    if gui_get(base, "/api/presets") != {"smoke 字幕": preset}:
+        raise RuntimeError("gui: preset not listed")
+    if gui_post(base, "/api/presets", {"name": "smoke 字幕",
+                                       "delete": True}) != {"ok": True} \
+            or gui_get(base, "/api/presets") != {}:
+        raise RuntimeError("gui: preset not deleted")
+    t0 = time.perf_counter()
+    version = gui_get(base, "/api/version")
+    version_s = time.perf_counter() - t0
+    if version.get("checked") is not False or not version.get("version") \
+            or version_s > GUI_VERSION_LIMIT_S:
+        raise RuntimeError(f"gui: /api/version {version} in {version_s} s")
+    log(f"gui: page {len(page)} characters, schema equal, {n} component "
+        f"schemas, a preset saved, listed and deleted; /api/version "
+        f"{json.dumps(version)} in {version_s:.3f} s ({card})")
+
+
+def check_gui_utilities(dev, tmp: Path, walls: list, card: str) -> None:
+    """whisperjav-torch-upgrade offline; resolve_checkpoint onto the card
+    with the hub packages blocked; the job walls through
+    MetadataManager."""
+    from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+    from whisperjav_tpu_torch.models.whisper.weights import (
+        init_params, params_from_jax, params_to_jax,
+    )
+    from whisperjav_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    from whisperjav_tpu_torch.utils.metadata import MetadataManager
+    from whisperjav_tpu_torch.utils.model_loader import resolve_checkpoint
+    t0 = time.perf_counter()
+    up = subprocess.run(
+        [sys.executable, "-m", "whisperjav_tpu_torch.utils.version_check"],
+        cwd=str(tmp), env=offline_env(), capture_output=True, text=True,
+        timeout=120)
+    up_s = time.perf_counter() - t0
+    if up.returncode != 0 or \
+            "update check unavailable (offline)" not in up.stdout:
+        raise RuntimeError(f"whisperjav-torch-upgrade: rc {up.returncode}, "
+                           f"{up.stdout!r} {up.stderr[-2000:]!r}")
+    log(f"gui: whisperjav-torch-upgrade rc 0 in {up_s:.3f} s: "
+        f"{up.stdout.strip()}")
+
+    cfg = WhisperConfig(name="gui-narrow", **GUI_CKPT_WIDTHS)
+    host = init_params(cfg, torch.Generator().manual_seed(0))
+    ckpt = save_checkpoint(tmp / "gui-ckpt", params_to_jax(host),
+                           {"model": cfg.name})
+    calls = []
+
+    def loader(source, **kw):
+        calls.append((source, kw))
+        return params_from_jax(load_checkpoint(source), cfg, device=dev)
+    t0 = time.perf_counter()
+    with blocked_imports("huggingface_hub", "transformers"):
+        model = resolve_checkpoint(str(ckpt), loader=loader)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    state = model.state_dict()
+    if calls != [(str(ckpt), {})]:
+        raise RuntimeError(f"resolve_checkpoint: loader calls {calls}")
+    off = [k for k, v in state.items()
+           if v.device.type != torch.device(dev).type]
+    if off:
+        raise RuntimeError(f"resolve_checkpoint: not on the card: {off}")
+    want = host.state_dict()
+    if sorted(state) != sorted(want) or not all(
+            torch.equal(state[k].cpu(), want[k]) for k in want):
+        raise RuntimeError("resolve_checkpoint: parameters differ from "
+                           "the checkpoint's")
+    log(f"gui: resolve_checkpoint loaded {len(state)} tensors "
+        f"({sum(v.numel() for v in state.values())} parameters) onto "
+        f"{torch.cuda.get_device_name(0)} in {load_s:.3f} s, one loader "
+        f"call, huggingface_hub and transformers blocked")
+
+    mm = MetadataManager(tmp / "gui-meta", "gui")
+    mm.set_input(clips=[f"gui{i}.wav" for i in range(len(walls))],
+                 card=card)
+    for i, wall in enumerate(walls):
+        mm.complete_stage(f"job{i}", wall_s=np.float64(wall))
+    back = MetadataManager.load(mm.save())
+    got = [back.data["stages"][f"job{i}"]["results"]["wall_s"]
+           for i in range(len(walls))]
+    if got != [float(w) for w in walls] or back.data["input"]["card"] != card:
+        raise RuntimeError(f"MetadataManager: walls {walls} read back as "
+                           f"{got}")
+    log(f"gui: job walls written and read back through MetadataManager "
+        f"({back.path.name})")
+
+
+def run_gui_phase(dev, tmp: Path) -> dict:
+    """``whisperjav-torch-gui`` as a user runs it: its jobs' CLI children
+    go through the resident engine, here hosted in this process on the
+    daemon's port so its kernel launches are counted. Returns the two
+    jobs' launches."""
+    from whisperjav_tpu_torch import cli, serve
+    from whisperjav_tpu_torch.cli_args import parse_arguments
+    from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.gui.server import build_args
+    from whisperjav_tpu_torch.pipelines import daemon_client
+    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+    t_phase = time.perf_counter()
+    card = card_line()
+    port = daemon_client.DEFAULT_PORT
+    if not port_is_free(port):
+        raise RuntimeError(f"gui: the daemon's port {port} is taken")
+    clips = []
+    for i, (seed, seconds) in enumerate((*GUI_CLIPS, GUI_CANCEL_CLIP)):
+        clips.append(tmp / f"gui{i}.wav")
+        synthetic_clip_seeded(clips[-1], seconds, seed)
+    out_dir = tmp / "gui-out"
+    options = {**GUI_OPTIONS, "output_dir": str(out_dir)}
+    gui_port = free_port()
+    base = f"http://127.0.0.1:{gui_port}"
+    gui_log = tmp / "gui-server.log"
+    server = thread = gui = None
+    try:
+        with open(gui_log, "wb") as log_f:
+            gui = subprocess.Popen(
+                [sys.executable, "-m", "whisperjav_tpu_torch.gui.server",
+                 "--port", str(gui_port)], cwd=str(tmp),
+                env=offline_env(XDG_CONFIG_HOME=str(tmp / "gui-xdg")),
+                stdout=log_f, stderr=subprocess.STDOUT)
+        wait_gui(base, gui)
+        check_gui_pages(base, card)
+
+        # the engine a job's --daemon finds: built for the config its
+        # argv resolves to, as start_daemon would build it
+        args = parse_arguments(build_args(
+            {**options, "inputs": [str(clips[0])]})[3:])
+        cfg = resolve_pipeline_config(
+            mode=args.mode, sensitivity=args.sensitivity,
+            language=args.language, model=args.model,
+            batch_size=args.batch_size)
+        t0 = time.perf_counter()
+        pipeline = build_pipeline(cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        service = serve.TranscriptionService(
+            pipeline, device=dev, fingerprint=daemon_client._fingerprint(cfg))
+        server = serve.make_server(service, port=port)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        log(f"gui: resident engine ({cfg.model}, {cfg.mode.name}/"
+            f"{cfg.sensitivity.name}, B={cfg.batch_size}) built in this "
+            f"process in {build_s:.3f} s, serving on port {port} ({card})")
+
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        started = gui_post(base, "/api/start",
+                           {**options, "inputs": [str(c) for c in clips[:2]]})
+        if started != {"ok": True, "jobs": [0, 1]}:
+            raise RuntimeError(f"gui: /api/start answered {started}")
+        jobs, walls = poll_jobs(base, [0, 1], GUI_JOB_DEADLINE_S)
+        torch.cuda.synchronize()
+        jobs_s = time.perf_counter() - t0
+        launches = launch_counts()
+        srts = []
+        for job, clip, wall in zip(jobs, clips, walls):
+            lines = gui_get(base, f"/api/logs?job={job['id']}")["lines"]
+            srt = out_dir / f"{clip.stem}.ja.whisperjav.srt"
+            if "-m whisperjav_tpu_torch.cli" not in lines[0] \
+                    or "--daemon" not in lines[0]:
+                raise RuntimeError(f"gui: job argv {lines[0]}")
+            if not any(", daemon, RTF" in ln for ln in lines):
+                raise RuntimeError(f"gui: job {job['id']} did not go "
+                                   f"through the resident engine: "
+                                   f"{lines[-20:]}")
+            cues = srt_cues(srt)
+            if not cues:
+                raise RuntimeError(f"gui: {srt.name} has no cue")
+            if job["result"].get("srt") != srt.name \
+                    or job["result"].get("subtitles") != len(cues):
+                raise RuntimeError(f"gui: job {job['id']} result "
+                                   f"{job['result']} ({len(cues)} cues)")
+            if not any(st.startswith(TRACE_STAGES) for st in job["stages"]):
+                raise RuntimeError(f"gui: job {job['id']} stages "
+                                   f"{job['stages']}")
+            srts.append(srt)
+            log(f"gui: job {job['id']} ({clip.name}, "
+                f"{wave_seconds(clip):.3f} s) wall {wall:.3f} s (polled "
+                f"every {GUI_POLL_S} s), result {json.dumps(job['result'])}"
+                f", stages {job['stages']} ({card})")
+        missing = [n for n in TURBO_NEEDS if launches[n] < 1]
+        if missing:
+            raise RuntimeError(f"gui: kernels never launched: {missing} "
+                               f"({launches})")
+        log(f"gui: 2 jobs in {jobs_s:.3f} s; the hosted engine's launches "
+            f"{json.dumps({n: launches[n] for n in TURBO_NEEDS})} ({card})")
+
+        cli_dir = tmp / "gui-cli"
+        flags = [a for a in build_args(GUI_OPTIONS)[3:] if a != "--daemon"]
+        if cli.main([str(clips[0]), "--daemon", "--output-dir", str(cli_dir),
+                     *flags]) != 0:
+            raise RuntimeError("gui: the --daemon CLI run failed")
+        if (cli_dir / srts[0].name).read_bytes() != srts[0].read_bytes():
+            raise RuntimeError("gui: the CLI's --daemon SRT differs from "
+                               "the GUI job's")
+        log(f"gui: cli.main --daemon wrote {srts[0].name} byte-identical "
+            f"to the GUI job's ({len(srt_cues(srts[0]))} cues)")
+
+        started = gui_post(base, "/api/start", {
+            **options, "inputs": [str(clips[2])], "daemon": False})
+        if started != {"ok": True, "jobs": [2]}:
+            raise RuntimeError(f"gui: /api/start answered {started}")
+        deadline = time.time() + 120
+        while gui_get(base, "/api/queue")["jobs"][2]["status"] == "queued":
+            if time.time() > deadline:
+                raise RuntimeError("gui: the third job never ran")
+            time.sleep(GUI_POLL_S)
+        t0 = time.perf_counter()
+        gui_post(base, "/api/cancel", {"job": 2})
+        jobs, _ = poll_jobs(base, [0, 1, 2], 120, until=("done",
+                                                         "cancelled"))
+        cancel_s = time.perf_counter() - t0
+        if [j["status"] for j in jobs] != ["done", "done", "cancelled"] \
+                or gui_get(base, "/api/queue")["status"] != "done":
+            raise RuntimeError(f"gui: after the cancel {jobs}")
+        alive = subprocess.run(["pgrep", "-f", str(clips[2])],
+                               capture_output=True, text=True)
+        if alive.returncode != 1:
+            raise RuntimeError(f"gui: the cancelled job's child lives on: "
+                               f"{alive.stdout}")
+        log(f"gui: job 2 (daemon false) cancelled while running, ended "
+            f"'cancelled' {cancel_s:.3f} s after the cancel, child gone; "
+            f"the queue reads {[j['status'] for j in jobs]}")
+        check_gui_utilities(dev, tmp, walls, card)
+    except Exception:
+        if gui_log.exists():
+            log("gui: the GUI server's log ends: " + gui_log.read_text(
+                encoding="utf-8", errors="replace")[-4000:])
+        raise
+    finally:
+        if gui is not None:
+            gui.terminate()
+            try:
+                gui.wait(30)
+            except subprocess.TimeoutExpired:
+                gui.kill()
+                gui.wait(30)
+        for clip in clips:
+            subprocess.run(["pkill", "-f", str(clip)], check=False)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        torch.cuda.empty_cache()
+    log(f"gui: phase {time.perf_counter() - t_phase:.3f} s ({card})")
+    return launches
+
+
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
           "vad", "serve", "enhance", "train", "multihost", "ensemble",
-          "async", "translate", "tools")
+          "async", "translate", "tools", "gui")
 
 
 @contextlib.contextmanager
@@ -3630,6 +4036,9 @@ def main(argv=None) -> int:
         if "tools" in only:
             with phase("tools"):
                 launches["tools"] = run_tools_phase(Path(tmp))
+        if "gui" in only:
+            with phase("gui"):
+                launches["gui"] = run_gui_phase(dev, Path(tmp))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

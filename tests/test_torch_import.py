@@ -1,6 +1,7 @@
 """The PyTorch port imports no jax, and nothing of the JAX package: it keeps
 its own copy of every host module it runs."""
 
+import os
 import pkgutil
 import re
 import subprocess
@@ -27,6 +28,15 @@ TOOL_MODULES = tuple(
         "e2e_bench", "decode_profile", "verify_checkpoint", "first_weights",
         "parity_check", "decode_diagnostic", "vad_analyser",
         "determinism_suite", "voice_classifier")])
+
+
+# the web GUI and the small utilities beside it
+GUI_MODULES = ("whisperjav_tpu_torch.config.user_config",
+               "whisperjav_tpu_torch.utils.version_check",
+               "whisperjav_tpu_torch.utils.metadata",
+               "whisperjav_tpu_torch.utils.model_loader",
+               "whisperjav_tpu_torch.gui.app_page",
+               "whisperjav_tpu_torch.gui.server")
 
 
 def test_every_module_is_listed():
@@ -76,7 +86,7 @@ def test_every_module_is_listed():
                  "whisperjav_tpu_torch.translate.local_backend",
                  "whisperjav_tpu_torch.translate.service",
                  "whisperjav_tpu_torch.translate.cli",
-                 *TOOL_MODULES):
+                 *TOOL_MODULES, *GUI_MODULES):
         assert name in mods
 
 
@@ -92,7 +102,9 @@ def test_every_port_script_names_a_port_module():
                             "whisperjav-torch-translate",
                             "whisperjav-torch-bench",
                             "whisperjav-torch-verify-checkpoint",
-                            "whisperjav-torch-first-weights"}
+                            "whisperjav-torch-first-weights",
+                            "whisperjav-torch-gui",
+                            "whisperjav-torch-upgrade"}
     for target in scripts.values():
         module, func = target.split(":")
         assert module.startswith("whisperjav_tpu_torch.")
@@ -475,3 +487,69 @@ def test_qwen_cli_runs_without_jax_sklearn_transformers():
     loaded = [line for line in proc.stdout.splitlines()
               if line.startswith("LOADED:")]
     assert loaded == ["LOADED:"], f"blocked modules loaded: {loaded}"
+
+
+_GUI_RUN = """
+import sys
+
+
+class _Blocked:
+    NAMES = ("jax", "jaxlib", "transformers", "huggingface_hub",
+             "whisperjav_tpu")
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.NAMES:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import importlib
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+from whisperjav_tpu_torch.gui import server
+from whisperjav_tpu_torch.utils import version_check
+s = server.schema()
+assert "tpu-local" in s["translate_providers"]
+n = 0
+for ctype, names in server._COMPONENT_CONFIGS.items():
+    for name in names:
+        assert server.component_schema(ctype, name)["fields"]
+        n += 1
+assert n == 14
+assert version_check.upgrade_main([]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in _Blocked.NAMES)
+print("LOADED:" + ",".join(bad))
+"""
+
+
+def test_gui_and_upgrade_run_without_jax_transformers_or_hub():
+    """The six GUI-slice modules import, ``schema()`` and every
+    ``component_schema`` build and ``whisperjav-torch-upgrade`` runs
+    offline (its poll sent to a proxy on a closed local port) with jax,
+    transformers, huggingface_hub and the JAX package blocked from
+    import, and none of them is loaded."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        closed = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k.lower() not in ("no_proxy", "pythonpath")}
+    env["https_proxy"] = env["HTTPS_PROXY"] = f"http://127.0.0.1:{closed}"
+    proc = subprocess.run([sys.executable, "-c", _GUI_RUN, *GUI_MODULES],
+                          cwd=str(PKG_DIR.parent), capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "update check unavailable (offline)" in proc.stdout
+    loaded = [line for line in proc.stdout.splitlines()
+              if line.startswith("LOADED:")]
+    assert loaded == ["LOADED:"], f"blocked modules loaded: {loaded}"
+
+
+def test_no_gui_slice_module_imports_hub_packages_at_top_level():
+    pat = re.compile(r"^(import|from)\s+(transformers|huggingface_hub)\b",
+                     re.M)
+    for name in GUI_MODULES:
+        path = PKG_DIR.parent / (name.replace(".", "/") + ".py")
+        assert not pat.search(path.read_text(encoding="utf-8")), name

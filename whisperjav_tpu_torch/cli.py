@@ -308,10 +308,15 @@ def _daemon_stop(port: int) -> int:
 
 
 def _daemon_batch(client, media, cfg, output_dir, out_lang: str,
-                  finalize, stats_file: Optional[str], port: int) -> int:
+                  finalize, stats_file: Optional[str], port: int,
+                  tracer=None) -> int:
     """Each file through the resident engine: its SRT and metadata JSON
     written here (the per-file layout of the in-process path), then
-    ``finalize`` (signatures, VTT). Returns the exit code."""
+    ``finalize`` (signatures, VTT). With a ``tracer`` (--trace-params)
+    each file records the in-process path's events: ``file_start``
+    before the request, ``segmentation`` and ``file_complete`` with the
+    engine's stats after it (the JAX CLI records none under --daemon).
+    Returns the exit code."""
     from whisperjav_tpu_torch.modules.media_discovery import (
         resolve_output_dir,
     )
@@ -323,7 +328,12 @@ def _daemon_batch(client, media, cfg, output_dir, out_lang: str,
     for m in media:
         try:
             t0 = time.time()
+            if tracer:
+                tracer.event("file_start", {"file": str(m.path),
+                                            "duration": m.duration or 0.0})
             subs, stats = client.transcribe(m.path)
+            if tracer:
+                tracer.event("segmentation", stats)
             out_dir = resolve_output_dir(output_dir, m)
             out_dir.mkdir(parents=True, exist_ok=True)
             srt_path = out_dir / f"{m.basename}.{out_lang}.whisperjav.srt"
@@ -348,6 +358,8 @@ def _daemon_batch(client, media, cfg, output_dir, out_lang: str,
                     meta[key] = stats.pop(key)
             (out_dir / f"{m.basename}.whisperjav.json").write_text(
                 json.dumps(meta, indent=2, default=str), encoding="utf-8")
+            if tracer:
+                tracer.event("file_complete", meta["stats"])
             logger.info("wrote %s (%d subtitles, daemon, RTF %.2fx)",
                         srt_path.name, len(subs),
                         audio_s / wall if wall > 0 else 0.0)
@@ -711,7 +723,7 @@ def _process(args, cfg, media, overrides: Dict, dot: Dict,
         if client is not None:
             return _daemon_batch(client, media, cfg, args.output_dir,
                                  out_lang, finalize, args.stats_file,
-                                 args.daemon_port)
+                                 args.daemon_port, tracer)
         logger.warning("--daemon requested but no resident engine is "
                        "available; continuing in-process")
 
