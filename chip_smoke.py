@@ -5,8 +5,8 @@
                                           # turbo, large-v2, fidelity,
                                           # qwen, vad, serve, enhance,
                                           # train, multihost, ensemble,
-                                          # async, translate, tools, gui
-                                          # (comma list)
+                                          # async, translate, tools, gui,
+                                          # devices (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -140,8 +140,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (its JSON line: ``e2e_file_rtf_balanced`` above 0, the stage and
    batch-phase walls, the rungs, a cuda engine); ``decode_profile`` at
    large-v2 greedy B=64 (budgets 32, 80, 128, every group, the bf16
-   phase; every variant timed but ``int4_cross_kv``, an error row; the
-   base slope above 0; launches per step of each variant; one timed
+   phase; every variant timed, ``int4_cross_kv``'s nibble-packed
+   cross-K/V included, its ms a step printed beside ``base``; the base
+   and int4 slopes above 0; launches per step of each variant; one timed
    round);
    ``whisperjav-torch-first-weights`` on a narrow HF Whisper that
    transformers writes from a seed (hd = 64): stages 0 and 1 pass, stage
@@ -167,7 +168,25 @@ Phases, in order; any failure exits non-zero before the result line:
    of a seeded narrow npz checkpoint onto the card with huggingface_hub
    and transformers blocked; the job walls through ``MetadataManager``.
    The GUI process and ``whisperjav-torch-upgrade`` poll for a release
-   through a proxy on a closed local port, so no outside host is asked.
+   through a proxy on a closed local port, so no outside host is asked;
+18. the devices phase, in a child process whose cuBLAS has no workspace
+   (``BATCH_INVARIANT_ENV``: cuBLAS otherwise splits a product's K by
+   the row count, so a shard's rows would not compute as one card's;
+   the largest difference between 32 rows of the K=5120 MLP product
+   taken with 64 rows and alone is printed with and without it):
+   ``cli.main(<turbo clip> --devices 2)`` against ``--devices 1`` (on
+   one card the flag is capped to it), then, after a warm-up file, the
+   flagless turbo engine at full width (B=32, beam 2, the ladder) over
+   one shard and over two shards of ``cuda:0`` (the engine's ``mesh``;
+   two model replicas, a host thread and a stream a shard) on the turbo
+   clip: SRTs and window diagnostics byte-identical, Kernel A and
+   Kernel B's bf16 form called on each shard's stream and counted, the
+   walls and peak memory printed; with a second card, the same over
+   ``cuda:0`` and ``cuda:1`` and every kernel checked on ``cuda:1``.
+
+Every phase but devices decodes on one card, the factory's default
+(the mesh is opt-in, ``--devices N``), so its launches are one engine's
+on any machine.
 
 Before each CLI run every kernel's launch count is zeroed, and read just
 after it; the SRT and metadata must exist and parse, every cue must lie
@@ -1381,7 +1400,7 @@ def breakdown(dev):
     """One B=32 batch through the flagless engine, each phase timed to a
     sync."""
     from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-    engine = build_pipeline(device=dev).engine   # flagless defaults
+    engine = build_pipeline(device=dev).engine   # flagless
     audio = np.stack([speech_like(28.0, s) for s in range(32)])
     audio = np.pad(audio, ((0, 0), (0, 480000 - audio.shape[1])))
     engine.encode_batch(audio, max_duration=28.0)      # warm-up
@@ -3241,7 +3260,7 @@ TOOLS_DEVICE = "cuda"
 # e2e_bench's synthetic file (its synth_long_wav), in minutes
 TOOLS_E2E_MINUTES = 2.0
 # e2e_bench's flags: the flagless path (turbo, beam 2, B=32)
-TOOLS_E2E_FLAGS = ()
+TOOLS_E2E_FLAGS = ("--devices", "1")
 # decode_profile: large-v2 greedy at B=64, the JAX tool's budgets (32,
 # 128 and the mid cell 80), every group, the bf16 phase included; one
 # timed round: the int8-unfused and bf16 cells are host-bound (45-100
@@ -3312,9 +3331,9 @@ def run_e2e_bench(tmp: Path) -> tuple:
 
 
 def run_decode_profile(tmp: Path) -> dict:
-    """decode_profile in-process at TOOLS_PROFILE_ARGS: every variant but
-    int4_cross_kv gives timed rows, int4_cross_kv its error rows, and the
-    base slope is positive. Prints the slopes and launches per step."""
+    """decode_profile in-process at TOOLS_PROFILE_ARGS: every variant,
+    nibble-packed int4 cross-K/V included, gives timed rows, and the base
+    slope is positive. Prints the slopes and launches per step."""
     from whisperjav_tpu_torch.tools import decode_profile
     out = tmp / "decode_profile.json"
     buf = io.StringIO()
@@ -3334,16 +3353,16 @@ def run_decode_profile(tmp: Path) -> dict:
     expected = {v for g in summary["groups"] for v in g
                 if not (v.startswith("layers") and int(v[6:]) >= n_layer)}
     expected = (expected - {"__mid__"}) | {"base", "bf16_weights"}
-    bad = sorted(v for v in expected if v != "int4_cross_kv" and not (
+    bad = sorted(v for v in expected if not (
         by_variant.get(v) and all(r.get("seconds", 0) > 0
                                   for r in by_variant[v])))
-    int4 = by_variant.get("int4_cross_kv", [])
-    if rc != 0 or bad or not int4 or not all("error" in r for r in int4):
+    if rc != 0 or bad or "int4_cross_kv" not in expected:
         raise RuntimeError(f"decode_profile: exit {rc}, variants without "
-                           f"timed rows {bad}, int4 rows {int4}")
+                           f"timed rows {bad}")
     slopes = summary["ms_per_step"]
-    if not slopes.get("base", 0) > 0:
-        raise RuntimeError(f"decode_profile: base slope {slopes}")
+    if not slopes.get("base", 0) > 0 \
+            or not slopes.get("int4_cross_kv", 0) > 0:
+        raise RuntimeError(f"decode_profile: base or int4 slope {slopes}")
     log(f"decode_profile ({' '.join(TOOLS_PROFILE_ARGS)}, {wall:.1f} s): "
         f"ms/step {json.dumps(slopes)}; base early "
         f"{summary['ms_per_step_base_early']} late "
@@ -3354,8 +3373,10 @@ def run_decode_profile(tmp: Path) -> dict:
         f"{slopes['base']} ms/step, fused_qkv (the engine's tree: fused "
         f"blocks) {slopes.get('fused_qkv')} ms/step, beside the large-v2 "
         f"breakdown's greedy B=64 {GREEDY_LV2_MS_PER_STEP} ms/step (fused "
-        f"blocks, prefill and host loop included); int4_cross_kv: "
-        f"{int4[0]['error']}")
+        f"blocks, prefill and host loop included); int4_cross_kv "
+        f"(nibble-packed cross-K/V, plain PyTorch on the unfused layers) "
+        f"{slopes['int4_cross_kv']} ms/step beside base {slopes['base']} "
+        f"(int4_kv_saving {summary['attribution_ms']['int4_kv_saving']})")
     for name, per_step in summary["launches_per_step"].items():
         log(f"decode_profile launches per step, {name}: "
             f"{json.dumps(per_step)}")
@@ -3903,9 +3924,230 @@ def run_gui_phase(dev, tmp: Path) -> dict:
     return launches
 
 
+# the kernels of the flagless path, by the names the model module calls
+DEVICES_SPIED = ("encoder_attention", "decode_cross_attention_bf16")
+
+
+@contextlib.contextmanager
+def calls_by_stream():
+    """Count the model's calls of Kernel A's and Kernel B's bf16 wrappers
+    by (name, device index, stream) of the caller; the wrappers launch
+    and count as they do."""
+    from whisperjav_tpu_torch.models.whisper import model as wm
+    seen: dict = {}
+    origs = {name: getattr(wm, name) for name in DEVICES_SPIED}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            stream = torch.cuda.current_stream()
+            key = (name, stream.device.index, stream.cuda_stream)
+            seen[key] = seen.get(key, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+    for name, fn in origs.items():
+        setattr(wm, name, spy(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in origs.items():
+            setattr(wm, name, fn)
+
+
+def devices_run(wav: Path, out: Path, dev, mesh, label: str) -> dict:
+    """The flagless turbo pipeline (no sanitizer) on ``mesh`` (None: one
+    card) through one file; the launch counts zeroed just before and read
+    just after, and each kernel's calls by the shard that made them."""
+    from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.modules.media_discovery import probe
+    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline, build_s = _timed(lambda: build_pipeline(
+        resolve_pipeline_config(), device=dev, mesh=mesh))
+    engine = pipeline.engine
+    if mesh is None and len(engine._shards) != 1:
+        raise RuntimeError(f"devices: the flagless factory built "
+                           f"{len(engine._shards)} shards; its default is "
+                           "one card")
+    zero_launches()
+    with calls_by_stream() as seen:
+        result, wall = _timed(lambda: pipeline.process(probe(wav), out))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shards = []
+    for shard in engine._shards:
+        stream = (shard.stream if shard.stream is not None
+                  else torch.cuda.current_stream(shard.device))
+        shards.append({name: seen.get((name, stream.device.index,
+                                       stream.cuda_stream), 0)
+                       for name in DEVICES_SPIED})
+    missing = [(k, name) for k, calls in enumerate(shards)
+               for name, n in calls.items() if n < 1]
+    if missing or sum(sum(c.values()) for c in shards) != sum(seen.values()):
+        raise RuntimeError(f"devices {label}: kernels not called on every "
+                           f"shard {missing}, calls {seen}")
+    if any(launches[name] != sum(c[name] for c in shards)
+           for name in DEVICES_SPIED):
+        raise RuntimeError(f"devices {label}: launch counts {launches} "
+                           f"against the shards' calls {shards}")
+    stats = result.metadata["stats"]
+    log(f"devices {label} ({engine.mesh.size} shard(s) on "
+        f"{[str(d) for d in engine.mesh.devices]}, B={engine.batch_size}): "
+        f"build {build_s:.3f} s, wall {wall:.3f} s, windows "
+        f"{stats['windows']}, raw subtitles {stats['raw_subtitles']}, peak "
+        f"device memory {peak} bytes ({peak / 2**30:.3f} GiB); launches by "
+        f"shard {json.dumps(shards)}")
+    del pipeline, engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall": wall, "peak": peak,
+            "shards": shards}
+
+
+def same_outputs(a: Path, b: Path, stem: str, what: str) -> None:
+    """The SRT and the window diagnostics of two runs, byte for byte; on
+    a difference, the windows that differ."""
+    srt = f"{stem}.ja.whisperjav.srt"
+    if (a / srt).read_bytes() != (b / srt).read_bytes():
+        raise RuntimeError(f"devices: {what}: {srt} differs")
+    diag = f"{stem}.transcribe.json"
+    if (a / diag).read_bytes() != (b / diag).read_bytes():
+        wa, wb = (json.loads((d / diag).read_text())["windows"]
+                  for d in (a, b))
+        diff = [(x, y) for x, y in zip(wa, wb) if x != y]
+        raise RuntimeError(f"devices: {what}: {diag} differs in "
+                           f"{len(diff)} of {len(wa)} windows: {diff[:4]}")
+
+
+# cuBLAS picks a split of a product's K over blocks by the row count
+# (measured: the K=5120 MLP product, 64 rows against 32); given no
+# workspace it cannot split, and a shard's rows then compute as one
+# card's. The devices phase runs in a child with it.
+BATCH_INVARIANT_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":0:0",
+                       "CUBLASLT_WORKSPACE_SIZE": "0"}
+
+
+def row_split_difference(label: str) -> float:
+    """Log and return the largest difference between 32 rows of one bf16
+    product taken with 64 rows and taken alone: the decoder's MLP output
+    product at turbo widths (K = 5120, N = 1280), the product whose rows
+    cuBLAS splits by the row count."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 5120, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(5120, 1280, device=dev, generator=gen)
+         * 0.02).to(torch.bfloat16)
+    diff = (torch.mm(x, w)[:32].float()
+            - torch.mm(x[:32], w).float()).abs().max().item()
+    log(f"devices: {label}: a K=5120 x N=1280 bf16 product, 32 rows with "
+        f"64 against alone: max |difference| {diff}")
+    return diff
+
+
+_DEVICES_CHILD = """
+import json, sys
+import chip_smoke
+record = chip_smoke.devices_child(sys.argv[1])
+print("DEVICES_CHILD " + json.dumps(record), flush=True)
+"""
+
+
+def devices_child(tmp: str) -> dict:
+    """The devices phase, in a child with BATCH_INVARIANT_ENV: the CLI
+    at --devices 2 against --devices 1 (capped to the cards there are);
+    after a warm-up file, the flagless turbo engine over one shard and
+    over two shards of cuda:0 (and, with a second card, over cuda:0 and
+    cuda:1, then every kernel on cuda:1) on the turbo clip. Each pair's
+    SRT and window diagnostics must be byte-identical."""
+    from whisperjav_tpu_torch import cli
+    from whisperjav_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    wav = tmp / "devices.wav"
+    dev = torch.device("cuda")
+    n_cards = torch.cuda.device_count()
+    row_split_difference("cuBLAS without workspace")
+    walls = {}
+    for n in ("2", "1"):
+        torch.cuda.synchronize()
+        rc, walls[n] = _timed(lambda: cli.main([
+            str(wav), "--output-dir", str(tmp / f"devices-cli-{n}"),
+            "--devices", n]))
+        if rc != 0:
+            raise RuntimeError(f"devices: --devices {n} exited {rc}")
+    same_outputs(tmp / "devices-cli-2", tmp / "devices-cli-1", "devices",
+                 f"--devices 2 on {n_cards} card(s) against --devices 1")
+    log(f"devices: cli --devices 2 ({min(2, n_cards)} card(s) of "
+        f"{n_cards}) wall {walls['2']:.3f} s, --devices 1 wall "
+        f"{walls['1']:.3f} s: SRT and window diagnostics byte-identical")
+    warm = tmp / "devices-warm.wav"
+    synthetic_clip_seeded(warm, 8.0, 90)
+    devices_run(warm, tmp / "devices-warm", dev, None, "warm-up")
+    runs = {"one": devices_run(wav, tmp / "devices-one", dev, None,
+                               "one shard"),
+            "two": devices_run(wav, tmp / "devices-two", dev,
+                               make_mesh(devices=["cuda:0", "cuda:0"]),
+                               "two shards on cuda:0")}
+    same_outputs(tmp / "devices-two", tmp / "devices-one", "devices",
+                 "two shards of cuda:0 against one")
+    if n_cards > 1:
+        runs["cards"] = devices_run(wav, tmp / "devices-cards", dev,
+                                    make_mesh(devices=["cuda:0", "cuda:1"]),
+                                    "cuda:0 and cuda:1")
+        same_outputs(tmp / "devices-cards", tmp / "devices-one", "devices",
+                     "cuda:0 and cuda:1 against one card")
+        second = torch.device("cuda:1")
+        with torch.cuda.device(second):
+            gen = torch.Generator(device=second).manual_seed(0)
+            check_encoder_attention(second, gen, None)
+            check_decode_attention(second, gen, None)
+            check_fused_blocks(second, gen, None)
+        log("devices: every kernel launched on cuda:1 after cuda:0 and "
+            "held against its plain version")
+    return runs
+
+
+def run_devices_phase(tmp: Path) -> dict:
+    """``--devices``: :func:`devices_child` in a child process with
+    BATCH_INVARIANT_ENV on the turbo clip; its lines are relayed and its
+    record logged. Returns the two-shard run's launches."""
+    import os
+    wav = tmp / "devices.wav"
+    duration = synthetic_clip(wav, TURBO_CLIP_S)
+    row_split_difference("cuBLAS as it comes (this process)")
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEVICES_CHILD, str(tmp)],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600, env={**os.environ, **BATCH_INVARIANT_ENV})
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("DEVICES_CHILD "):
+            log(f"  {line}")
+    record = next((json.loads(line.split(" ", 1)[1]) for line in lines
+                   if line.startswith("DEVICES_CHILD ")), None)
+    if proc.returncode != 0 or record is None:
+        raise RuntimeError(f"devices: the child exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    one, two = record["one"], record["two"]
+    log(f"devices (cuBLAS without workspace, the {duration:.3f} s clip): "
+        f"two shards of one card against one shard: SRT and window "
+        f"diagnostics byte-identical; walls {two['wall']:.3f} s against "
+        f"{one['wall']:.3f} s; peak memory {two['peak']} bytes against "
+        f"{one['peak']} (two model replicas against one)")
+    if "cards" in record:
+        log(f"devices: over cuda:0 and cuda:1 the SRT of one card, wall "
+            f"{record['cards']['wall']:.3f} s")
+    else:
+        log("devices: one card visible: the launch of each kernel on a "
+            "second card is unchecked here")
+    return two["launches"]
+
+
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
           "vad", "serve", "enhance", "train", "multihost", "ensemble",
-          "async", "translate", "tools", "gui")
+          "async", "translate", "tools", "gui", "devices")
 
 
 @contextlib.contextmanager
@@ -4039,6 +4281,9 @@ def main(argv=None) -> int:
         if "gui" in only:
             with phase("gui"):
                 launches["gui"] = run_gui_phase(dev, Path(tmp))
+        if "devices" in only:
+            with phase("devices"):
+                launches["devices"] = run_devices_phase(Path(tmp))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

@@ -35,6 +35,7 @@ from whisperjav_tpu_torch.modules.enhancement import create_enhancer
 from whisperjav_tpu_torch.modules.enhancement import (
     bandsplit_backends as heavy,
 )
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 # the factory defaults to the card; these tests run its backends on the CPU
 t_enh = functools.partial(create_enhancer, device="cpu")

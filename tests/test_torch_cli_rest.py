@@ -22,6 +22,7 @@ from test_torch_ensemble import short_wavs, tiny_builders
 from whisperjav_tpu import cli as jcli
 from whisperjav_tpu.modules.srt import load_srt
 from whisperjav_tpu_torch import cli as tcli
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 _RUN = ["--no-sanitize", "--batch-size", "2"]
 # wall-clock fields of the pipeline's stats
@@ -348,3 +349,31 @@ def test_concurrent_builds_use_their_own_temporary_files(tmp_path,
     assert results[0][0].read_bytes() == b"lib"
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == \
         [results[0][0].name]
+
+
+def test_an_edited_header_names_a_new_library(tmp_path):
+    """The library's name hashes the ``*.cuh`` headers as well as the
+    sources, and a header is not compiled on its own."""
+    from whisperjav_tpu_torch.ops.cuda import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "g.cuh"\n')
+    (csrc / "g.cuh").write_text("// g\n")
+    before = _build.library_path(csrc, tmp_path / "build")
+    (csrc / "g.cuh").write_text("// g, edited\n")
+    assert _build.library_path(csrc, tmp_path / "build") != before
+    assert [p.name for p in _build.sources(csrc)] == ["a.cu"]
+
+
+def test_the_shared_memory_guard_lives_in_one_header():
+    """Every kernel source takes the per-device cudaFuncSetAttribute
+    guard from ``smem_guard.cuh`` and none calls the attribute itself."""
+    from whisperjav_tpu_torch.ops.cuda import _build
+    srcs = _build.sources()
+    assert len(srcs) == 3
+    for src in srcs:
+        text = src.read_text()
+        assert '#include "smem_guard.cuh"' in text, src.name
+        assert "cudaFuncSetAttribute(" not in text, src.name
+        assert "allow_smem(" in text, src.name
+    assert "cudaGetDevice(" in (_build.CSRC_DIR / "smem_guard.cuh").read_text()

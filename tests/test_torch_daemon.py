@@ -23,6 +23,7 @@ from whisperjav_tpu.pipelines import daemon_client as jdc
 from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
 from whisperjav_tpu_torch.modules.audio_io import write_wav
 from whisperjav_tpu_torch.pipelines import daemon_client
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 CUES = [{"index": 1, "start": 0.5, "end": 1.8, "text": "こんにちは"},
         {"index": 2, "start": 2.0, "end": 3.0, "text": "テスト"}]

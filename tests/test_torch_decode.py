@@ -89,6 +89,25 @@ def test_beam2_tokens_identical(setup):
     _same(ref, out)
 
 
+@pytest.mark.parametrize("beam_size", [1, 2])
+def test_int4_cross_kv_tokens_identical(setup, beam_size):
+    """Nibble-packed int4 cross-K/V (``cross_kv_int4``, over int8): the
+    JAX package's tokens, greedy and with the beam."""
+    params, model, xa = setup
+    jo, to = _opts(beam_size=beam_size, cross_kv_int4=True)
+    decode = "decode_beam" if beam_size > 1 else "decode_greedy"
+    ref = getattr(jd, decode)(params, CFG, jnp.asarray(xa), jo)
+    out = getattr(td, decode)(model, torch.from_numpy(xa), to)
+    _same(ref, out)
+
+
+def test_unquantised_cross_kv_is_refused(setup):
+    _, model, xa = setup
+    opts = dataclasses.replace(_opts()[1], cross_kv_int8=False)
+    with pytest.raises(NotImplementedError, match="quantised cross-K/V"):
+        td.decode_greedy(model, torch.from_numpy(xa), opts)
+
+
 def test_sampled_rung_identical_with_jax_noise(setup):
     """The port is fed the gumbel noise that decode.py's loop draws from
     its key: split once per step, gumbel from the subkey."""

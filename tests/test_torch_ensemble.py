@@ -37,6 +37,7 @@ from whisperjav_tpu_torch.models.whisper.config import (
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
 from whisperjav_tpu_torch.modules.media_discovery import probe as tprobe
 from whisperjav_tpu_torch.modules.srt import Subtitle as TSub
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 _DIMS = dict(name="ensemble-tiny", n_mels=128, n_audio_state=64,
              n_audio_head=4, n_audio_layer=2, n_text_state=64,
@@ -159,7 +160,7 @@ def tiny_builders(monkeypatch):
                                                        tracer))
     monkeypatch.setattr(tf, "build_pipeline",
                         lambda cfg, checkpoint=None, postprocessor=None,
-                        device="cpu", tracer=None: torch_pipeline(
+                        device="cpu", tracer=None, **_: torch_pipeline(
                             cfg, postprocessor, tracer))
 
 

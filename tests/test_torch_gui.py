@@ -25,6 +25,7 @@ import whisperjav_tpu.gui.server as jsrv
 import whisperjav_tpu_torch.gui.server as psrv
 from whisperjav_tpu.config.user_config import UserConfigManager as JConfig
 from whisperjav_tpu_torch.modules.audio_io import write_wav
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 GUARD_S = 300   # limit of every wait (a guard: the waits are on events)
 

@@ -21,6 +21,7 @@ from whisperjav_tpu_torch.modules.media_discovery import (
     MediaInfo as TorchMediaInfo,
 )
 from whisperjav_tpu_torch.parallel import multihost as tmh
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 _DIST_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",

@@ -29,6 +29,7 @@ from whisperjav_tpu_torch.modules.sanitize import (
     SRTPostProcessor as TorchSRTPostProcessor,
 )
 from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 _DIMS = dict(name="torch-e2e-tiny", n_mels=128, n_audio_state=64,
              n_audio_head=4, n_audio_layer=2, n_text_state=64,
@@ -147,15 +148,94 @@ def test_port_pipeline_writes_the_jax_srt(tmp_path, int8_weights):
         == [(w["start"], w["segments"], w["chars"]) for w in diag["jax"]]
 
 
+def _narrow_model(monkeypatch):
+    """The factory's model at test widths (random init, seed 0)."""
+    import whisperjav_tpu_torch.pipelines.factory as factory
+    from whisperjav_tpu_torch.models.whisper.weights import (
+        init_params as t_init,
+    )
+    monkeypatch.setattr(factory, "load_model", lambda *a, **k: (
+        TTINY, t_init(TTINY, torch.Generator().manual_seed(0))))
+
+
+def _spy_builds(monkeypatch) -> list:
+    """The factory's pipelines the CLI builds, with the keywords."""
+    import whisperjav_tpu_torch.pipelines.factory as factory
+    builds, build = [], factory.build_pipeline
+
+    def spy(*a, **k):
+        pipe = build(*a, **k)
+        builds.append((k, pipe.engine.mesh.size))
+        return pipe
+    monkeypatch.setattr(factory, "build_pipeline", spy)
+    return builds
+
+
+# the argvs the port once refused ("not ported yet"), each run as the JAX
+# CLI runs it: --devices reaches the file pipeline's factory only, which
+# on the CPU shards over one device; --daemon hands the files to the
+# resident engine and builds nothing; --multihost without a coordinator
+# runs alone
 @pytest.mark.parametrize("flags", [
     ["--daemon", "--devices", "2"],
     ["--multihost", "--devices", "2"],
     ["--mode", "transformers", "--devices", "8"],
     ["--devices", "4"],
+    ["--devices", "1"],
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags):
-    assert cli.main([str(tmp_path / "clip.wav"), *flags]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_cli_runs_the_devices_flag_as_the_jax_cli(tmp_path, monkeypatch,
+                                                  flags):
+    from test_torch_daemon import _cfg, _fp, _stub_server
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    _narrow_model(monkeypatch)
+    builds = _spy_builds(monkeypatch)
+    out = tmp_path / "out"
+    argv = [str(_short_wav(tmp_path)), *flags, "--output-dir", str(out),
+            "--no-signature"]
+    if "--daemon" in flags:
+        srv, port = _stub_server(_fp(_cfg(batch_size=None)))
+        try:
+            assert cli.main([*argv, "--daemon-port", str(port)]) == 0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        assert builds == []
+        assert "こんにちは" in (out / "short.ja.whisperjav.srt").read_text(
+            encoding="utf-8")
+        return
+    assert cli.main([*argv, *_CPU_RUN]) == 0
+    devices = int(flags[flags.index("--devices") + 1])
+    assert [(k["devices"], k["device"], n) for k, n in builds] == \
+        [(devices, "cpu", 1)]
+    assert (out / "short.ja.whisperjav.srt").exists()
+
+
+def test_cli_devices_is_capped_to_the_devices_there_are(tmp_path,
+                                                        monkeypatch):
+    """--devices 4 with one device to shard over (the CPU): the SRT and
+    window diagnostics of --devices 1, byte for byte."""
+    _narrow_model(monkeypatch)
+    wav = _short_wav(tmp_path)
+    for n in ("4", "1"):
+        assert cli.main([str(wav), "--devices", n, "--output-dir",
+                         str(tmp_path / n), "--no-signature",
+                         *_CPU_RUN]) == 0
+    for name in ("short.ja.whisperjav.srt", "short.transcribe.json"):
+        assert (tmp_path / "4" / name).read_bytes() == \
+            (tmp_path / "1" / name).read_bytes()
+
+
+def test_cli_refuses_devices_with_an_indexed_card(tmp_path, capsys,
+                                                  monkeypatch):
+    _narrow_model(monkeypatch)
+    rc = cli.main([str(_short_wav(tmp_path)), "--device", "cuda:1",
+                   "--devices", "2", "--output-dir", str(tmp_path / "o")])
+    assert rc == 2
+    assert "--device cuda:1" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists() or not any(
+        (tmp_path / "o").iterdir())
 
 
 # the qwen-mode CPU run: the test-width Qwen3-ASR

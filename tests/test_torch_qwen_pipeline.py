@@ -42,6 +42,7 @@ from whisperjav_tpu_torch.modules.subtitle_pipeline.types import (
 )
 from whisperjav_tpu_torch.pipelines.qwen import QwenPipeline
 from whisperjav_tpu_torch.pipelines.qwen_factory import build_qwen_pipeline
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 SR = 16000
 

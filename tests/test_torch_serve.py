@@ -29,6 +29,7 @@ from whisperjav_tpu_torch.models.whisper.config import (
 from whisperjav_tpu_torch.modules.audio_io import write_wav
 from whisperjav_tpu_torch.modules.srt import Subtitle
 from whisperjav_tpu_torch.pipelines.daemon_client import _fingerprint
+from test_torch_logging import keep_package_logger  # noqa: F401 (autouse)
 
 _DIMS = dict(name="serve-tiny", n_mels=80, n_audio_state=64,
              n_audio_head=4, n_audio_layer=1, n_text_state=64,
@@ -290,6 +291,45 @@ def test_shutdown_endpoint_and_daemon_stop_cli():
     assert cli_main(["--daemon-stop", "--daemon-port", str(port)]) == 1
 
 
-def test_main_refuses_several_devices(capsys):
-    assert serve.main(["--devices", "2"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("devices", [["--devices", "2"], ["--devices", "1"],
+                                     []])
+def test_main_serves_with_devices(monkeypatch, devices):
+    """``serve.main`` with ``--devices`` as the JAX server takes it: the
+    Whisper pipeline built by the factory with ``devices`` (one device on
+    the CPU); /health answers, /shutdown stops it, main returns 0."""
+    import whisperjav_tpu_torch.pipelines.factory as factory
+    from whisperjav_tpu_torch.models.whisper.weights import (
+        init_params as t_init,
+    )
+    tcfg = TorchWhisperConfig(**_DIMS)
+    monkeypatch.setattr(factory, "load_model", lambda *a, **k: (
+        tcfg, t_init(tcfg, torch.Generator().manual_seed(0))))
+    builds, build = [], factory.build_pipeline
+
+    def spy(*a, **k):
+        pipe = build(*a, **k)
+        builds.append((k["devices"], pipe.engine.mesh.size))
+        return pipe
+    monkeypatch.setattr(factory, "build_pipeline", spy)
+    health = {}
+    make = serve.make_server
+
+    def make_server(service, host, port):
+        httpd = make(service, host, 0)
+
+        def drive():
+            health.update(json.loads(_get(httpd.server_address[1],
+                                          "/health")[1]))
+            _post(httpd.server_address[1], "/shutdown", b"{}")
+        threading.Thread(target=drive, daemon=True).start()
+        return httpd
+    monkeypatch.setattr(serve, "make_server", make_server)
+    assert serve.main(["--device", "cpu", *devices]) == 0
+    want = int(devices[1]) if devices else None
+    assert builds == [(want, 1)]
+    assert health["status"] == "ok" and health["device"] == "cpu"
+
+
+def test_main_refuses_devices_with_an_indexed_card(capsys):
+    assert serve.main(["--device", "cuda:1", "--devices", "2"]) == 2
+    assert "--device cuda:1" in capsys.readouterr().err

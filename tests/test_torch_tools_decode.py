@@ -120,8 +120,9 @@ def _json_lines(out):
 
 
 def test_decode_profile_emits_the_jax_table(monkeypatch, capsys):
-    """Every variant of the JAX tool's table gets rows (int4_cross_kv as
-    the port's error row), and the summary has the JAX summary's keys."""
+    """Every variant of the JAX tool's table gets timed rows (nibble-packed
+    int4 cross-K/V included), and the summary has the JAX summary's
+    keys."""
     from whisperjav_tpu.tools import decode_profile as jprof
     from whisperjav_tpu_torch.models.whisper import config as tconfig
     from whisperjav_tpu_torch.tools import decode_profile as tprof
@@ -144,12 +145,10 @@ def test_decode_profile_emits_the_jax_table(monkeypatch, capsys):
         by_variant.setdefault(r["variant"].split("@")[0], []).append(r)
     assert set(by_variant) == variants | {"base", "bf16_weights"}
     for name, rs in by_variant.items():
-        if name == "int4_cross_kv":
-            assert len(rs) == 2 and all(
-                "only int8 cross-K/V is ported" in r["error"] for r in rs)
-        else:
-            assert all(r["seconds"] > 0 and isinstance(r["launches"], dict)
-                       for r in rs), rs
+        assert all(r["seconds"] > 0 and isinstance(r["launches"], dict)
+                   for r in rs), rs
+    assert len(by_variant["int4_cross_kv"]) == 2
+    assert isinstance(summary["attribution_ms"]["int4_kv_saving"], float)
     assert set(jsummary) <= set(summary)
     assert set(summary["attribution_ms"]) == set(jsummary["attribution_ms"])
     assert summary["groups"] == jsummary["groups"]

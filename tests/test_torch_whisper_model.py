@@ -106,6 +106,65 @@ def test_int8_cross_kv_matches_jax(weights, encoded):
         assert np.abs(a - b).max() <= 1
 
 
+def test_int4_nibbles_match_jax():
+    """Packing, unpacking and each nibble: the JAX functions' codes,
+    exactly, over every +-7 level at both positions of a byte."""
+    levels = np.arange(-7, 8, dtype=np.float32)
+    x = np.stack(np.meshgrid(levels, levels), -1).reshape(3, 5, 30)
+    packed = tm.pack_nibbles(torch.from_numpy(x))
+    ref = np.asarray(jm._pack_nibbles(jnp.asarray(x)))
+    assert packed.dtype == torch.uint8 and packed.shape == (3, 5, 15)
+    np.testing.assert_array_equal(packed.numpy(), ref)
+    for ours, theirs in ((tm.unpack_nibbles, jm._unpack_nibbles),
+                         (tm.nib_lo, jm._nib_lo), (tm.nib_hi, jm._nib_hi)):
+        got = ours(packed)
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(theirs(jnp.asarray(ref))))
+    np.testing.assert_array_equal(tm.unpack_nibbles(packed).numpy(), x)
+    with pytest.raises(ValueError, match="even T"):
+        tm.pack_nibbles(torch.zeros(2, 3))
+
+
+def test_int4_cross_kv_matches_jax(weights, encoded):
+    params, tree = weights
+    xa, _ = encoded
+    ref = jm.precompute_cross_kv(params, CFG, jnp.asarray(xa), int4=True)
+    out = tm.precompute_cross_kv(params_from_jax(tree, TCFG),
+                                 torch.from_numpy(xa), int4=True)
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-6)
+    for name in ("k", "v"):
+        got = getattr(out, name)
+        assert got.dtype == torch.uint8 and got.shape == (2, 2, 4, 16, 750)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(ref, name)))
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_int4_cross_attention_matches_jax(weights, encoded, g):
+    """The even/odd attention over packed K/V, beams folded (g query rows
+    a K/V row), on the JAX codes and scales: f32 within 1e-5 of the
+    output's largest magnitude (the sums run in different orders)."""
+    params, _ = weights
+    xa, _ = encoded
+    cross = jm.precompute_cross_kv(params, CFG, jnp.asarray(xa[:, :448]),
+                                   int4=True)
+    q = np.random.default_rng(5).standard_normal(
+        (2 * g, 1, 4, 16)).astype(np.float32)
+    ref = np.asarray(jm.cross_attention(
+        jnp.asarray(q), cross.k[1], cross.v[1], cross.k_scale[1],
+        cross.v_scale[1]))
+    out = tm.cross_attention(
+        torch.from_numpy(q),
+        tm.CrossKV(*(torch.from_numpy(np.array(x)) for x in cross)), 1)
+    assert out.shape == ref.shape == (2 * g, 1, 4, 16)
+    np.testing.assert_allclose(out.numpy(), ref,
+                               atol=1e-5 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_decode_step_matches_jax(weights, encoded, fused):
     """Prefill of the SOT sequence, then single steps in column mode, on

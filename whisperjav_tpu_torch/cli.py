@@ -32,9 +32,17 @@ routes the files through a resident ``whisperjav-torch-serve`` engine
 splits the discovered files over processes that meet at a gloo
 rendezvous; one that is asked for and fails exits 1.
 
-What the port does not cover yet makes it exit with "not ported yet"
-before any work: ``--devices`` above 1 and the flags listed in
-``_UNPORTED``.
+The file pipeline runs on one card; ``--devices N`` shards its window
+batches data-parallel over the first N cards (``parallel/mesh.py``),
+capped at the cards there are. The JAX CLI shards over every device by
+default; here the mesh is opt-in, since its shards run slower than one
+card alone (PERF.md §6). Like the JAX CLI, the port reads the flag only
+where it builds that pipeline (which ``--async-processing`` decodes on
+too): ``--daemon``, ``--ensemble`` and qwen mode do not read it.
+``--devices`` above 1 with ``--device cuda:<k>`` exits 2.
+
+A mode the port does not cover exits with "not ported yet" before any
+work.
 
     whisperjav-torch clip.wav --output-dir out/
     whisperjav-torch clip.wav --model large-v2 --int8-weights
@@ -72,8 +80,6 @@ def _unported(args) -> List[str]:
     out = []
     if args.mode not in PORTED_MODES:
         out.append(f"--mode {args.mode}")
-    if args.devices is not None and args.devices > 1:
-        out.append(f"--devices {args.devices}")
     return out
 
 
@@ -748,10 +754,16 @@ def _process(args, cfg, media, overrides: Dict, dot: Dict,
     if cfg.mode.name == "qwen":
         pipeline = _qwen_pipeline(args, cfg, checkpoint, device)
     else:
+        from whisperjav_tpu_torch.parallel.mesh import DevicesConflict
         from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-        pipeline = build_pipeline(cfg, checkpoint=checkpoint,
-                                  postprocessor=postprocessor,
-                                  device=device, tracer=tracer)
+        try:
+            pipeline = build_pipeline(cfg, checkpoint=checkpoint,
+                                      postprocessor=postprocessor,
+                                      device=device, tracer=tracer,
+                                      devices=args.devices)
+        except DevicesConflict as e:
+            print(f"whisperjav-torch: {e}", file=sys.stderr)
+            return 2
 
     if args.async_processing and cfg.mode.name != "qwen":
         # as in the JAX CLI, qwen mode takes the file loop below

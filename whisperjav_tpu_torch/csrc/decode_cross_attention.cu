@@ -52,6 +52,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_guard.cuh"
+
 namespace {
 
 constexpr int kHd = 64;
@@ -410,14 +412,10 @@ decode_cross_attention_kernel(Args a) {
 template <int ROWS, bool ALIGNED>
 int launch_one(const Args& a, int batch, int smem, cudaStream_t stream) {
   auto kernel = decode_cross_attention_kernel<ROWS, ALIGNED>;
-  static int smem_set = 0;   // the largest size allowed so far
+  static SmemGuard guard;
+  const int allowed = allow_smem(kernel, guard, smem);
+  if (allowed) return allowed;
   cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.ranks * batch * a.n_head,
                      (a.n_rows + ROWS - 1) / ROWS);

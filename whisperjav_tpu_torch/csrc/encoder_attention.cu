@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_guard.cuh"
+
 namespace {
 
 constexpr int kHd = 64;          // head dim (all Whisper sizes)
@@ -463,10 +465,10 @@ typedef CUresult (*EncodeTiledFn)(
     CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from the driver, through the runtime (so the
-// library needs no link against libcuda).
+// library needs no link against libcuda); looked up once, by the first
+// caller, whichever thread that is.
 EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
@@ -477,8 +479,9 @@ EncodeTiledFn encode_tiled() {
         "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
     if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+      return reinterpret_cast<EncodeTiledFn>(p);
+    return nullptr;
+  }();
   return fn;
 }
 
@@ -509,14 +512,10 @@ extern "C" int wjt_encoder_attention(
     int n_head, int64_t qs_b, int64_t qs_t, int64_t qs_h, int64_t ks_b,
     int64_t ks_t, int64_t ks_h, int64_t vs_b, int64_t vs_t, int64_t vs_h,
     void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        encoder_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  static SmemGuard guard;
+  const int err = allow_smem(encoder_attention_kernel, guard,
+                             static_cast<int>(kSmemBytes));
+  if (err) return err;
   CUtensorMap k_map, v_map;
   if (!make_map(&k_map, k, batch, t_len, n_head, ks_b, ks_t, ks_h) ||
       !make_map(&v_map, v, batch, t_len, n_head, vs_b, vs_t, vs_h))

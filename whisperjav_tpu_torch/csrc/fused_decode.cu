@@ -93,6 +93,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include "smem_guard.cuh"
 
 // Kernel B, in decode_cross_attention.cu of the same library; form 2
 // writes the hi/lo terms of out * v_scale.
@@ -727,14 +728,9 @@ Plan plan(int rows, int k, int n, bool ln) {
 template <int EPI, int MT>
 int launch_gemv(const Plan& pl, const Gemv& p, cudaStream_t stream) {
   using S = GemvSmem<MT, ln_mode(EPI)>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qgemv_kernel<EPI, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        S::kBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
+  static SmemGuard guard;
+  const int allowed = allow_smem(qgemv_kernel<EPI, MT>, guard, S::kBytes);
+  if (allowed) return allowed;
   // the splits of a column tile are one cluster along y
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.tiles_x, pl.splits, pl.tiles_z);

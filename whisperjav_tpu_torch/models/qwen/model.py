@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperjav_tpu_torch.models.whisper.decode import _draw_gumbel
+from whisperjav_tpu_torch.models.whisper.decode import draw_gumbel
 from whisperjav_tpu_torch.models.whisper.model import (
     Int8, Int8Weight, sinusoid_positions,
 )
@@ -509,7 +509,7 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
             lg = torch.where(seen, pen, lg)
         if sample:
             noise = (gumbel(step) if gumbel is not None
-                     else _draw_gumbel(generator, lg.shape, dev))
+                     else draw_gumbel(generator, lg.shape, dev))
             tok = torch.argmax(lg + temperature * noise.to(dev), dim=-1)
         else:
             tok = torch.argmax(lg, dim=-1)

@@ -40,9 +40,11 @@ _NEG = float("-inf")
 class DecodeOptions:
     """Decoding configuration; fields and defaults as in the JAX package.
 
-    Only int8 cross-K/V is ported (``cross_kv_int8`` must be True when
-    decoding, ``cross_kv_int4`` False). ``assume_greedy`` decodes by
-    argmax whatever the temperature, as in the JAX package.
+    Cross-K/V is quantised when decoding: int8 (``cross_kv_int8``), or
+    nibble-packed int4 (``cross_kv_int4``, which wins over int8, as in
+    the JAX package); unquantised cross-K/V is not ported.
+    ``assume_greedy`` decodes by argmax whatever the temperature, as in
+    the JAX package.
     """
     task: str = "transcribe"
     language: str = "ja"
@@ -98,10 +100,10 @@ def _static_suppress_mask(config: WhisperConfig,
 
 
 def _check_options(options: DecodeOptions) -> None:
-    if options.cross_kv_int4 or not options.cross_kv_int8:
+    if not (options.cross_kv_int8 or options.cross_kv_int4):
         raise NotImplementedError(
-            "only int8 cross-K/V is ported: set cross_kv_int8=True and "
-            "cross_kv_int4=False")
+            "only quantised cross-K/V is ported: set cross_kv_int8=True "
+            "or cross_kv_int4=True")
 
 
 @dataclass
@@ -192,7 +194,7 @@ def _apply_logit_rules(logits: torch.Tensor, s: _Rules,
     return logits
 
 
-def _draw_gumbel(generator: torch.Generator, shape,
+def draw_gumbel(generator: torch.Generator, shape,
                  device) -> torch.Tensor:
     """-log(-log(u)), u uniform on [tiny, 1), as ``jax.random.gumbel``."""
     u = torch.rand(shape, generator=generator, device=device)
@@ -224,7 +226,7 @@ def _prefill(model: Whisper, xa: torch.Tensor, options: DecodeOptions,
     init_t = torch.as_tensor(init, device=dev)
     tokens = torch.zeros((rows, total_len), dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init_t
-    cross = precompute_cross_kv(model, xa)
+    cross = precompute_cross_kv(model, xa, int4=options.cross_kv_int4)
     cache = KVCache.zeros(config, rows, total_len,
                           model.decoder.tok_emb.dtype, dev)
     prefill, cache = decode_step(
@@ -288,7 +290,7 @@ def decode_greedy(
                                     static_mask, prompt_len)
         if sample:
             noise = (gumbel(step) if gumbel is not None
-                     else _draw_gumbel(generator, logits.shape, dev))
+                     else draw_gumbel(generator, logits.shape, dev))
             token = torch.argmax(logits + temperature * noise, dim=-1)
         else:
             token = torch.argmax(logits, dim=-1)

@@ -224,24 +224,33 @@ class KVCache(NamedTuple):
 
 
 class CrossKV(NamedTuple):
-    """Per-segment cross-attention K/V, (L, B, H, hd, T) int8, with
-    per-(layer, batch, head) scales (L, B, H, 1, 1) f32."""
+    """Per-segment cross-attention K/V, (L, B, H, hd, T) int8 (or, for
+    int4, (L, B, H, hd, T/2) uint8 nibble pairs), with per-(layer, batch,
+    head) scales (L, B, H, 1, 1) f32."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor
     v_scale: torch.Tensor
 
 
-def precompute_cross_kv(model: Whisper, xa: torch.Tensor) -> CrossKV:
-    """Project encoder states once per segment and quantise them to int8
-    per (layer, batch, head), rounding half to even as ``jnp.round``
-    (the JAX package's ``int8=True``; the decode kernel reads int8)."""
+def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
+                        int4: bool = False) -> CrossKV:
+    """Project encoder states once per segment and quantise them per
+    (layer, batch, head), rounding half to even as ``jnp.round``: to int8
+    (the JAX package's ``int8=True``; the decode kernel reads int8), or
+    with ``int4`` to +-7 levels packed two to a byte along T
+    (:func:`pack_nibbles`; the JAX package's ``int4=True``)."""
     cfg = model.config
     blocks = model.decoder.blocks
     n_layer = blocks["cwk"].shape[0]
     b, t, _ = xa.shape
     h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
-    ck = torch.empty((n_layer, b, h, hd, t), dtype=torch.int8,
+    qmax = 7.0 if int4 else 127.0
+    if int4 and t % 2:
+        raise ValueError(f"int4 cross-KV needs an even T axis, got {t} — "
+                         "cross-KV buckets (448/960/1500) are all even")
+    ck = torch.empty((n_layer, b, h, hd, t // 2 if int4 else t),
+                     dtype=torch.uint8 if int4 else torch.int8,
                      device=xa.device)
     cv = torch.empty_like(ck)
     ks = torch.empty((n_layer, b, h, 1, 1), dtype=torch.float32,
@@ -252,10 +261,71 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor) -> CrossKV:
                 (ck, ks, dense(xa, blocks["cwk"][i])),
                 (cv, vs, dense(xa, blocks["cwv"][i], blocks["cbv"][i]))):
             x = _split_heads(proj, h).permute(0, 2, 3, 1).float()  # (B,H,hd,T)
-            s = x.abs().amax(dim=(2, 3), keepdim=True) / 127.0 + 1e-9
-            out[i] = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+            s = x.abs().amax(dim=(2, 3), keepdim=True) / qmax + 1e-9
+            codes = torch.clamp(torch.round(x / s), -qmax, qmax)
+            out[i] = pack_nibbles(codes) if int4 else codes.to(torch.int8)
             scale[i] = s
     return CrossKV(ck, cv, ks, vs)
+
+
+def pack_nibbles(x: torch.Tensor) -> torch.Tensor:
+    """+-7-level values -> two 4-bit two's-complement nibbles per uint8
+    along the last (T) axis: byte i holds position 2i (low nibble) and
+    2i + 1 (high)."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"int4 cross-KV needs an even T axis, got "
+                         f"{x.shape[-1]}")
+    xi = x.to(torch.int32)
+    return (((xi[..., 1::2] & 0xF) << 4) | (xi[..., 0::2] & 0xF)).to(
+        torch.uint8)
+
+
+def nib_lo(p: torch.Tensor) -> torch.Tensor:
+    """The low nibbles of packed bytes, sign-extended to int8 (the even
+    positions)."""
+    return (p.view(torch.int8) << 4) >> 4
+
+
+def nib_hi(p: torch.Tensor) -> torch.Tensor:
+    """The high nibbles of packed bytes, sign-extended to int8 (the odd
+    positions)."""
+    return p.view(torch.int8) >> 4
+
+
+def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
+    """uint8 nibble pairs -> int8 values in position order, the inverse
+    of :func:`pack_nibbles`."""
+    return torch.stack([nib_lo(p), nib_hi(p)], dim=-1).reshape(
+        *p.shape[:-1], 2 * p.shape[-1])
+
+
+def packed_cross_attention(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor) -> torch.Tensor:
+    """q (B, Tq, H, hd) over nibble-packed int4 K/V (B, H, hd, T/2) with
+    scales (B, H, 1, 1) -> (B, Tq, H, hd), as the JAX package's
+    ``_packed_cross_attention``: the even positions (low nibbles) and the
+    odd ones (high nibbles) are attended as two halves of one softmax
+    (softmax over T does not depend on the order of T), so the packed
+    bytes are never interleaved. Products take q's dtype's values in f32,
+    as the JAX einsums' f32 accumulation does; the plain PyTorch version
+    runs on the card too (the JAX package computes int4 outside any
+    Pallas kernel)."""
+    hd = q.shape[-1]
+    scale = hd ** -0.25
+    qf = (q * (scale * scale)).float()
+    # the nibbles' values (-8..7) are exact in any float type
+    lg = [torch.einsum("bqhd,bhdt->bhqt", qf, nib(ck).float()) * k_scale
+          for nib in (nib_lo, nib_hi)]
+    logits = torch.cat(lg, dim=-1)                 # (B, H, Tq, T) permuted
+    weights = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    t2 = ck.shape[-1]
+    out = (torch.einsum("bhqt,bhdt->bqhd", weights[..., :t2],
+                        nib_lo(cv).float())
+           + torch.einsum("bhqt,bhdt->bqhd", weights[..., t2:],
+                          nib_hi(cv).float()))
+    out = out * v_scale.permute(0, 2, 1, 3)        # (B, 1, H, 1)
+    return out.to(q.dtype)
 
 
 def cross_attention(q: torch.Tensor, cross: CrossKV,
@@ -268,7 +338,8 @@ def cross_attention(q: torch.Tensor, cross: CrossKV,
     query axis, q (B*g, Tq) -> (B, g*Tq), so one cross-K/V row serves all
     of them. The attention scale and k_scale are folded into q in f32;
     v_scale multiplies the kernel's f32 output, before the one rounding to
-    q's dtype (in the kernel's epilogue for bf16).
+    q's dtype (in the kernel's epilogue for bf16). Nibble-packed int4 K/V
+    (uint8) take :func:`packed_cross_attention`, beams folded alike.
     """
     bq, tq, h, hd = q.shape
     b = cross.k.shape[1]
@@ -276,6 +347,11 @@ def cross_attention(q: torch.Tensor, cross: CrossKV,
     if rem:
         raise ValueError(f"query batch {bq} not a multiple of cross-KV "
                          f"batch {b}")
+    if cross.k.dtype == torch.uint8:
+        a = packed_cross_attention(
+            q.reshape(b, g * tq, h, hd), cross.k[layer], cross.v[layer],
+            cross.k_scale[layer], cross.v_scale[layer])
+        return a.reshape(bq, tq, h, hd)
     scale = (hd ** -0.25) * (hd ** -0.25)
     qf = (q.reshape(b, g * tq, h, hd).float() * scale
           * cross.k_scale[layer].reshape(b, 1, h, 1)).contiguous()
@@ -387,17 +463,18 @@ def decode_hidden(model: Whisper, tokens: torch.Tensor, pos: int,
     [pos, pos + q_len), without the lm head. Writes the new K/V into
     ``cache`` in place; returns hidden states (B, q_len, d).
 
-    On int8 decoder weights a single step (q_len == 1) runs the fused
-    blocks, beam fold included (B = g x the cross-K/V rows); prefill
-    keeps the unfused layers with int8 :func:`dense`, as in the JAX
-    package (``model.py:605``)."""
+    On int8 decoder weights a single step (q_len == 1) over int8 cross
+    K/V runs the fused blocks, beam fold included (B = g x the cross-K/V
+    rows); prefill and int4 cross K/V keep the unfused layers with int8
+    :func:`dense`, as in the JAX package (``model.py:597-611``)."""
     dec = model.decoder
     b, q_len = tokens.shape
     t_max = cache.k.shape[2]
     n_head = model.config.n_text_head
     x = dec.tok_emb[tokens] + dec.pos_emb[pos:pos + q_len]
-    if q_len == 1 and all(isinstance(dec.blocks.get(n), Int8Weight)
-                          for n in _FUSED_WEIGHTS):
+    if q_len == 1 and cross.k.dtype == torch.int8 and all(
+            isinstance(dec.blocks.get(n), Int8Weight)
+            for n in _FUSED_WEIGHTS):
         x = _fused_layers(x[:, 0], dec.blocks, cross, cache, pos, n_head)
         return layer_norm(x[:, None], dec.ln_s, dec.ln_b)
     column_mode = q_len == 1

@@ -30,6 +30,7 @@ from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.models.whisper.model import (
     Whisper, _split_heads, dense, layer_norm,
 )
+from whisperjav_tpu_torch.ops.cuda import _build
 from whisperjav_tpu_torch.ops.cuda.encoder_attention import attention
 
 FRAME_S = 0.02
@@ -103,7 +104,7 @@ def cross_attention_maps(
         h = layer_norm(x, p["ln2_s"][i], p["ln2_b"][i])
         x = x + dense(F.gelu(dense(h, p["w1"][i], p["b1"][i])),
                       p["w2"][i], p["b2"][i])
-    cross_attention_maps.launches += 1
+    _build.count(cross_attention_maps)
     return acc
 
 

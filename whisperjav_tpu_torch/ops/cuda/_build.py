@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file compiles for Hopper (``sm_90a``) in its own
 ``nvcc`` process, all started together, and the objects link into one
 shared library with a plain C interface. The library
 lands in ``build/whisperjav_tpu_torch/`` at the root of the checkout,
-named by a hash of the sources and flags, so an edited source builds
-anew and an unchanged one loads what is there. Nothing is built or
+named by a hash of the sources, their ``*.cuh`` headers and the flags,
+so an edited source builds anew and an unchanged one loads what is
+there. Nothing is built or
 loaded at import time: :func:`load_library` does both at first use,
 once per process however many threads make that first call together
 (``--async-processing`` runs the VAD networks in a producer thread while
@@ -51,7 +52,7 @@ def sources(csrc_dir: Path = CSRC_DIR) -> List[Path]:
 def library_path(csrc_dir: Path = CSRC_DIR,
                  build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources(csrc_dir):
+    for src in sources(csrc_dir) + sorted(Path(csrc_dir).glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return Path(build_dir) / f"libwjt_kernels_{h.hexdigest()[:16]}.so"
@@ -153,6 +154,17 @@ def load_library() -> ctypes.CDLL:
             if _LIBRARY is None:
                 _LIBRARY = open_library(build()[0])
     return _LIBRARY
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(counter, n: int = 1) -> None:
+    """Add ``n`` to ``counter.launches`` (a kernel wrapper's count of
+    its launches) under one lock, so the counts stay exact when the
+    devices of a mesh launch from threads of their own."""
+    with _COUNT_LOCK:
+        counter.launches += n
 
 
 def check(err: int, what: str) -> None:

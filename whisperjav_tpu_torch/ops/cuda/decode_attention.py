@@ -134,7 +134,7 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
     if _on_cpu(q, k, v):
         return decode_cross_attention_plain(q, k, v, layer)
     (out,) = _launch("decode_cross_attention", 0, q, k, v, layer, None)
-    decode_cross_attention.launches += 1
+    _build.count(decode_cross_attention)
     return out
 
 
@@ -146,7 +146,7 @@ def decode_cross_attention_bf16(q: torch.Tensor, k: torch.Tensor,
         return decode_cross_attention_bf16_plain(q, k, v, layer, v_scale)
     (out,) = _launch("decode_cross_attention_bf16", _BF16, q, k, v, layer,
                      v_scale)
-    decode_cross_attention_bf16.launches += 1
+    _build.count(decode_cross_attention_bf16)
     return out
 
 
@@ -159,7 +159,7 @@ def decode_cross_attention_terms(q: torch.Tensor, k: torch.Tensor,
         return decode_cross_attention_terms_plain(q, k, v, layer, v_scale)
     hi, lo = _launch("decode_cross_attention_terms", _TERMS, q, k, v, layer,
                      v_scale)
-    decode_cross_attention_terms.launches += 1
+    _build.count(decode_cross_attention_terms)
     return hi, lo
 
 

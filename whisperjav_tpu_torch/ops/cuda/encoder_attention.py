@@ -73,7 +73,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
             b, t, h, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             stream)
     _build.check(err, "encoder_attention kernel")
-    encoder_attention.launches += 1
+    _build.count(encoder_attention)
     return out
 
 

@@ -219,7 +219,7 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
             k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
             int(layer), int(pos), r, d, n_head, t_cache, _stream(x.device))
     _build.check(err, "self_block kernels")
-    self_block.launches += 1
+    _build.count(self_block)
     _count(qgemv_ln=1, self_attention=1, qgemv=1)
     return x_out, k_new, v_new
 
@@ -271,7 +271,7 @@ def cross_block(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv, k_scale, v_scale,
             v_scale.data_ptr(), x_out.data_ptr(), work.data_ptr(),
             int(layer), r, b, d, n_head, t, _stream(x.device))
     _build.check(err, "cross_block kernels")
-    cross_block.launches += 1
+    _build.count(cross_block)
     _count(qgemv_ln=1, decode_cross_attention_terms=1, qgemv=1)
     return x_out
 
@@ -307,7 +307,7 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
             x_out.data_ptr(), work.data_ptr(), int(layer), r, d, hidden,
             _stream(x.device))
     _build.check(err, "mlp_block kernels")
-    mlp_block.launches += 1
+    _build.count(mlp_block)
     _count(qgemv_ln=1, qgemv=1)
     return x_out
 
@@ -320,7 +320,7 @@ inner = {name: types.SimpleNamespace(launches=0)
 
 def _count(**launches: int) -> None:
     for name, n in launches.items():
-        inner[name].launches += n
+        _build.count(inner[name], n)
 
 self_block.launches = 0
 cross_block.launches = 0

@@ -1,11 +1,31 @@
-"""TranscriptionEngine: audio windows -> tokens on one device, in PyTorch.
+"""TranscriptionEngine: audio windows -> tokens, in PyTorch.
 
-Counterpart of ``whisperjav_tpu/pipelines/engine.py`` for one device:
-int16 audio upload, log-mel, encoder, encoder states sliced to a
-cross-K/V bucket, int8 cross-K/V, beam search at temperature 0 and
-sampled best-of rungs above it, the quality gates, and the temperature
-ladder with the failed rows of a whole file retried together at its end
-(deferred retries). Batches run one after another.
+Counterpart of ``whisperjav_tpu/pipelines/engine.py``: int16 audio
+upload, log-mel, encoder, encoder states sliced to a cross-K/V bucket,
+int8 cross-K/V, beam search at temperature 0 and sampled best-of rungs
+above it, the quality gates, and the temperature ladder with the failed
+rows of a whole file retried together at its end (deferred retries).
+Batches run one after another.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): the model is prepared
+once (cast, vocabulary slice, q/k/v fusion, int8 quantisation) and then
+copied to every device of the mesh. A batch's rows split into the mesh's
+contiguous equal blocks; each device encodes and decodes its block in a
+host thread of its own, under its device and, on CUDA, a stream of its
+own, and the host gathers the small decode results in row order. The
+encoder states stay on their devices (:class:`ShardedStates`), so the
+ladder's rungs and the word alignment read them where they are. The
+sampled rungs' noise does not depend on the mesh: each device draws the
+whole batch's gumbel noise from a generator seeded as one device would
+seed it, and keeps its own rows, so a row gets the same noise on any
+number of devices. On the CPU a row's numbers do not depend on the
+mesh. On CUDA they do only where a product reduces in one order at
+every row count: cuBLAS, given a workspace (its default), splits a
+product's K over blocks by the row count (on an H100, the K = 4d MLP
+product at 64 rows against 32), so a row's last bits, and a token whose
+logits tie within them, can differ from one device's.
+``CUBLAS_WORKSPACE_CONFIG=:0:0`` with ``CUBLASLT_WORKSPACE_SIZE=0``
+leaves cuBLAS no workspace to split into.
 
 Options: ``word_timestamps`` tightens segment bounds with a
 cross-attention word alignment pass per decoded row
@@ -25,6 +45,9 @@ copies it into its stats.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -41,7 +64,7 @@ from whisperjav_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
 from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.models.whisper.decode import (
     DecodeOptions, DecodeResult, DecodedSegment, decode_beam, decode_greedy,
-    extract_segments,
+    draw_gumbel, extract_segments,
 )
 from whisperjav_tpu_torch.models.whisper.model import Whisper, encode
 from whisperjav_tpu_torch.models.whisper.quant import (
@@ -55,6 +78,7 @@ from whisperjav_tpu_torch.ops.mel import N_SAMPLES, log_mel_spectrogram
 from whisperjav_tpu_torch.parallel.batching import (
     Window, WindowBatch, batch_windows,
 )
+from whisperjav_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclass
@@ -101,16 +125,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def gumbel_source(seed: int, rows: int, vocab: int, device):
+    """The sampled rungs' noise: step i's (rows, vocab) gumbel draw from
+    a generator on ``device`` seeded ``seed``, drawn in step order."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return lambda step: draw_gumbel(gen, (rows, vocab), device)
+
+
+class ShardedStates(tuple):
+    """One batch's encoder states over a mesh: element k holds the k-th
+    row block on the mesh's device k."""
+
+    @property
+    def shape(self) -> tuple:
+        return (sum(x.shape[0] for x in self), *self[0].shape[1:])
+
+
+@dataclass
+class _Shard:
+    """One device of the mesh: its model replica, its stream (None: the
+    current one) and the vocabulary slice's ids on it."""
+    device: torch.device
+    model: Whisper
+    stream: Optional[object] = None
+    sub_ids: Optional[torch.Tensor] = None
+
+
 class TranscriptionEngine:
     """Batched Whisper inference with the temperature-fallback ladder.
 
-    Takes ownership of ``model``: it is moved to ``device``, cast to
-    ``compute_dtype``, its token embedding is sliced to ``vocab_subset``
-    (and its config replaced by the sliced one) and its decoder q/k/v
-    weights are fused, in place; with ``int8_weights`` the decoder
-    matmuls and the lm head are then quantised to int8
-    (``--int8-weights``), which single decode steps run through the fused
-    blocks.
+    Takes ownership of ``model``: it is moved to ``device`` (the mesh's
+    first device when ``mesh`` is given), cast to ``compute_dtype``, its
+    token embedding is sliced to ``vocab_subset`` (and its config
+    replaced by the sliced one) and its decoder q/k/v weights are fused,
+    in place; with ``int8_weights`` the decoder matmuls and the lm head
+    are then quantised to int8 (``--int8-weights``), which single decode
+    steps run through the fused blocks. Over a mesh of N devices the
+    prepared model is then copied to the other N - 1, and
+    ``batch_size`` must be a multiple of N.
     """
 
     def __init__(
@@ -127,6 +180,7 @@ class TranscriptionEngine:
         int8_weights: bool = False,
         word_timestamps: bool = False,
         vocab_subset=None,   # kept text-token ids (< eot), full-vocab space
+        mesh: Optional[Mesh] = None,
     ):
         # f32 matmuls and cuDNN convolutions (the mel STFT, the encoder
         # convs) in full f32, not TF32
@@ -136,7 +190,11 @@ class TranscriptionEngine:
         self.options = options
         self.thresholds = thresholds
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh or Mesh((torch.device(device),))
+        for dev in self.mesh.devices:
+            resolve_device(dev)
+        self.mesh.blocks(batch_size)      # the batch must split evenly
+        self.device = self.mesh.devices[0]
         self.tokenizer = tokenizer or WhisperTokenizer(config)
         self.compute_dtype = compute_dtype
         self.word_timestamps = word_timestamps
@@ -163,38 +221,108 @@ class TranscriptionEngine:
                                        requires_grad=False)
             self.model.config = self._vocab.config
         self.prompt_tokens = tuple(prompt_tokens)
-        logger.info("engine %s on %s", config.name, device_label(self.device))
         fuse_qkv_weights(self.model)
         if int8_weights:
             quantize_decoder_weights(self.model)
+        self._shards = [_Shard(self.device, self.model,
+                               sub_ids=self._sub_ids)]
+        for dev in self.mesh.devices[1:]:
+            self._shards.append(_Shard(
+                dev, copy.deepcopy(self.model).to(dev),
+                sub_ids=(None if self._sub_ids is None
+                         else self._sub_ids.to(dev))))
+        self._pool = None
+        if self.mesh.size > 1:
+            for shard in self._shards:
+                if shard.device.type == "cuda":
+                    # the replicas are whole before any shard's stream
+                    # reads them
+                    torch.cuda.synchronize(shard.device)
+                    shard.stream = torch.cuda.Stream(device=shard.device)
+            logger.info("engine %s replicated over %d devices: %s",
+                        config.name, self.mesh.size,
+                        ", ".join(device_label(d)
+                                  for d in self.mesh.devices))
+        else:
+            logger.info("engine %s on %s", config.name,
+                        device_label(self.device))
 
     # ------------------------------------------------------------------
-    def upload_audio(self, audio: np.ndarray) -> torch.Tensor:
-        """float32 [-1, 1] host audio -> int16 on the device (the WAV's
-        own dtype: half the bytes of float32)."""
+    @contextlib.contextmanager
+    def _on(self, shard: _Shard):
+        """Run under ``shard``'s device and stream, in inference mode."""
+        with contextlib.ExitStack() as stack:
+            if shard.device.type == "cuda":
+                stack.enter_context(torch.cuda.device(shard.device))
+                if shard.stream is not None:
+                    stack.enter_context(torch.cuda.stream(shard.stream))
+            stack.enter_context(torch.inference_mode())
+            yield
+
+    def _map(self, fn) -> list:
+        """``fn(k, shard)`` for every shard of the mesh, each in a host
+        thread of its own under its device and stream (in the caller's
+        thread for one device); the results in shard order."""
+        if len(self._shards) == 1:
+            with self._on(self._shards[0]):
+                return [fn(0, self._shards[0])]
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                len(self._shards), thread_name_prefix="wjt-shard")
+
+        def run(k):
+            with self._on(self._shards[k]):
+                return fn(k, self._shards[k])
+
+        futures = [self._pool.submit(run, k)
+                   for k in range(len(self._shards))]
+        concurrent.futures.wait(futures)
+        return [f.result() for f in futures]
+
+    def _split(self, xa) -> List[torch.Tensor]:
+        """Encoder states as one tensor a shard (a tensor on one device,
+        :class:`ShardedStates` over a mesh, as :meth:`encode_batch` gives
+        them)."""
+        parts = list(xa) if isinstance(xa, ShardedStates) else [xa]
+        if len(parts) != len(self._shards):
+            raise ValueError(f"encoder states in {len(parts)} block(s) for "
+                             f"a mesh of {len(self._shards)} devices")
+        return parts
+
+    def upload_audio(self, audio: np.ndarray, device=None) -> torch.Tensor:
+        """float32 [-1, 1] host audio -> int16 on ``device`` (default the
+        mesh's first; the WAV's own dtype: half the bytes of float32)."""
         if audio.dtype != np.int16:
             audio = (np.clip(np.asarray(audio), -1.0, 1.0)
                      * 32767.0).astype(np.int16)
-        return torch.from_numpy(audio).to(self.device)
+        return torch.from_numpy(audio).to(device or self.device)
 
-    @torch.inference_mode()
     def encode_batch(self, audio: np.ndarray,
-                     max_duration: Optional[float] = None) -> torch.Tensor:
+                     max_duration: Optional[float] = None):
         """(B, N_SAMPLES) audio -> encoder states, sliced to the cross-K/V
-        bucket (CROSS_KV_BUCKETS) that covers ``max_duration`` seconds."""
+        bucket (CROSS_KV_BUCKETS) that covers ``max_duration`` seconds: a
+        tensor on one device, :class:`ShardedStates` over a mesh."""
         if audio.shape[1] != N_SAMPLES:
             raise ValueError(f"audio rows must hold {N_SAMPLES} samples, "
                              f"got {audio.shape[1]}")
-        mel = log_mel_spectrogram(self.upload_audio(audio),
-                                  n_mels=self.config.n_mels)
-        xa = encode(self.model, mel.to(self.compute_dtype))
-        if max_duration is not None:
-            need = int(np.ceil(max_duration * FRAMES_PER_SECOND)) + 8
-            bucket = next((b for b in CROSS_KV_BUCKETS if b >= need),
-                          CROSS_KV_BUCKETS[-1])
-            if bucket < xa.shape[1]:
-                xa = xa[:, :bucket].contiguous()
-        return xa
+        blocks = self.mesh.blocks(audio.shape[0]) \
+            if len(self._shards) > 1 else [slice(None)]
+
+        def enc(k, shard):
+            mel = log_mel_spectrogram(
+                self.upload_audio(audio[blocks[k]], shard.device),
+                n_mels=self.config.n_mels)
+            xa = encode(shard.model, mel.to(self.compute_dtype))
+            if max_duration is not None:
+                need = int(np.ceil(max_duration * FRAMES_PER_SECOND)) + 8
+                bucket = next((b for b in CROSS_KV_BUCKETS if b >= need),
+                              CROSS_KV_BUCKETS[-1])
+                if bucket < xa.shape[1]:
+                    xa = xa[:, :bucket].contiguous()
+            return xa
+
+        parts = self._map(enc)
+        return parts[0] if len(parts) == 1 else ShardedStates(parts)
 
     def decode_batch(self, audio: np.ndarray, temperature: float = 0.0,
                      seed: int = 0) -> DecodeResult:
@@ -204,30 +332,47 @@ class TranscriptionEngine:
         return self.decode_encoded(self.encode_batch(audio), temperature,
                                    seed)
 
-    @torch.inference_mode()
-    def decode_encoded(self, xa: torch.Tensor, temperature: float = 0.0,
+    def decode_encoded(self, xa, temperature: float = 0.0,
                        seed: int = 0) -> DecodeResult:
-        """Decode encoder states; returns host (numpy) results.
+        """Decode encoder states (a tensor or :class:`ShardedStates`);
+        returns host (numpy) results in row order.
 
         The token budget scales with the encoder-state length (a 448-frame
         bucket never needs the full 30 s budget). Temperature 0 runs beam
         search when the options ask for beams; sampled rungs draw
-        ``best_of`` samples, each from a generator seeded
-        ``seed + 7919*i``, and keep each row's best by avg logprob.
+        ``best_of`` samples, sample i with the noise of
+        ``gumbel_source(seed + 7919*i, ...)`` over the whole batch, and
+        keep each row's best by avg logprob.
         """
-        budget = min(self.options.max_new_tokens, xa.shape[1] // 4 + 32)
+        parts = self._split(xa)
+        rows = sum(x.shape[0] for x in parts)
+        starts = np.cumsum([0] + [x.shape[0] for x in parts])
+        budget = min(self.options.max_new_tokens, parts[0].shape[1] // 4 + 32)
         opts = dataclasses.replace(self.options, max_new_tokens=budget)
+        out = self._map(lambda k, shard: self._decode_rows(
+            shard, parts[k], opts, temperature, seed, int(starts[k]), rows))
+        if len(out) == 1:
+            return out[0]
+        return DecodeResult(*(np.concatenate(f) for f in zip(*out)))
+
+    def _decode_rows(self, shard: _Shard, xa: torch.Tensor,
+                     opts: DecodeOptions, temperature: float, seed: int,
+                     start: int, rows: int) -> DecodeResult:
+        """One shard's rows [start, start + len(xa)) of a ``rows``-row
+        batch, on the shard's device."""
         if temperature == 0.0 and opts.beam_size > 1:
-            return self._to_host(decode_beam(self.model, xa, opts,
-                                             prompt=self.prompt_tokens))
+            return self._to_host(shard, decode_beam(
+                shard.model, xa, opts, prompt=self.prompt_tokens))
         n_best = opts.best_of if temperature > 0.0 else 1
+        stop = start + xa.shape[0]
         best = None
         for i in range(n_best):
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed + 7919 * i)
-            cand = self._to_host(decode_greedy(
-                self.model, xa, opts, prompt=self.prompt_tokens,
-                temperature=temperature, generator=gen))
+            noise = gumbel_source(seed + 7919 * i, rows,
+                                  shard.model.config.n_vocab, shard.device)
+            cand = self._to_host(shard, decode_greedy(
+                shard.model, xa, opts, prompt=self.prompt_tokens,
+                temperature=temperature,
+                gumbel=lambda step: noise(step)[start:stop]))
             if best is None:
                 best = cand
                 continue
@@ -240,11 +385,12 @@ class TranscriptionEngine:
                 best.no_speech_prob)
         return best
 
-    def _to_host(self, result: DecodeResult) -> DecodeResult:
+    @staticmethod
+    def _to_host(shard: _Shard, result: DecodeResult) -> DecodeResult:
         """Device results -> numpy, tokens in full-vocab ids (mapped back
         from subset ids on the device under a vocab slice)."""
-        if self._sub_ids is not None:
-            result = result._replace(tokens=self._sub_ids[result.tokens])
+        if shard.sub_ids is not None:
+            result = result._replace(tokens=shard.sub_ids[result.tokens])
         return DecodeResult(*(x.cpu().numpy() for x in result))
 
     # ------------------------------------------------------------------
@@ -362,18 +508,20 @@ class TranscriptionEngine:
             self._refine_with_word_alignment(xa, tokens, batch, out)
         return out
 
-    @torch.inference_mode()
     def _refine_with_word_alignment(self, xa, tokens, batch, out) -> None:
         """Tighten segment bounds with cross-attention word spans: one
         teacher-forced pass per row with segments, over that row's encoder
-        states (sliced to the batch's cross-K/V bucket); a segment's start
-        and end snap to its first and last word span when those lie
-        within 0.5 s of them (alignment refines, never relocates)."""
+        states (sliced to the batch's cross-K/V bucket) on the device
+        that holds them; a segment's start and end snap to its first and
+        last word span when those lie within 0.5 s of them (alignment
+        refines, never relocates)."""
         tok = self.tokenizer
         if self._vocab is not None:
             # the pass embeds through the sliced table, so it takes
             # subset ids; word text still decodes from full ids
             tok = SubsetTokenizerAdapter(self._vocab, self.tokenizer)
+        parts = self._split(xa)
+        per = parts[0].shape[0]
         for b in range(batch.n_valid):
             segs = out[b]
             if not segs:
@@ -381,9 +529,11 @@ class TranscriptionEngine:
             row = tokens[b]
             if self._vocab is not None:
                 row = np.asarray(self._vocab.to_subset(row), np.int32)
-            spans = word_timestamps(self.model, xa[b:b + 1], row,
-                                    tokenizer=tok,
-                                    audio_duration=batch.windows[b].duration)
+            k, r = divmod(b, per)
+            with self._on(self._shards[k]):
+                spans = word_timestamps(
+                    self._shards[k].model, parts[k][r:r + 1], row,
+                    tokenizer=tok, audio_duration=batch.windows[b].duration)
             si = 0
             for seg in segs:
                 n = len(seg.tokens)
@@ -466,9 +616,10 @@ class TranscriptionEngine:
         return out
 
     def _sync(self) -> None:
-        """Wait for the device's queued work (the trace's walls)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for every device's queued work (the trace's walls)."""
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def transcribe_windows(
         self, windows: Sequence[Window], seed: int = 0,

@@ -1,5 +1,7 @@
-"""Build a ready-to-run pipeline on one device from a resolved
-PipelineConfig (counterpart of ``whisperjav_tpu/pipelines/factory.py``)."""
+"""Build a ready-to-run pipeline from a resolved PipelineConfig
+(counterpart of ``whisperjav_tpu/pipelines/factory.py``): on one card by
+default, window batches split data-parallel over the first ``devices``
+cards when asked (``parallel/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from whisperjav_tpu_torch.models.whisper.weights import (
 from whisperjav_tpu_torch.pipelines.engine import (
     QualityThresholds, TranscriptionEngine, resolve_device,
 )
+from whisperjav_tpu_torch.parallel.mesh import Mesh, mesh_for, padded_batch
 from whisperjav_tpu_torch.pipelines.transcribe import TranscribePipeline
 
 
@@ -114,17 +117,36 @@ def build_pipeline(
     postprocessor=None,
     device="cuda",
     tracer=None,
+    devices: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TranscribePipeline:
     """The file pipeline for ``cfg`` (default: the flagless balanced
-    mode and sensitivity) on one device, computing in bf16, with int8
+    mode and sensitivity), computing in bf16, with int8
     decoder weights when ``cfg.int8_weights``, word alignment when
     ``cfg.word_timestamps``, a sliced vocabulary for ``cfg.vocab_slice``
     ("ja": the JA-plausible ids of a real tokenizer; an integer: that
     many evenly spaced text ids), the enhancer ``cfg.enhancer_backend`` on
     the same device, and overlapped chunks instead of scenes and VAD in
-    transformers mode; ``tracer`` receives the pipeline's events."""
+    transformers mode; ``tracer`` receives the pipeline's events.
+
+    The engine runs on one device unless ``devices`` asks for more: it
+    then shards its window batches data-parallel over the first
+    ``devices`` cards, capped at the cards there are
+    (``parallel/mesh.mesh_for``, which raises DevicesConflict for
+    ``devices`` above 1 with ``device`` naming a card by its index; the
+    JAX factory shards over every device by default). ``mesh`` names
+    the devices outright, a hook for tests and the on-card smoke run.
+    Over N devices ``cfg.batch_size`` is padded up to a multiple of N,
+    in place, as in the JAX factory; an explicit ``mesh`` is padded for
+    too, where the JAX factory leaves that to the caller."""
     if cfg is None:
         cfg = resolve_pipeline_config()
+    if mesh is None:
+        mesh = mesh_for(device, devices)
+    if mesh is not None:
+        if mesh.size > 1:
+            cfg.batch_size = padded_batch(cfg.batch_size, mesh.size)
+        device = mesh.devices[0]
     model_config, model = load_model(cfg.model, checkpoint, device=device)
     sens = cfg.sensitivity
     options = DecodeOptions(
@@ -144,6 +166,18 @@ def build_pipeline(
         compression_ratio_threshold=sens.compression_ratio_threshold,
         temperatures=ladder(sens.temperatures),
     )
+    # the JAX factory's memory guard, per card: large-v2-class widths
+    # above 64 effective decode rows (batch x beams) a card
+    n_chips = mesh.size if mesh is not None else 1
+    effective_rows = cfg.batch_size * max(sens.beam_size, 1) // n_chips
+    if model_config.n_audio_state >= 1280 and effective_rows > 64:
+        logger.warning(
+            "batch_size(%d) x beam_size(%d) / %d chips = %d effective "
+            "decode rows per chip may exceed HBM for %s; consider "
+            "--batch-size %d",
+            cfg.batch_size, sens.beam_size, n_chips, effective_rows,
+            model_config.name,
+            max(64 * n_chips // max(sens.beam_size, 1), 1))
     tokenizer = WhisperTokenizer(model_config,
                                  find_tokenizer_files(checkpoint))
     prompt_tokens: tuple = ()
@@ -157,7 +191,8 @@ def build_pipeline(
         batch_size=cfg.batch_size, device=device, tokenizer=tokenizer,
         prompt_tokens=prompt_tokens, int8_weights=cfg.int8_weights,
         word_timestamps=cfg.word_timestamps,
-        vocab_subset=vocab_subset(cfg.vocab_slice, tokenizer, model_config))
+        vocab_subset=vocab_subset(cfg.vocab_slice, tokenizer, model_config),
+        mesh=mesh)
     vad_kwargs = dict(cfg.vad_kwargs)
     if cfg.mode.vad_backend == "energy":
         vad_kwargs.setdefault("energy_db", sens.energy_vad_db)

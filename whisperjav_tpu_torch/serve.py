@@ -15,6 +15,11 @@ API (JSON over HTTP, stdlib only):
   POST /shutdown                → stops the server (``--daemon-stop``)
 Responses: SRT text or JSON cue list + stats.
 
+The Whisper engine runs on one card; ``--devices N`` shards its window
+batches over the first N cards (the JAX server shards over every device
+by default, see ``parallel/mesh.py``); the qwen engine runs on
+``--device``.
+
     whisperjav-torch-serve --port 8478                  # on cuda
     whisperjav-torch-serve --device cpu --model tiny --port 8478
 """
@@ -278,15 +283,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda)")
     p.add_argument("--devices", type=int, default=None,
-                   help="devices to shard over: only 1 is ported")
+                   help="cards to shard window batches over "
+                        "(default: one)")
     p.add_argument("--coalesce-ms", type=float, default=30.0,
                    help="micro-batching linger: concurrent requests' "
                         "windows share engine batches (0 = serialize)")
     args = p.parse_args(argv)
-    if args.devices is not None and args.devices > 1:
-        print(f"whisperjav-torch-serve: not ported yet: --devices "
-              f"{args.devices}", file=sys.stderr)
-        return 2
 
     setup_logger("info")
     from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
@@ -306,10 +308,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         pipeline = build_qwen_pipeline(cfg, checkpoint=args.checkpoint,
                                        device=args.device)
     else:
+        from whisperjav_tpu_torch.parallel.mesh import DevicesConflict
         from whisperjav_tpu_torch.pipelines.factory import build_pipeline
-        pipeline = build_pipeline(cfg, checkpoint=args.checkpoint,
-                                  postprocessor=SRTPostProcessor(),
-                                  device=args.device)
+        try:
+            pipeline = build_pipeline(cfg, checkpoint=args.checkpoint,
+                                      postprocessor=SRTPostProcessor(),
+                                      device=args.device,
+                                      devices=args.devices)
+        except DevicesConflict as e:
+            print(f"whisperjav-torch-serve: {e}", file=sys.stderr)
+            return 2
 
     service = TranscriptionService(pipeline, args.language,
                                    linger_ms=args.coalesce_ms,

@@ -23,11 +23,13 @@ layers (int8 products in PyTorch, Kernel B's bf16 form for the
 cross-attention), because the fused blocks read a fused ``wqkv``.
 ``fused_qkv`` is the engine's tree (q/k/v fused, then int8): its single
 steps run the three fused blocks (Kernel B's terms form inside the cross
-block). ``bf16_weights`` runs the unfused bf16 layers. Every row carries
-the launches of each kernel wrapper in its run, and the summary the
-launches per step of each variant, so the attribution says what it
-measured. ``int4_cross_kv`` is not ported: its cells are error rows
-carrying the decoder's message.
+block). ``bf16_weights`` runs the unfused bf16 layers.
+``int4_cross_kv`` holds nibble-packed int4 cross-K/V: its steps run the
+unfused layers with the even/odd packed attention in plain PyTorch (the
+JAX package computes int4 outside any Pallas kernel, and the fused
+blocks and Kernel B read int8). Every row carries the launches of each
+kernel wrapper in its run, and the summary the launches per step of
+each variant, so the attribution says what it measured.
 
 Timing discipline: after a warm-up sweep (``WARM_STEPS`` steps of each
 cell, on its own allocations), the timed runs INTERLEAVE all cells of a
@@ -188,7 +190,7 @@ def main(argv=None) -> int:
         "base": dict(),
         "bucket448": dict(_slice=448),
         "bucket960": dict(_slice=960),
-        # nibble-packed int4 cross-K/V: not ported (an error row)
+        # nibble-packed int4 cross-K/V: half the int8 stream's bytes
         "int4_cross_kv": dict(cross_kv_int8=False, cross_kv_int4=True),
         "rules_off": dict(with_timestamps=False, suppress_blank=False,
                           suppress_tokens=()),

@@ -6,10 +6,12 @@ extracts each file's audio and runs scene detection, enhancement and VAD
 (``pipeline.collect_windows``) for file N+1 while the caller's thread
 decodes file N on the engine. Both threads launch on the card's default
 stream, so what overlaps is one thread's host work with the other's
-device work, not two device streams. Grad and inference mode are per
-thread: the device functions the producer reaches (the VAD networks,
-the enhancers) each enter ``torch.inference_mode`` themselves, and the
-kernel library's first load is serialised (``ops/cuda/_build.py``).
+device work, not two device streams (an engine over several cards
+decodes each card's rows in threads and streams of its own). Grad and
+inference mode are per thread: the device functions the producer
+reaches (the VAD networks, the enhancers) each enter
+``torch.inference_mode`` themselves, and the kernel library's first
+load is serialised (``ops/cuda/_build.py``).
 Cancellation is cooperative: a file whose decode has not begun is
 marked cancelled and writes nothing; one whose decode has begun is
 decoded and written in full. Where the pipeline has a ``tracer``
