@@ -6,7 +6,7 @@
                                           # qwen, vad, serve, enhance,
                                           # train, multihost, ensemble,
                                           # async, translate, tools, gui,
-                                          # devices (comma list)
+                                          # devices, ahead (comma list)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -139,7 +139,7 @@ Phases, in order; any failure exits non-zero before the result line:
    on a 2-minute synthetic file, flagless, with ``WJAV_TRACE_BATCHES=1``
    (its JSON line: ``e2e_file_rtf_balanced`` above 0, the stage and
    batch-phase walls, the rungs, a cuda engine); ``decode_profile`` at
-   large-v2 greedy B=64 (budgets 32, 80, 128, every group, the bf16
+   large-v2 greedy B=64 (budgets 32, 48, 64, every group, the bf16
    phase; every variant timed, ``int4_cross_kv``'s nibble-packed
    cross-K/V included, its ms a step printed beside ``base``; the base
    and int4 slopes above 0; launches per step of each variant; one timed
@@ -179,10 +179,26 @@ Phases, in order; any failure exits non-zero before the result line:
    flagless turbo engine at full width (B=32, beam 2, the ladder) over
    one shard and over two shards of ``cuda:0`` (the engine's ``mesh``;
    two model replicas, a host thread and a stream a shard) on the turbo
-   clip: SRTs and window diagnostics byte-identical, Kernel A and
-   Kernel B's bf16 form called on each shard's stream and counted, the
+   clip: SRTs and window diagnostics byte-identical, Kernel A called on
+   each shard's side stream and Kernel B's bf16 form on its stream, the
    walls and peak memory printed; with a second card, the same over
-   ``cuda:0`` and ``cuda:1`` and every kernel checked on ``cuda:1``.
+   ``cuda:0`` and ``cuda:1`` and every kernel checked on ``cuda:1``;
+19. the ahead phase: the flagless turbo engine (``pipelines.factory``,
+   B=32, beam 2, int8 cross-K/V, bf16) over 70 seeded windows of 3-30 s
+   with the ladder clamped to 2 rungs (``WJAV_LADDER_RUNGS``), after a
+   warm-up batch, with pipelining off, encode-ahead only and both
+   (``WJAV_ENCODE_AHEAD``, ``WJAV_DECODE_AHEAD``), each under the
+   CUDA-only profiler: window results byte-identical, Kernel A's
+   launches equal and on the side stream, the wall, the batch trace, the
+   device's busy share and the peak memory of each; Kernel A on a side
+   stream while Kernel B's bf16 form runs on the main one (each output
+   equal to its lone launch and within the kernels phase's tolerances of
+   its plain version; the times alone and together); a turbo B=32
+   beam-2 rung on bf16 cross-K/V beside the int8 one (ms a step, the
+   cross-K/V bytes, the tokens' agreement; no Kernel B on bf16 K/V);
+   whisper-vad as ``create_segmenter("whisper-vad")`` builds it (tiny,
+   bf16 cross-K/V) on a 30 s track on the card and on the CPU from the
+   same weights (probabilities within WVAD_TOL_P, the same segments).
 
 Every phase but devices decodes on one card, the factory's default
 (the mesh is opt-in, ``--devices N``), so its launches are one engine's
@@ -206,8 +222,8 @@ shapes of this run), the time of one PyTorch call computing the same
 function where there is one (``library_ms``: scaled_dot_product_attention
 beside Kernel A and beside the self attention inside the self block;
 null elsewhere), and the launches on the large-v2 int8 path
-(``launches_by_path`` holds every CLI path's, the ensemble's and the
-async run's included). The kernels inside the fused blocks are timed by the profiler at
+(``launches_by_path`` holds every CLI path's, the ensemble's, the
+async run's and the ahead phase's included). The kernels inside the fused blocks are timed by the profiler at
 the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
 holds an older version of the kernels (an unpacked earlier commit), it
 is built too, and Kernel A, Kernel B (f32 form, every case), the fused
@@ -945,9 +961,9 @@ def check_small_reference(dev):
         xa_c = tm.encode(cpu, mel)
         xa_g = tm.encode(gpu, mel.to(dev, torch.bfloat16)).float().cpu()
         enc_err = ((xa_g - xa_c).abs().max() / xa_c.abs().max()).item()
-        cross_c = tm.precompute_cross_kv(cpu, xa_c[:, :448])
+        cross_c = tm.precompute_cross_kv(cpu, xa_c[:, :448], int8=True)
         cross_g = tm.precompute_cross_kv(gpu, xa_g[:, :448].to(
-            dev, torch.bfloat16))
+            dev, torch.bfloat16), int8=True)
         cache_c = tm.KVCache.zeros(cfg, 4, 8, torch.float32, "cpu")
         cache_g = tm.KVCache.zeros(cfg, 4, 8, torch.bfloat16, dev)
         sot = torch.tensor([[cfg.sot, cfg.sot + 8, cfg.transcribe]] * 4)
@@ -993,8 +1009,9 @@ def check_small_int8_reference(dev):
     xa = torch.randn(2, 448, 256, generator=torch.Generator().manual_seed(3))
     before = fd.self_block.launches
     with torch.inference_mode():
-        cross_c = tm.precompute_cross_kv(cpu, xa)
-        cross_g = tm.precompute_cross_kv(gpu, xa.to(dev, torch.bfloat16))
+        cross_c = tm.precompute_cross_kv(cpu, xa, int8=True)
+        cross_g = tm.precompute_cross_kv(gpu, xa.to(dev, torch.bfloat16),
+                                         int8=True)
         cache_c = tm.KVCache.zeros(cfg, 4, 8, torch.float32, "cpu")
         cache_g = tm.KVCache.zeros(cfg, 4, 8, torch.bfloat16, dev)
         steps = [(torch.tensor([[cfg.sot, cfg.sot + 8, cfg.transcribe]] * 4),
@@ -1036,7 +1053,9 @@ def check_small_vocab_reference(dev):
         synthetic_text_ids,
     )
     from whisperjav_tpu_torch.models.whisper.weights import init_params
-    from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
+    from whisperjav_tpu_torch.pipelines.engine import (
+        TranscriptionEngine, to_host,
+    )
     cfg = tm.WhisperConfig(name="smoke-narrow-vocab", n_mels=80,
                            n_audio_state=256, n_audio_head=4,
                            n_audio_layer=2, n_text_state=256, n_text_head=4,
@@ -1057,7 +1076,7 @@ def check_small_vocab_reference(dev):
         for side, eng in engines.items():
             m = eng.model
             x = xa.to(eng.device, eng.compute_dtype)
-            cross = tm.precompute_cross_kv(m, x)
+            cross = tm.precompute_cross_kv(m, x, int8=True)
             cache = tm.KVCache.zeros(sub, 4, 8, eng.compute_dtype,
                                      eng.device)
             steps = [(torch.tensor([[sub.sot, sub.sot + 8,
@@ -1078,7 +1097,8 @@ def check_small_vocab_reference(dev):
                                    f"{tuple(lg.shape)}")
             err = max(err, ((lg - lc).abs().max() / lc.abs().max()).item())
         eng = engines["gpu"]
-        res = eng.decode_encoded(xa.to(dev, torch.bfloat16), 0.0, 0)
+        res = to_host(eng.decode_encoded(xa.to(dev, torch.bfloat16), 0.0,
+                                         0))
     kept = set(keep.tolist()) | set(range(cfg.eot, cfg.n_vocab))
     bad = set(res.tokens.ravel().tolist()) - kept
     log(f"small vocab-slice reference (d=256, 2+2 layers, bf16 decoder, "
@@ -1399,14 +1419,17 @@ def _timed(fn):
 def breakdown(dev):
     """One B=32 batch through the flagless engine, each phase timed to a
     sync."""
+    from whisperjav_tpu_torch.pipelines.engine import to_host
     from whisperjav_tpu_torch.pipelines.factory import build_pipeline
     engine = build_pipeline(device=dev).engine   # flagless
     audio = np.stack([speech_like(28.0, s) for s in range(32)])
     audio = np.pad(audio, ((0, 0), (0, 480000 - audio.shape[1])))
     engine.encode_batch(audio, max_duration=28.0)      # warm-up
     xa, enc_s = _timed(lambda: engine.encode_batch(audio, max_duration=28.0))
-    beam, beam_s = _timed(lambda: engine.decode_encoded(xa, 0.0, 0))
-    samp, samp_s = _timed(lambda: engine.decode_encoded(xa, 0.2, 1))
+    beam, beam_s = _timed(lambda: to_host(engine.decode_encoded(xa, 0.0,
+                                                                0)))
+    samp, samp_s = _timed(lambda: to_host(engine.decode_encoded(xa, 0.2,
+                                                                1)))
     steps = int(np.max(beam.length))
     per_step = beam_s / max(steps, 1) * 1e3
     log(f"breakdown B=32, bucket {xa.shape[1]}: encode {enc_s:.4f} s; beam-2 "
@@ -1421,7 +1444,9 @@ def breakdown_large_v2_greedy(dev):
     decoder weights, one B=64 batch of 30 s windows, greedy, 128 new
     tokens; each phase timed to a sync."""
     from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
-    from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
+    from whisperjav_tpu_torch.pipelines.engine import (
+        TranscriptionEngine, to_host,
+    )
     from whisperjav_tpu_torch.pipelines.factory import load_model
     config, model = load_model("large-v2", device=dev)
     engine = TranscriptionEngine(
@@ -1434,7 +1459,7 @@ def breakdown_large_v2_greedy(dev):
     for fn in counters.values():
         fn.launches = 0
     xa, enc_s = _timed(lambda: engine.encode_batch(audio))
-    res, dec_s = _timed(lambda: engine.decode_encoded(xa, 0.0, 0))
+    res, dec_s = _timed(lambda: to_host(engine.decode_encoded(xa, 0.0, 0)))
     steps = int(np.max(res.length))
     fused = counters["self_block"].launches // config.n_text_layer
     log(f"breakdown large-v2 int8 greedy B=64, bucket {xa.shape[1]}: encode "
@@ -2646,6 +2671,7 @@ def run_finetune(dev, tmp: Path) -> dict:
     and Kernel B's bf16 form must launch. Returns that run's launches."""
     from whisperjav_tpu_torch import finetune
     from whisperjav_tpu_torch.models.whisper.config import WHISPER_SIZES
+    from whisperjav_tpu_torch.models.whisper.decode import DecodeOptions
     from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
     from whisperjav_tpu_torch.parallel import train as tt
     from whisperjav_tpu_torch.pipelines.engine import TranscriptionEngine
@@ -2729,7 +2755,9 @@ def run_finetune(dev, tmp: Path) -> dict:
     t0 = time.perf_counter()
     model = params_from_jax(load_checkpoint(ckpt), cfg)
     load_s = time.perf_counter() - t0
-    engine = TranscriptionEngine(cfg, model, batch_size=32, device=dev)
+    engine = TranscriptionEngine(
+        cfg, model, options=DecodeOptions(cross_kv_int8=True),
+        batch_size=32, device=dev)
     wav = tmp / "ft-clip.wav"
     duration = synthetic_clip_seeded(wav, TRAIN_CLIP_S, 5)
     from whisperjav_tpu_torch.modules.audio_extraction import AudioExtractor
@@ -3261,12 +3289,14 @@ TOOLS_DEVICE = "cuda"
 TOOLS_E2E_MINUTES = 2.0
 # e2e_bench's flags: the flagless path (turbo, beam 2, B=32)
 TOOLS_E2E_FLAGS = ("--devices", "1")
-# decode_profile: large-v2 greedy at B=64, the JAX tool's budgets (32,
-# 128 and the mid cell 80), every group, the bf16 phase included; one
-# timed round: the int8-unfused and bf16 cells are host-bound (45-100
-# ms a step), and two rounds took 363-394 s of the script's time
+# decode_profile: large-v2 greedy at B=64, every group, the bf16 phase
+# included; one timed round, and budgets 32 and 64 (mid cell 48) where
+# the JAX tool takes 32 and 128 (mid 80): the int8-unfused and bf16
+# cells are host-bound (45-100 ms a step), two rounds took 363-394 s of
+# the script's time and the JAX budgets in one round 175-237 s (H100
+# 80GB HBM3, 700 W)
 TOOLS_PROFILE_ARGS = ("--model", "large-v2", "--batch", "64", "--iters",
-                      "1", "--budgets", "32", "128", "--mid-budget", "80")
+                      "1", "--budgets", "32", "64", "--mid-budget", "48")
 # the greedy large-v2 int8 B=64 step of the large-v2 phase's breakdown
 # (PERF.md §5, H100 80GB HBM3 at 700 W), printed beside the profile's
 # slopes
@@ -3977,10 +4007,13 @@ def devices_run(wav: Path, out: Path, dev, mesh, label: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     shards = []
     for shard in engine._shards:
-        stream = (shard.stream if shard.stream is not None
-                  else torch.cuda.current_stream(shard.device))
-        shards.append({name: seen.get((name, stream.device.index,
-                                       stream.cuda_stream), 0)
+        # a shard encodes on its side stream and decodes on its stream
+        streams = {"encoder_attention": shard.side,
+                   "decode_cross_attention_bf16": (
+                       shard.stream if shard.stream is not None
+                       else torch.cuda.current_stream(shard.device))}
+        shards.append({name: seen.get((name, streams[name].device.index,
+                                       streams[name].cuda_stream), 0)
                        for name in DEVICES_SPIED})
     missing = [(k, name) for k, calls in enumerate(shards)
                for name, n in calls.items() if n < 1]
@@ -4145,9 +4178,412 @@ def run_devices_phase(tmp: Path) -> dict:
     return two["launches"]
 
 
+# ---------------------------------------------------------------------------
+# ahead phase
+# ---------------------------------------------------------------------------
+
+# the flagless engine's pipelining: 70 seeded windows of 3-30 s (batches
+# of 32, 32 and 6), the ladder clamped to its first two rungs
+# (WJAV_LADDER_RUNGS: random weights fail every gate and would run all
+# six), after one warm-up batch, with pipelining off, encode-ahead only,
+# and both (decode-ahead's memory gate, "auto", lets it on at turbo B=32)
+AHEAD_WINDOWS = 70
+AHEAD_LADDER_RUNGS = "2"
+AHEAD_RUNS = (("off", "0", "0"), ("encode-ahead", "1", "0"),
+              ("both", "1", "auto"))
+# Kernel A on a side stream beside Kernel B's bf16 form on the main one:
+# A's launches and B's (turbo's 4 decoder layers, B=32, beam fold R=2,
+# T=1500), enough of B to outlast A
+TWO_STREAM_A, TWO_STREAM_B = 4, 64
+# whisper-vad's default engines (bf16, cross-K/V in the compute dtype) on
+# the card and on the CPU from the same seeded tiny weights: bf16 on both
+# sides, roundings in other places -> probabilities within this
+WVAD_TOL_P = 0.02
+WVAD_TRACK_S = 30.0
+
+
+def device_intervals(prof) -> tuple:
+    """(union of the device's activity intervals, their summed lengths),
+    in ms, from a finished CUDA-only ``torch.profiler`` run: the sum
+    exceeds the union where two streams ran at once. Reads the raw
+    activity records (a pipelined run holds ~10^5 kernels, too many to
+    build the profiler's event tree from)."""
+    from torch.autograd import DeviceType
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    spans.sort()
+    union, total, end = 0, 0, None
+    for s, e in spans:
+        total += e - s
+        if end is None or s >= end:
+            union += e - s
+            end = e
+        elif e > end:
+            union += e - end
+            end = e
+    return union / 1e6, total / 1e6
+
+
+def ahead_windows() -> list:
+    from whisperjav_tpu_torch.parallel.batching import Window
+    rng = np.random.default_rng(140)
+    durations = np.round(rng.uniform(3.0, 30.0, AHEAD_WINDOWS), 2)
+    return [Window(speech_like(float(d), 300 + i), 0.0, float(d), 0, i)
+            for i, d in enumerate(durations)]
+
+
+def window_bytes(results) -> str:
+    """The window results as one string: group, and each segment's
+    tokens, bounds, text, logprob and no-speech probability."""
+    return json.dumps([
+        (w.group_idx, [([int(t) for t in s.tokens], s.start, s.end, s.text,
+                        float(s.avg_logprob), float(s.no_speech_prob))
+                       for s in segs]) for w, segs in results])
+
+
+def ahead_run(engine, windows, label: str, encode: str,
+              decode: str) -> dict:
+    """One ``transcribe_windows`` under the knobs, with the batch trace
+    on and the CUDA-only profiler; launches zeroed just before and read
+    just after, Kernel A's calls by stream."""
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    os.environ.update(WJAV_ENCODE_AHEAD=encode, WJAV_DECODE_AHEAD=decode,
+                      WJAV_TRACE_BATCHES="1")
+    side = engine._shards[0].side
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with calls_by_stream() as seen, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = engine.transcribe_windows(windows, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stop_s = time.perf_counter() - t0 - wall
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    busy, summed = device_intervals(prof)
+    read_s = time.perf_counter() - t1
+    a_side = seen.get(("encoder_attention", side.device.index,
+                       side.cuda_stream), 0)
+    decode_ahead = engine._decode_ahead_enabled()
+    log(f"ahead {label} (WJAV_ENCODE_AHEAD={encode} "
+        f"WJAV_DECODE_AHEAD={decode}, decode-ahead "
+        f"{'on' if decode_ahead else 'off'}): wall {wall:.3f} s, "
+        f"{len(windows)} windows; device busy {busy:.3f} ms "
+        f"({100 * busy / (wall * 1e3):.1f}% of the wall), kernel time "
+        f"summed over streams {summed:.3f} ms (overlap {summed - busy:.3f} "
+        f"ms); peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+        f"Kernel A {launches['encoder_attention']} launches, "
+        f"{a_side} on the side stream; Kernel B bf16 form "
+        f"{launches['decode_cross_attention_bf16']}; the profiler's stop "
+        f"{stop_s:.3f} s and reading {read_s:.3f} s after the wall")
+    for row in engine.batch_trace:
+        log(f"  ahead {label} trace {json.dumps(row)}")
+    return {"bytes": window_bytes(results), "wall": wall, "busy": busy,
+            "summed": summed, "peak": peak, "a_side": a_side,
+            "launches": launches, "decode_ahead": decode_ahead,
+            "results": results}
+
+
+def run_ahead_engine(dev) -> dict:
+    """The flagless turbo engine's three pipelining settings on the same
+    windows: byte-identical results, Kernel A's launches equal, and
+    launched on the side stream. Returns the last run's launches."""
+    import os
+    from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+    saved = {k: os.environ.get(k) for k in (
+        "WJAV_LADDER_RUNGS", "WJAV_ENCODE_AHEAD", "WJAV_DECODE_AHEAD",
+        "WJAV_TRACE_BATCHES")}
+    os.environ["WJAV_LADDER_RUNGS"] = AHEAD_LADDER_RUNGS
+    try:
+        engine = build_pipeline(resolve_pipeline_config(),
+                                device=dev).engine
+        windows = ahead_windows()
+        log(f"ahead: turbo B={engine.batch_size}, beam "
+            f"{engine.options.beam_size}, cross-K/V int8 "
+            f"{engine.options.cross_kv_int8}, ladder "
+            f"{engine.thresholds.temperatures} (WJAV_LADDER_RUNGS="
+            f"{AHEAD_LADDER_RUNGS}), {len(windows)} windows of "
+            f"{min(w.duration for w in windows):.2f}-"
+            f"{max(w.duration for w in windows):.2f} s")
+        os.environ["WJAV_TRACE_BATCHES"] = "0"
+        _, warm = _timed(lambda: engine.transcribe_windows(
+            windows[:engine.batch_size], seed=0))
+        log(f"ahead: warm-up batch {warm:.3f} s")
+        runs = {label: ahead_run(engine, windows, label, enc, dec)
+                for label, enc, dec in AHEAD_RUNS}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    base = runs["off"]
+    for label, run in runs.items():
+        if run["bytes"] != base["bytes"]:
+            diff = [(a, b) for a, b in zip(json.loads(run["bytes"]),
+                                           json.loads(base["bytes"]))
+                    if a != b]
+            raise RuntimeError(f"ahead {label}: window results differ from "
+                               f"pipelining off in {len(diff)} windows: "
+                               f"{str(diff[:2])[:600]}")
+        if run["launches"]["encoder_attention"] \
+                != base["launches"]["encoder_attention"]:
+            raise RuntimeError(
+                f"ahead {label}: Kernel A launches "
+                f"{run['launches']['encoder_attention']} against "
+                f"{base['launches']['encoder_attention']}")
+    for label in ("encode-ahead", "both"):
+        if runs[label]["a_side"] < 1:
+            raise RuntimeError(f"ahead {label}: Kernel A never ran on the "
+                               "side stream")
+    if not runs["both"]["decode_ahead"]:
+        raise RuntimeError("ahead: the memory gate kept decode-ahead off at "
+                           "turbo B=32")
+    n_segs = sum(len(s) for _, s in base["results"])
+    if not n_segs or len(base["results"]) != AHEAD_WINDOWS:
+        raise RuntimeError(f"ahead: {len(base['results'])} windows back, "
+                           f"{n_segs} segments")
+    log("ahead: window results byte-identical over "
+        + ", ".join(f"{k} ({r['wall']:.3f} s)" for k, r in runs.items())
+        + f"; {n_segs} segments; Kernel A "
+        f"{base['launches']['encoder_attention']} launches in each")
+    del engine
+    torch.cuda.empty_cache()
+    return runs["both"]["launches"]
+
+
+def check_two_streams(dev, gen) -> None:
+    """Kernel A on a side stream while Kernel B's bf16 form runs on the
+    main stream at the flagless path's shapes: each output equals its
+    lone launch bit for bit and holds its plain version within the
+    kernels phase's tolerances; the times alone and together."""
+    from whisperjav_tpu_torch.ops.cuda import decode_attention as da
+    from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
+        attention, encoder_attention,
+    )
+    shape = (32, 1500, 20, 64)
+    q, k = ((torch.randn(shape, generator=gen, device=dev) * 3).bfloat16()
+            for _ in range(2))
+    v = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    n_layer, b, rows, t, h, hd = 4, 32, 2, 1500, 20, 64
+    k8, v8 = (torch.randint(-127, 128, (n_layer, b, h, hd, t), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    vs = torch.rand(n_layer, b, h, generator=gen, device=dev) * 0.02
+    qb = torch.randn(b, rows, h, hd, generator=gen, device=dev) * 0.01
+
+    def run_a():
+        return [encoder_attention(q, k, v) for _ in range(TWO_STREAM_A)]
+
+    def run_b():
+        return [da.decode_cross_attention_bf16(qb, k8, v8, i % n_layer, vs)
+                for i in range(TWO_STREAM_B)]
+
+    lone_a = encoder_attention(q, k, v)
+    lone_b = [da.decode_cross_attention_bf16(qb, k8, v8, i, vs)
+              for i in range(n_layer)]
+    side = torch.cuda.Stream(device=dev)
+    main = torch.cuda.current_stream(dev)
+    walls = {}
+    for label in ("A alone", "B alone", "together"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(main)
+        side.wait_event(start)
+        outs_a = outs_b = []
+        if label != "B alone":
+            with torch.cuda.stream(side):
+                outs_a = run_a()
+        if label != "A alone":
+            outs_b = run_b()
+        main.wait_stream(side)
+        end.record(main)
+        end.synchronize()
+        walls[label] = start.elapsed_time(end)
+        if label == "together":
+            same_a = all(torch.equal(o, lone_a) for o in outs_a)
+            same_b = all(torch.equal(o, lone_b[i % n_layer])
+                         for i, o in enumerate(outs_b))
+    ref_a = attention(q, k, v).float()
+    err_a = (lone_a.float() - ref_a).abs()
+    tol_a = A_TOL_REL_MAX * ref_a.abs().max().item()
+    err_b, tol_b = 0.0, 0.0
+    for i in range(n_layer):
+        r16 = da.decode_cross_attention_bf16_plain(qb, k8, v8, i, vs).float()
+        err_b = max(err_b, (lone_b[i].float() - r16).abs().max().item())
+        tol_b = max(tol_b, _bf16_step(r16))
+    torch.cuda.synchronize()
+    log(f"two streams: Kernel A (32,1500,20,64) x{TWO_STREAM_A} on a side "
+        f"stream, Kernel B bf16 form (L=4, B=32, R=2, T=1500) "
+        f"x{TWO_STREAM_B} on the main stream: A alone "
+        f"{walls['A alone']:.4f} ms, B alone {walls['B alone']:.4f} ms, "
+        f"together {walls['together']:.4f} ms (sum "
+        f"{walls['A alone'] + walls['B alone']:.4f}); outputs equal to the "
+        f"lone launches: A {same_a}, B {same_b}; against the plain "
+        f"versions: A max_abs_err {err_a.max().item():.6g} (tol "
+        f"{tol_a:.6g}) mean {err_a.mean().item():.6g} (tol {A_TOL_MEAN}), "
+        f"B max_abs_err {err_b:.6g} (tol {tol_b:.6g})")
+    if not (same_a and same_b):
+        raise RuntimeError("two streams: a kernel's output on two streams "
+                           "differs from its lone launch")
+    if err_a.max().item() > tol_a or err_a.mean().item() > A_TOL_MEAN \
+            or err_b > tol_b:
+        raise RuntimeError("two streams: a kernel disagrees with its plain "
+                           "version")
+    del q, k, v, k8, v8, outs_a, outs_b, lone_a, lone_b, ref_a, err_a
+    torch.cuda.empty_cache()
+
+
+def check_bf16_cross_kv(dev) -> None:
+    """One B=32 beam-2 first rung of the flagless turbo engine on cross
+    K/V in bf16 (``DecodeOptions(cross_kv_int8=False)``, the JAX
+    package's default) beside the int8 rung on the same encoder states:
+    ms per step, the cross-K/V bytes of each, the tokens' agreement;
+    Kernel B and the fused blocks never run on bf16 K/V."""
+    import dataclasses
+    from whisperjav_tpu_torch.models.whisper import model as tm
+    from whisperjav_tpu_torch.pipelines.engine import to_host
+    from whisperjav_tpu_torch.pipelines.factory import build_pipeline
+    engine = build_pipeline(device=dev).engine   # flagless
+    audio = np.stack([speech_like(28.0, s) for s in range(32)])
+    audio = np.pad(audio, ((0, 0), (0, 480000 - audio.shape[1])))
+    xa = engine.encode_batch(audio, max_duration=28.0)
+    opts = engine.options
+    out, walls = {}, {"int8": [], "bf16": []}
+    try:
+        for label in ("int8", "bf16", "bf16", "int8"):
+            int8 = label == "int8"
+            if label not in out:
+                engine.options = dataclasses.replace(
+                    opts, cross_kv_int8=int8, max_new_tokens=8)
+                engine.decode_encoded(xa, 0.0, 0)      # warm-up
+            engine.options = dataclasses.replace(opts, cross_kv_int8=int8)
+            zero_launches()
+            res, wall = _timed(lambda: to_host(engine.decode_encoded(
+                xa, 0.0, 0)))
+            launches = launch_counts()
+            walls[label].append(wall)
+            if label in out:
+                if not np.array_equal(res.tokens, out[label].tokens):
+                    raise RuntimeError(f"bf16 cross-K/V: the {label} rung's "
+                                       "tokens differ between its turns")
+                continue
+            out[label] = res
+            with torch.inference_mode():
+                cross = tm.precompute_cross_kv(engine.model, xa[0],
+                                               int8=int8)
+                kv_bytes = sum(x.numel() * x.element_size()
+                               for x in (cross.k, cross.v))
+                del cross
+            log(f"bf16 cross-K/V: turbo B=32 beam-2 rung on {label} K/V: "
+                f"{int(np.max(res.length))} steps max; cross-K/V "
+                f"{kv_bytes} bytes ({kv_bytes / 1e6:.1f} MB) at T="
+                f"{xa.shape[1]}; Kernel B bf16 form "
+                f"{launches['decode_cross_attention_bf16']}, fused blocks "
+                f"{launches['cross_block']}")
+            if not np.isfinite(res.avg_logprob).all():
+                raise RuntimeError(f"bf16 cross-K/V: {label} rung: "
+                                   "non-finite logprobs")
+            if int8 != (launches["decode_cross_attention_bf16"] > 0) \
+                    or launches["cross_block"]:
+                raise RuntimeError(f"bf16 cross-K/V: {label} rung launched "
+                                   f"{launches}")
+    finally:
+        engine.options = opts
+    for label, ws in walls.items():
+        steps = max(int(np.max(out[label].length)), 1)
+        log(f"bf16 cross-K/V: {label} rung in turns (int8, bf16, bf16, "
+            f"int8): walls {[round(w, 4) for w in ws]} s, "
+            f"{statistics.median(ws) / steps * 1e3:.3f} ms/step")
+    share = float(np.mean(out["bf16"].tokens == out["int8"].tokens))
+    log(f"bf16 cross-K/V: {100 * share:.2f}% of the token slots agree with "
+        "the int8 rung")
+    del engine, xa
+    torch.cuda.empty_cache()
+
+
+def check_whisper_vad(dev) -> dict:
+    """whisper-vad as ``create_segmenter("whisper-vad")`` builds it (model
+    tiny, its own default engine: bf16, cross-K/V in the compute dtype),
+    on the card and on the CPU from the same seeded weights (the
+    factory's tiny init on the card, copied to the CPU) over a 30 s
+    track: the speech probabilities within WVAD_TOL_P and the same
+    segments; Kernel A runs in the card's encoder. Returns the card
+    run's launches."""
+    import copy
+    from whisperjav_tpu_torch.modules.segmentation import create_segmenter
+    from whisperjav_tpu_torch.pipelines import factory
+    cfg, model = factory.load_model("tiny", device=dev)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    orig = factory.load_model
+
+    def load(name, checkpoint=None, device="cuda"):
+        return cfg, cpu_model if torch.device(device).type == "cpu" \
+            else model
+    factory.load_model = load
+    try:
+        gpu, cpu = (create_segmenter("whisper-vad", device=d)
+                    for d in (dev, "cpu"))
+        audio = long_track(WVAD_TRACK_S, 14)
+        gpu.window_speech_probs(audio[:5 * SR], SR)         # warm-up
+        zero_launches()
+        p_gpu, gpu_s = _timed(lambda: gpu.window_speech_probs(audio, SR))
+        launches = launch_counts()
+        t0 = time.perf_counter()
+        p_cpu = cpu.window_speech_probs(audio, SR)
+        cpu_s = time.perf_counter() - t0
+        s_gpu, s_cpu = gpu.segment(audio, SR), cpu.segment(audio, SR)
+    finally:
+        factory.load_model = orig
+    opts = gpu._engine.options
+    err = float(np.abs(p_gpu - p_cpu).max())
+    ns_rel = float(np.max(np.abs((1 - p_gpu) - (1 - p_cpu))
+                          / np.maximum(1 - p_cpu, 1e-12)))
+    same = [(s.start, s.end) for s in s_gpu.segments] == \
+        [(s.start, s.end) for s in s_cpu.segments]
+    log(f"whisper-vad (tiny, default engine: max_new_tokens "
+        f"{opts.max_new_tokens}, int8 cross-K/V {opts.cross_kv_int8}, "
+        f"{gpu._engine.compute_dtype}) on a {WVAD_TRACK_S:.0f} s track: "
+        f"{len(p_gpu)} windows, card {gpu_s:.3f} s, CPU {cpu_s:.3f} s; "
+        f"probabilities {np.round(p_gpu, 6).tolist()}; max |card - CPU| "
+        f"{err:.3g} (tol {WVAD_TOL_P}); no-speech probabilities' largest "
+        f"relative difference {ns_rel:.3g}; segments "
+        f"{[(s.start, s.end) for s in s_gpu.segments]} (the same on both: "
+        f"{same}); Kernel A {launches['encoder_attention']} launches, "
+        f"Kernel B bf16 form {launches['decode_cross_attention_bf16']}")
+    if opts.cross_kv_int8 or opts.cross_kv_int4:
+        raise RuntimeError("whisper-vad: its engine quantises cross-K/V")
+    if not err <= WVAD_TOL_P or not same:
+        raise RuntimeError("whisper-vad: the card disagrees with the CPU")
+    if launches["encoder_attention"] < 1:
+        raise RuntimeError("whisper-vad: Kernel A never launched")
+    del gpu, cpu, model, cpu_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_ahead_phase(dev, gen) -> dict:
+    """The engine's pipelining on the flagless turbo engine, Kernel A and
+    Kernel B on two streams at once, bf16 cross-K/V at turbo width and
+    whisper-vad at its default. Returns the launches of the pipelined
+    engine run and of whisper-vad's card run."""
+    launches = {"ahead_turbo": run_ahead_engine(dev)}
+    check_two_streams(dev, gen)
+    check_bf16_cross_kv(dev)
+    launches["whisper_vad"] = check_whisper_vad(dev)
+    return launches
+
+
 PHASES = ("kernels", "reference", "turbo", "large-v2", "fidelity", "qwen",
           "vad", "serve", "enhance", "train", "multihost", "ensemble",
-          "async", "translate", "tools", "gui", "devices")
+          "async", "translate", "tools", "gui", "devices", "ahead")
 
 
 @contextlib.contextmanager
@@ -4284,6 +4720,9 @@ def main(argv=None) -> int:
         if "devices" in only:
             with phase("devices"):
                 launches["devices"] = run_devices_phase(Path(tmp))
+        if "ahead" in only:
+            with phase("ahead"):
+                launches.update(run_ahead_phase(dev, gen))
     if only != set(PHASES):
         log(f"partial run ({sorted(only)}): no result line")
         return 3

@@ -101,13 +101,6 @@ def test_int4_cross_kv_tokens_identical(setup, beam_size):
     _same(ref, out)
 
 
-def test_unquantised_cross_kv_is_refused(setup):
-    _, model, xa = setup
-    opts = dataclasses.replace(_opts()[1], cross_kv_int8=False)
-    with pytest.raises(NotImplementedError, match="quantised cross-K/V"):
-        td.decode_greedy(model, torch.from_numpy(xa), opts)
-
-
 def test_sampled_rung_identical_with_jax_noise(setup):
     """The port is fed the gumbel noise that decode.py's loop draws from
     its key: split once per step, gumbel from the subkey."""

@@ -157,11 +157,13 @@ def test_batch_trace_matches_jax(monkeypatch):
         for key in ("rungs", "retry_rows", "audio_s"):
             assert got.get(key) == want.get(key), (got, want)
     batch_rows = [r for r in ttrace if "retry_rows" not in r]
-    for row in batch_rows:
-        assert set(row) == {"encode_s", "decode_s", "ladder_s",
-                            "extract_s", "batch_s", "audio_s", "rungs",
-                            "bucket", "rows"}
-        assert row["batch_s"] >= row["encode_s"] + row["decode_s"] - 1e-3
+    jax_rows = [r for r in jtrace if "retry_rows" not in r]
+    for row, want in zip(batch_rows, jax_rows):
+        assert set(row) == set(want) == {
+            "upload_s", "encode_s", "dispatch_s", "ahead_s", "drain_s",
+            "ladder_s", "extract_s", "batch_s", "audio_s", "rungs",
+            "bucket", "rows"}
+        assert row["batch_s"] >= row["encode_s"] + row["dispatch_s"] - 1e-3
     retry = [r for r in ttrace if "retry_rows" in r]
     assert len(retry) == 1 and retry[0]["rungs"] == 2
     assert set(retry[0]) == {"retry_rows", "rungs", "ladder_s", "batch_s"}

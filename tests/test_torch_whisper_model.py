@@ -91,7 +91,7 @@ def test_int8_cross_kv_matches_jax(weights, encoded):
     xa, _ = encoded
     ref = jm.precompute_cross_kv(params, CFG, jnp.asarray(xa), int8=True)
     out = tm.precompute_cross_kv(params_from_jax(tree, TCFG),
-                                 torch.from_numpy(xa))
+                                 torch.from_numpy(xa), int8=True)
     for name in ("k_scale", "v_scale"):
         np.testing.assert_allclose(getattr(out, name).numpy(),
                                    np.asarray(getattr(ref, name)),

@@ -9,7 +9,9 @@ rounding of K/V, per (layer, batch, head), ~1/254 of each head's largest
 value). The segmenters' segments and groups are identical; whisper-vad's
 speech probabilities (1 - no_speech_prob of one decode step through
 ``decode_batch``) agree within INT8_TOL with the JAX engine on int8 cross
-K/V."""
+K/V, and, where each segmenter builds its own default engine (bf16, cross
+K/V in the compute dtype, as the JAX segmenter's options), within
+VAD_BF16_TOL."""
 
 import dataclasses
 
@@ -254,6 +256,78 @@ def test_whisper_vad_matches_jax():
     # hysteresis decisions on both
     for threshold in (float(np.median(want)), 0.5):
         jvad.config.threshold = tvad.config.threshold = threshold
+        a, b = jvad.segment(audio, SR), tvad.segment(audio, SR)
+        assert [(s.start, s.end) for s in b.segments] == \
+            [(s.start, s.end) for s in a.segments]
+        assert b.stats == a.stats
+
+
+# whisper-vad on both segmenters' own default engines (bf16 on both sides,
+# cross K/V in the compute dtype): bf16 roundings in other places and
+# orders move a probability by up to this much
+VAD_BF16_TOL = 0.02
+
+
+def test_whisper_vad_default_engines_match_jax(monkeypatch):
+    """whisper-vad as ``create_segmenter("whisper-vad")`` builds it: each
+    segmenter builds its own default engine (the JAX segmenter's
+    options, bf16, unquantised cross K/V), ``load_model`` patched in
+    both packages to the same tiny seeded weights. The speech
+    probabilities agree within VAD_BF16_TOL and the segments are the
+    same at thresholds in the widest gaps between the probabilities."""
+    from whisperjav_tpu.models.whisper.config import WhisperConfig
+    from whisperjav_tpu.modules.segmentation.whisper_vad import (
+        WhisperVadSegmenter as JVad,
+    )
+    from whisperjav_tpu.pipelines import factory as jfactory
+    from whisperjav_tpu_torch.models.whisper.config import (
+        WhisperConfig as TConfig,
+    )
+    from whisperjav_tpu_torch.models.whisper.weights import params_from_jax
+    from whisperjav_tpu_torch.modules.segmentation import create_segmenter
+    from whisperjav_tpu_torch.pipelines import factory as tfactory
+    dims = dict(name="vad-tiny", n_mels=80, n_audio_state=64,
+                n_audio_head=4, n_audio_layer=1, n_text_state=64,
+                n_text_head=4, n_text_layer=1)
+    params = jax.tree.map(np.array, jm.init_params(
+        WhisperConfig(**dims), jax.random.PRNGKey(1)))
+    # random weights give P(no_speech) ~ 1/vocab everywhere: the
+    # no-speech row of the tied embedding (never an input here), turned
+    # round and scaled, puts the speech probabilities at 0.74-0.91
+    params["decoder"]["tok_emb"][WhisperConfig(**dims).no_speech] *= -10.0
+    asked = []
+
+    def j_load(name, checkpoint=None):
+        asked.append(("jax", name, checkpoint))
+        return WhisperConfig(**dims), params
+
+    def t_load(name, checkpoint=None, device="cuda"):
+        asked.append(("torch", name, checkpoint))
+        return TConfig(**dims), params_from_jax(params, TConfig(**dims))
+    monkeypatch.setattr(jfactory, "load_model", j_load)
+    monkeypatch.setattr(tfactory, "load_model", t_load)
+    audio = speech(12.0, 5)
+    kw = dict(batch_size=4)
+    jvad = JVad(**kw)
+    tvad = create_segmenter("whisper-vad", device="cpu", **kw)
+    want = jvad.window_speech_probs(audio, SR)
+    got = tvad.window_speech_probs(audio, SR)
+    assert asked == [("jax", "tiny", None), ("torch", "tiny", None)]
+    for vad in (jvad, tvad):
+        opts = vad._engine.options
+        assert (opts.max_new_tokens, opts.with_timestamps) == (1, False)
+        assert not (opts.cross_kv_int8 or opts.cross_kv_int4)
+    assert tvad._engine.compute_dtype == torch.bfloat16
+    assert got.shape == want.shape == (5,)
+    np.testing.assert_allclose(got, want, atol=VAD_BF16_TOL, rtol=0)
+    # thresholds (and releases) in the widest gaps between the
+    # probabilities: the same decisions on both sides
+    marks = np.sort(np.concatenate([want, [0.0, 1.0]]))
+    gaps = sorted(zip(np.diff(marks), marks[:-1]), reverse=True)
+    for width, low in gaps[:2]:
+        assert width > 2 * VAD_BF16_TOL
+        jvad.config.threshold = tvad.config.threshold = low + width / 2
+        jvad.config.hysteresis_offset = tvad.config.hysteresis_offset = 0.0
         a, b = jvad.segment(audio, SR), tvad.segment(audio, SR)
         assert [(s.start, s.end) for s in b.segments] == \
             [(s.start, s.end) for s in a.segments]

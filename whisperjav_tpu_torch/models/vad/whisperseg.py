@@ -73,7 +73,7 @@ def frame_logits(model: WhisperSeg, audio: torch.Tensor,
     with full_f32():
         mel = log_mel_spectrogram(audio.float(), n_mels=cfg.n_mels)
     xa = encode(model, mel.to(dtype))
-    cross = precompute_cross_kv(model, xa)
+    cross = precompute_cross_kv(model, xa, int8=True)
     b, t = audio.shape[0], cfg.n_text_ctx
     tokens = torch.full((b, t), query_token_id, dtype=torch.long,
                         device=audio.device)

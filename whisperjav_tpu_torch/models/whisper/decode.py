@@ -40,9 +40,9 @@ _NEG = float("-inf")
 class DecodeOptions:
     """Decoding configuration; fields and defaults as in the JAX package.
 
-    Cross-K/V is quantised when decoding: int8 (``cross_kv_int8``), or
-    nibble-packed int4 (``cross_kv_int4``, which wins over int8, as in
-    the JAX package); unquantised cross-K/V is not ported.
+    Cross-K/V stays in the compute dtype by default, or is quantised:
+    int8 (``cross_kv_int8``, the factory's choice), or nibble-packed int4
+    (``cross_kv_int4``, which wins over int8), as in the JAX package.
     ``assume_greedy`` decodes by argmax whatever the temperature, as in
     the JAX package.
     """
@@ -97,13 +97,6 @@ def _static_suppress_mask(config: WhisperConfig,
     if not options.with_timestamps:
         mask[config.timestamp_begin:] = -np.inf
     return mask
-
-
-def _check_options(options: DecodeOptions) -> None:
-    if not (options.cross_kv_int8 or options.cross_kv_int4):
-        raise NotImplementedError(
-            "only quantised cross-K/V is ported: set cross_kv_int8=True "
-            "or cross_kv_int4=True")
 
 
 @dataclass
@@ -226,7 +219,8 @@ def _prefill(model: Whisper, xa: torch.Tensor, options: DecodeOptions,
     init_t = torch.as_tensor(init, device=dev)
     tokens = torch.zeros((rows, total_len), dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init_t
-    cross = precompute_cross_kv(model, xa, int4=options.cross_kv_int4)
+    cross = precompute_cross_kv(model, xa, int8=options.cross_kv_int8,
+                                int4=options.cross_kv_int4)
     cache = KVCache.zeros(config, rows, total_len,
                           model.decoder.tok_emb.dtype, dev)
     prefill, cache = decode_step(
@@ -254,7 +248,6 @@ def decode_greedy(
     cache and token buffer stay sized for ``max_new_tokens``, so two step
     budgets run on the same allocation.
     """
-    _check_options(options)
     config = model.config
     b = xa.shape[0]
     dev = xa.device
@@ -358,7 +351,6 @@ def decode_beam(
     k = options.beam_size
     if k <= 1:
         return decode_greedy(model, xa, options, prompt)
-    _check_options(options)
     config = model.config
     b = xa.shape[0]
     bk = b * k

@@ -5,19 +5,21 @@ flagless run takes. Parameters keep the JAX tree's names and stacked
 layouts: per-layer weights stack on a leading layer axis and matrices are
 (in, out), so :mod:`weights` maps a JAX tree one to one. The public
 layouts are the JAX package's: attention operands (B, T, H, hd), the
-self-attention cache ``KVCache`` (L, B, T, d) and the int8 cross-attention
-``CrossKV`` (L, B, H, hd, T).
+self-attention cache ``KVCache`` (L, B, T, d) and the cross-attention
+``CrossKV`` (L, B, H, hd, T), int8 or in the compute dtype.
 
 Int8 decoder weights (``quant.quantize_decoder_weights``) are the JAX
 tree's ``{"q": int8, "s": f32}`` leaves, held as :class:`Int8Weight`;
 :func:`dense` takes them, and the lm head is ``decoder.lm_head_q``.
 
 Kernels sit behind :func:`encoder_attention` (every encoder layer),
-:func:`cross_attention` (every decoder layer of a step on bf16 weights,
-and of every prefill) and, on int8 weights at q_len == 1, the three
-fused blocks of ``ops/cuda/fused_decode.py`` (every decoder layer of
-every step, beam rungs included); all run their plain PyTorch versions
-on CPU tensors.
+:func:`cross_attention` on int8 cross K/V (every decoder layer of a step
+on bf16 weights, and of every prefill) and, on int8 weights and int8
+cross K/V at q_len == 1, the three fused blocks of
+``ops/cuda/fused_decode.py`` (every decoder layer of every step, beam
+rungs included); all run their plain PyTorch versions on CPU tensors.
+Cross K/V in the compute dtype (the JAX package's default) or int4 reach
+no kernel, as in the JAX package.
 
 Fine-tuning differentiates :func:`forward` (the JAX package's
 ``forward`` and ``decode_train``): plain attention, unquantised cross
@@ -224,9 +226,10 @@ class KVCache(NamedTuple):
 
 
 class CrossKV(NamedTuple):
-    """Per-segment cross-attention K/V, (L, B, H, hd, T) int8 (or, for
-    int4, (L, B, H, hd, T/2) uint8 nibble pairs), with per-(layer, batch,
-    head) scales (L, B, H, 1, 1) f32."""
+    """Per-segment cross-attention K/V, (L, B, H, hd, T) int8 or in the
+    compute dtype (or, for int4, (L, B, H, hd, T/2) uint8 nibble pairs),
+    with per-(layer, batch, head) scales (L, B, H, 1, 1) f32 (ones for
+    the compute dtype)."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor
@@ -234,33 +237,41 @@ class CrossKV(NamedTuple):
 
 
 def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
-                        int4: bool = False) -> CrossKV:
-    """Project encoder states once per segment and quantise them per
-    (layer, batch, head), rounding half to even as ``jnp.round``: to int8
-    (the JAX package's ``int8=True``; the decode kernel reads int8), or
-    with ``int4`` to +-7 levels packed two to a byte along T
-    (:func:`pack_nibbles`; the JAX package's ``int4=True``)."""
+                        int8: bool = False, int4: bool = False) -> CrossKV:
+    """Project encoder states once per segment into the (L, B, H, hd, T)
+    cross-attention K/V, as the JAX package's ``precompute_cross_kv``.
+
+    With ``int8`` each (layer, batch, head) is quantised symmetrically,
+    rounding half to even as ``jnp.round``, to int8 (the decode kernel's
+    operand); with ``int4`` (which wins over int8) to +-7 levels packed
+    two to a byte along T (:func:`pack_nibbles`). With neither, K/V stay
+    in xa's dtype with scales of one."""
     cfg = model.config
     blocks = model.decoder.blocks
     n_layer = blocks["cwk"].shape[0]
     b, t, _ = xa.shape
     h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+    quant = int8 or int4
     qmax = 7.0 if int4 else 127.0
     if int4 and t % 2:
         raise ValueError(f"int4 cross-KV needs an even T axis, got {t} — "
                          "cross-KV buckets (448/960/1500) are all even")
     ck = torch.empty((n_layer, b, h, hd, t // 2 if int4 else t),
-                     dtype=torch.uint8 if int4 else torch.int8,
-                     device=xa.device)
+                     dtype=(torch.uint8 if int4 else torch.int8) if quant
+                     else xa.dtype, device=xa.device)
     cv = torch.empty_like(ck)
-    ks = torch.empty((n_layer, b, h, 1, 1), dtype=torch.float32,
-                     device=xa.device)
-    vs = torch.empty_like(ks)
+    ks = torch.ones((n_layer, b, h, 1, 1), dtype=torch.float32,
+                    device=xa.device)
+    vs = torch.ones_like(ks)
     for i in range(n_layer):
         for out, scale, proj in (
                 (ck, ks, dense(xa, blocks["cwk"][i])),
                 (cv, vs, dense(xa, blocks["cwv"][i], blocks["cbv"][i]))):
-            x = _split_heads(proj, h).permute(0, 2, 3, 1).float()  # (B,H,hd,T)
+            x = _split_heads(proj, h).permute(0, 2, 3, 1)       # (B,H,hd,T)
+            if not quant:
+                out[i] = x
+                continue
+            x = x.float()
             s = x.abs().amax(dim=(2, 3), keepdim=True) / qmax + 1e-9
             codes = torch.clamp(torch.round(x / s), -qmax, qmax)
             out[i] = pack_nibbles(codes) if int4 else codes.to(torch.int8)
@@ -328,18 +339,38 @@ def packed_cross_attention(q: torch.Tensor, ck: torch.Tensor,
     return out.to(q.dtype)
 
 
+def unquantised_cross_attention(q: torch.Tensor, ck: torch.Tensor,
+                                cv: torch.Tensor) -> torch.Tensor:
+    """q (B, Tq, H, hd) x K/V (B, H, hd, T) in q's dtype -> (B, Tq, H, hd),
+    as the JAX package's ``cross_attention`` on unquantised K/V: q times
+    hd^-0.5 rounded to q's dtype, f32 logits of the products, softmax in
+    f32 with its weights cast to q's dtype, the output summed in f32 and
+    cast to q's dtype. The JAX package computes this outside any Pallas
+    kernel; the plain products run on the card too (bf16 values are
+    exact in f32)."""
+    hd = q.shape[-1]
+    scale = (hd ** -0.25) * (hd ** -0.25)
+    qs = (q * scale).float().transpose(1, 2)               # (B, H, Tq, hd)
+    logits = torch.matmul(qs, ck.float())                  # (B, H, Tq, T)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    out = torch.matmul(weights, cv.float().transpose(2, 3))
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def cross_attention(q: torch.Tensor, cross: CrossKV,
                     layer: int) -> torch.Tensor:
-    """q (B*g, Tq, H, hd) x layer ``layer`` of the int8 cross K/V
+    """q (B*g, Tq, H, hd) x layer ``layer`` of the cross K/V
     (B, H, hd, T) -> (B*g, Tq, H, hd).
 
     Beam folding: when q has g times the K/V's rows (beam search: all
     beams of a row attend the same audio), the g beams fold into the
     query axis, q (B*g, Tq) -> (B, g*Tq), so one cross-K/V row serves all
-    of them. The attention scale and k_scale are folded into q in f32;
-    v_scale multiplies the kernel's f32 output, before the one rounding to
-    q's dtype (in the kernel's epilogue for bf16). Nibble-packed int4 K/V
-    (uint8) take :func:`packed_cross_attention`, beams folded alike.
+    of them. On int8 K/V the attention scale and k_scale are folded into
+    q in f32; v_scale multiplies the kernel's f32 output, before the one
+    rounding to q's dtype (in the kernel's epilogue for bf16).
+    Nibble-packed int4 K/V (uint8) take :func:`packed_cross_attention`
+    and K/V in the compute dtype :func:`unquantised_cross_attention`,
+    beams folded alike; neither reaches a kernel.
     """
     bq, tq, h, hd = q.shape
     b = cross.k.shape[1]
@@ -351,6 +382,10 @@ def cross_attention(q: torch.Tensor, cross: CrossKV,
         a = packed_cross_attention(
             q.reshape(b, g * tq, h, hd), cross.k[layer], cross.v[layer],
             cross.k_scale[layer], cross.v_scale[layer])
+        return a.reshape(bq, tq, h, hd)
+    if cross.k.dtype != torch.int8:
+        a = unquantised_cross_attention(q.reshape(b, g * tq, h, hd),
+                                        cross.k[layer], cross.v[layer])
         return a.reshape(bq, tq, h, hd)
     scale = (hd ** -0.25) * (hd ** -0.25)
     qf = (q.reshape(b, g * tq, h, hd).float() * scale
@@ -547,18 +582,6 @@ def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
     return x.reshape(b, t, -1, hd)
 
 
-def plain_cross_attention(q: torch.Tensor, ck: torch.Tensor,
-                          cv: torch.Tensor) -> torch.Tensor:
-    """q (B, Tq, H, hd) x unquantised cross K/V (B, H, hd, T) ->
-    (B, Tq, H, hd): the JAX package's ``cross_attention`` without scales
-    (``int8=False``), logits and softmax in f32."""
-    hd = q.shape[-1]
-    scale = (hd ** -0.25) * (hd ** -0.25)
-    logits = torch.matmul((q * scale).float().transpose(1, 2), ck.float())
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)     # (B, H, Tq, T)
-    return torch.matmul(weights, cv.transpose(2, 3)).transpose(1, 2)
-
-
 def _mlp(x: torch.Tensor, p: nn.ParameterDict, i: int, tp) -> torch.Tensor:
     h = tp.copy(layer_norm(x, p["ln2_s"][i], p["ln2_b"][i]))
     out = dense(F.gelu(dense(h, p["w1"][i], p["b1"][i])), p["w2"][i])
@@ -586,7 +609,7 @@ def _train_decoder_block(x, p, i, ck, cv, causal, hd, tp):
     x = x + tp.reduce(dense(a, p["wo"][i])) + p["bo"][i]
     h = tp.copy(layer_norm(x, p["lnx_s"][i], p["lnx_b"][i]))
     cq = _heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
-    a = plain_cross_attention(cq, ck, cv).reshape(b, s, -1)
+    a = unquantised_cross_attention(cq, ck, cv).reshape(b, s, -1)
     x = x + tp.reduce(dense(a, p["cwo"][i])) + p["cbo"][i]
     return _mlp(x, p, i, tp)
 
@@ -599,10 +622,11 @@ def decode_train(model: Whisper, tokens: torch.Tensor, xa: torch.Tensor,
 
     Causal self-attention over the sequence with no cache, unquantised
     cross K/V in the (B, H, hd, T) layout with
-    :func:`plain_cross_attention`, and the tied head ``x @ tok_emb.T`` in
-    f32; differentiable throughout. ``tp`` holds the tensor-parallel hooks
-    (:class:`Replicated` when None); under it the head count is each
-    rank's share, read from the weights' widths."""
+    :func:`unquantised_cross_attention`, and the tied head
+    ``x @ tok_emb.T`` in f32; differentiable throughout. ``tp`` holds
+    the tensor-parallel hooks (:class:`Replicated` when None); under it
+    the head count is each rank's share, read from the weights'
+    widths."""
     tp = tp or Replicated()
     dec = model.decoder
     p = dec.blocks

@@ -5,8 +5,9 @@ Behavioral counterpart of the reference's whisper_vad backend
 (reference: whisperjav/modules/speech_segmentation/backends/
 whisper_vad.py — runs a tiny→medium faster-whisper over windows and uses
 its ``no_speech`` probabilities as voice activity). Here a small Whisper
-on the port's engine (on ``device``) scores 5 s sub-windows batched
-through the encoder + one SOT decode step; speech probability = 1 −
+on the port's engine (on ``device``, with the JAX segmenter's options:
+cross-K/V in the compute dtype) scores 5 s sub-windows batched through
+the encoder + one SOT decode step; speech probability = 1 −
 P(no_speech).
 """
 
@@ -61,8 +62,7 @@ class WhisperVadSegmenter:
             self._engine = TranscriptionEngine(
                 cfg, params,
                 options=DecodeOptions(max_new_tokens=1,
-                                      with_timestamps=False,
-                                      cross_kv_int8=True),
+                                      with_timestamps=False),
                 thresholds=QualityThresholds(temperatures=(0.0,)),
                 batch_size=self.config.batch_size, device=self.device)
         return self._engine
@@ -72,6 +72,7 @@ class WhisperVadSegmenter:
                             sample_rate: int) -> np.ndarray:
         """Sliding-window speech probabilities at hop_s resolution."""
         from whisperjav_tpu_torch.ops.mel import N_SAMPLES
+        from whisperjav_tpu_torch.pipelines.engine import to_host
         cfg = self.config
         engine = self._ensure_engine()
         win = int(cfg.window_s * sample_rate)
@@ -88,8 +89,7 @@ class WhisperVadSegmenter:
             for r, s in enumerate(chunk):
                 clip = audio[s:s + win]
                 buf[r, :len(clip)] = clip
-            result = engine.decode_batch(buf)
-            ns = np.asarray(result.no_speech_prob)
+            ns = to_host(engine.decode_batch(buf)).no_speech_prob
             probs[i:i + len(chunk)] = 1.0 - ns[:len(chunk)]
         return probs
 

@@ -19,6 +19,7 @@ Parity targets in the reference tree:
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -229,7 +230,15 @@ class QwenGenerator:
         """Every clip padded to the longest, rounded up to whole AuT
         attention windows (``mel_multiple`` mel frames x 160 samples, 4 s
         by default), in batches of ``batch_size`` rows (the last one
-        padded with silent rows)."""
+        padded with silent rows).
+
+        Generate-ahead, as the JAX generator: batch i+1's ``generate``
+        runs before batch i's tokens are drained to the host and
+        detokenised (``WJAV_GENERATE_AHEAD=0`` drains each batch at
+        once). It keeps two batches' LM caches resident, so it turns off,
+        with a warning, where the JAX package's estimate of the pair
+        exceeds ``WJAV_GENERATE_AHEAD_GB`` (default 6, the JAX package's
+        value)."""
         from whisperjav_tpu_torch.models.qwen.model import generate
         from whisperjav_tpu_torch.ops.mel import log_mel_spectrogram
         assert self._params is not None, "call load() first"
@@ -240,6 +249,34 @@ class QwenGenerator:
         budget = self.budget(max_len / sample_rate)
         ctx = (torch.from_numpy(self._ctx_ids).to(self.device)
                if self._ctx_ids is not None else None)
+        ahead_on = os.environ.get("WJAV_GENERATE_AHEAD", "1") != "0"
+        cfg = self.cfg
+        t_max = (cfg.audio_tokens_for(
+            ((max_len // 160 + cfg.mel_multiple - 1) // cfg.mel_multiple)
+            * cfg.mel_multiple) + budget + 64)
+        kv_d = cfg.n_kv_heads * cfg.head_dim
+        pair_cache_gb = (2 * 2 * 2 * cfg.n_layers * self.batch_size
+                         * t_max * kv_d) / 1e9   # 2 inflight × k+v × bf16
+        limit_gb = float(os.environ.get("WJAV_GENERATE_AHEAD_GB", "6"))
+        if ahead_on and pair_cache_gb > limit_gb:
+            logger.warning(
+                "generate-ahead disabled: two in-flight LM caches ≈ "
+                "%.1f GB > %.1f GB budget (batch %d, t_max %d); serial "
+                "drains (override with WJAV_GENERATE_AHEAD_GB)",
+                pair_cache_gb, limit_gb, self.batch_size, t_max)
+            ahead_on = False
+
+        def drain(start: int, n: int, res) -> None:
+            toks = res.tokens.cpu().numpy()
+            lens = res.length.cpu().numpy()
+            lps = res.avg_logprob.cpu().numpy()
+            for r in range(n):
+                out.append(TranscriptionResult(
+                    frame_index=start + r,
+                    text=self._decode_text(toks[r], int(lens[r])),
+                    avg_logprob=float(lps[r])))
+
+        pending = None
         for i in range(0, len(clips), self.batch_size):
             chunk = clips[i:i + self.batch_size]
             buf = np.zeros((self.batch_size, max_len), np.float32)
@@ -251,14 +288,15 @@ class QwenGenerator:
                            audio_len=self.cfg.audio_tokens_for(mel.shape[-1]),
                            repetition_penalty=self.repetition_penalty,
                            ctx_ids=ctx)
-            toks = res.tokens.cpu().numpy()
-            lens = res.length.cpu().numpy()
-            lps = res.avg_logprob.cpu().numpy()
-            for r in range(len(chunk)):
-                out.append(TranscriptionResult(
-                    frame_index=i + r,
-                    text=self._decode_text(toks[r], int(lens[r])),
-                    avg_logprob=float(lps[r])))
+            if pending is not None:
+                drain(*pending)
+                pending = None
+            if ahead_on:
+                pending = (i, len(chunk), res)
+            else:
+                drain(i, len(chunk), res)
+        if pending is not None:
+            drain(*pending)
         return out
 
 

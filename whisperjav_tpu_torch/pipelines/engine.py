@@ -2,17 +2,34 @@
 
 Counterpart of ``whisperjav_tpu/pipelines/engine.py``: int16 audio
 upload, log-mel, encoder, encoder states sliced to a cross-K/V bucket,
-int8 cross-K/V, beam search at temperature 0 and sampled best-of rungs
-above it, the quality gates, and the temperature ladder with the failed
-rows of a whole file retried together at its end (deferred retries).
-Batches run one after another.
+cross-K/V in the compute dtype or int8 (the factory's choice), beam
+search at temperature 0 and sampled best-of rungs above it, the quality
+gates, and the temperature ladder with the failed rows of a whole file
+retried together at its end (deferred retries, ``WJAV_DEFER_RETRY=0``
+retries inline).
+
+Batch pipelining, as the JAX engine's (``transcribe_windows``): batch
+i+1's audio is uploaded while batch i decodes (a pinned int16 host
+buffer copied without blocking on a side stream of the device); every
+encode runs on that side stream, behind its upload, and records an
+event, on which the stream that decodes waits (never a device-wide
+sync), so batch i+1's encode, enqueued right after batch i's first-rung
+decode (encode-ahead, ``WJAV_ENCODE_AHEAD=0`` turns it off), runs beside
+batch i's ladder rungs. Decode-ahead (``WJAV_DECODE_AHEAD``: ``auto``
+under a memory gate, ``1``, ``0``) keeps the JAX order: encode and
+decode batch i, upload batch i+1, then drain and finish batch i-1. In
+eager PyTorch a rung's decode has run by the time its host loop returns,
+so only the side stream's work overlaps. Outputs are the same with
+pipelining on and off: each batch's decode reads only its own encoder
+states and seed.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``): the model is prepared
 once (cast, vocabulary slice, q/k/v fusion, int8 quantisation) and then
 copied to every device of the mesh. A batch's rows split into the mesh's
 contiguous equal blocks; each device encodes and decodes its block in a
 host thread of its own, under its device and, on CUDA, a stream of its
-own, and the host gathers the small decode results in row order. The
+own (and its side stream for uploads and encodes), and the decode
+results are gathered in row order on the mesh's first device. The
 encoder states stay on their devices (:class:`ShardedStates`), so the
 ladder's rungs and the word alignment read them where they are. The
 sampled rungs' noise does not depend on the mesh: each device draws the
@@ -37,10 +54,12 @@ decoding runs in subset ids, and emitted tokens map back to full-vocab
 ids on the device.
 
 ``WJAV_TRACE_BATCHES=1`` records one row per batch in ``batch_trace``
-(the wall of each phase: encode, the first-rung decode, the ladder's
-rungs, segment extraction; taken after a device sync, so each phase owns
-its device time) and one row for the deferred retries; the file pipeline
-copies it into its stats.
+with the JAX engine's host walls (no device sync is added): ``upload_s``
+(this batch's upload), ``encode_s`` (its encode's enqueue, when not
+encoded ahead), ``dispatch_s`` (the first rung's host loop), ``ahead_s``
+(the next batch's encode enqueue), ``drain_s`` (the wait for the first
+rung's results), ``ladder_s``, ``extract_s``, and one row for the
+deferred retries; the file pipeline copies it into its stats.
 """
 
 from __future__ import annotations
@@ -134,21 +153,67 @@ def gumbel_source(seed: int, rows: int, vocab: int, device):
 
 
 class ShardedStates(tuple):
-    """One batch's encoder states over a mesh: element k holds the k-th
-    row block on the mesh's device k."""
+    """One batch on the devices, a block of rows a shard: element k holds
+    the k-th row block on the mesh's device k (one element on one
+    device). Audio from :meth:`TranscriptionEngine.upload_audio`, or
+    encoder states from :meth:`TranscriptionEngine.encode_batch`.
+
+    ``ready[k]`` is the CUDA event recorded on shard k's side stream
+    after block k was written (None where no other stream needs to wait:
+    on the CPU, and for an upload, which the encode reads on the same
+    stream); ``host`` holds the pinned host buffers an upload copies
+    from, so they live as long as what was copied into."""
+
+    def __new__(cls, parts, ready=None, host=()):
+        self = super().__new__(cls, parts)
+        self.ready = tuple(ready) if ready is not None else (None,) * len(
+            self)
+        self.host = tuple(host)
+        return self
 
     @property
     def shape(self) -> tuple:
         return (sum(x.shape[0] for x in self), *self[0].shape[1:])
 
 
+def to_host(result: DecodeResult) -> DecodeResult:
+    """Decode results (device tensors, or arrays) -> numpy, waiting for
+    the stream that computed them."""
+    return DecodeResult(*(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                          else np.asarray(x) for x in result))
+
+
+def _mark(device: torch.device):
+    """An event recorded on ``device``'s current stream (None on the
+    CPU)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _after(x: torch.Tensor, event) -> torch.Tensor:
+    """``x``, usable on its device's current stream: the stream waits on
+    ``event`` (recorded after x was written on another stream), and the
+    allocator keeps x's memory until the current stream's work on it is
+    done."""
+    if event is not None:
+        stream = torch.cuda.current_stream(x.device)
+        stream.wait_event(event)
+        x.record_stream(stream)
+    return x
+
+
 @dataclass
 class _Shard:
     """One device of the mesh: its model replica, its stream (None: the
-    current one) and the vocabulary slice's ids on it."""
+    current one), its side stream for uploads and encodes (None on the
+    CPU) and the vocabulary slice's ids on it."""
     device: torch.device
     model: Whisper
     stream: Optional[object] = None
+    side: Optional[object] = None
     sub_ids: Optional[torch.Tensor] = None
 
 
@@ -170,7 +235,7 @@ class TranscriptionEngine:
         self,
         config: WhisperConfig,
         model: Whisper,
-        options: DecodeOptions = DecodeOptions(cross_kv_int8=True),
+        options: DecodeOptions = DecodeOptions(),
         thresholds: QualityThresholds = QualityThresholds(),
         batch_size: int = 8,
         device="cuda",
@@ -232,13 +297,15 @@ class TranscriptionEngine:
                 sub_ids=(None if self._sub_ids is None
                          else self._sub_ids.to(dev))))
         self._pool = None
-        if self.mesh.size > 1:
-            for shard in self._shards:
-                if shard.device.type == "cuda":
-                    # the replicas are whole before any shard's stream
-                    # reads them
-                    torch.cuda.synchronize(shard.device)
+        for shard in self._shards:
+            if shard.device.type == "cuda":
+                # the prepared weights are whole before another stream
+                # reads them
+                torch.cuda.synchronize(shard.device)
+                shard.side = torch.cuda.Stream(device=shard.device)
+                if self.mesh.size > 1:
                     shard.stream = torch.cuda.Stream(device=shard.device)
+        if self.mesh.size > 1:
             logger.info("engine %s replicated over %d devices: %s",
                         config.name, self.mesh.size,
                         ", ".join(device_label(d)
@@ -249,13 +316,15 @@ class TranscriptionEngine:
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
-    def _on(self, shard: _Shard):
-        """Run under ``shard``'s device and stream, in inference mode."""
+    def _on(self, shard: _Shard, side: bool = False):
+        """Run under ``shard``'s device and stream (its side stream with
+        ``side``), in inference mode."""
         with contextlib.ExitStack() as stack:
             if shard.device.type == "cuda":
                 stack.enter_context(torch.cuda.device(shard.device))
-                if shard.stream is not None:
-                    stack.enter_context(torch.cuda.stream(shard.stream))
+                stream = shard.side if side else shard.stream
+                if stream is not None:
+                    stack.enter_context(torch.cuda.stream(stream))
             stack.enter_context(torch.inference_mode())
             yield
 
@@ -281,61 +350,98 @@ class TranscriptionEngine:
 
     def _split(self, xa) -> List[torch.Tensor]:
         """Encoder states as one tensor a shard (a tensor on one device,
-        :class:`ShardedStates` over a mesh, as :meth:`encode_batch` gives
-        them)."""
+        or :class:`ShardedStates`, as :meth:`encode_batch` gives them)."""
         parts = list(xa) if isinstance(xa, ShardedStates) else [xa]
         if len(parts) != len(self._shards):
             raise ValueError(f"encoder states in {len(parts)} block(s) for "
                              f"a mesh of {len(self._shards)} devices")
         return parts
 
-    def upload_audio(self, audio: np.ndarray, device=None) -> torch.Tensor:
-        """float32 [-1, 1] host audio -> int16 on ``device`` (default the
-        mesh's first; the WAV's own dtype: half the bytes of float32)."""
+    def _states(self, xa, k: int) -> torch.Tensor:
+        """Shard k's encoder states, usable on the current stream (it
+        waits on the event recorded after their encode)."""
+        part = self._split(xa)[k]
+        return _after(part, xa.ready[k] if isinstance(xa, ShardedStates)
+                      else None)
+
+    def upload_audio(self, audio) -> ShardedStates:
+        """float32 [-1, 1] host audio -> int16 on the devices, a row block
+        a shard (the WAV's own dtype: half the bytes of float32).
+
+        On CUDA the rows go through a pinned host buffer, copied without
+        blocking on the shard's side stream, so the host goes on while
+        they stream (double buffering: the next batch's upload runs
+        behind this one's decode). Uploaded audio is returned as it is."""
+        if isinstance(audio, ShardedStates):
+            return audio
         if audio.dtype != np.int16:
             audio = (np.clip(np.asarray(audio), -1.0, 1.0)
                      * 32767.0).astype(np.int16)
-        return torch.from_numpy(audio).to(device or self.device)
-
-    def encode_batch(self, audio: np.ndarray,
-                     max_duration: Optional[float] = None):
-        """(B, N_SAMPLES) audio -> encoder states, sliced to the cross-K/V
-        bucket (CROSS_KV_BUCKETS) that covers ``max_duration`` seconds: a
-        tensor on one device, :class:`ShardedStates` over a mesh."""
-        if audio.shape[1] != N_SAMPLES:
-            raise ValueError(f"audio rows must hold {N_SAMPLES} samples, "
-                             f"got {audio.shape[1]}")
         blocks = self.mesh.blocks(audio.shape[0]) \
             if len(self._shards) > 1 else [slice(None)]
+        parts, host = [], []
+        for shard, rows in zip(self._shards, blocks):
+            block = np.ascontiguousarray(audio[rows])
+            if shard.side is None:
+                parts.append(torch.from_numpy(block).to(shard.device))
+                continue
+            pinned = torch.empty(block.shape, dtype=torch.int16,
+                                 pin_memory=True)
+            pinned.numpy()[...] = block
+            with torch.cuda.device(shard.device), \
+                    torch.cuda.stream(shard.side):
+                parts.append(pinned.to(shard.device, non_blocking=True))
+            host.append(pinned)
+        return ShardedStates(parts, host=host)
+
+    def encode_batch(self, audio=None, device_audio=None,
+                     max_duration: Optional[float] = None) -> ShardedStates:
+        """(B, N_SAMPLES) audio (or its :meth:`upload_audio`) -> encoder
+        states, sliced to the cross-K/V bucket (CROSS_KV_BUCKETS) that
+        covers ``max_duration`` seconds, a row block a shard.
+
+        Each shard's mel and encoder are enqueued on its side stream,
+        behind the upload, and an event is recorded after them; the host
+        returns once they are enqueued, so this can be called for batch
+        i+1 while batch i's decode is in flight (encode-ahead)."""
+        up = self.upload_audio(device_audio if device_audio is not None
+                               else audio)
+        if up.shape[1] != N_SAMPLES:
+            raise ValueError(f"audio rows must hold {N_SAMPLES} samples, "
+                             f"got {up.shape[1]}")
 
         def enc(k, shard):
-            mel = log_mel_spectrogram(
-                self.upload_audio(audio[blocks[k]], shard.device),
-                n_mels=self.config.n_mels)
-            xa = encode(shard.model, mel.to(self.compute_dtype))
-            if max_duration is not None:
-                need = int(np.ceil(max_duration * FRAMES_PER_SECOND)) + 8
-                bucket = next((b for b in CROSS_KV_BUCKETS if b >= need),
-                              CROSS_KV_BUCKETS[-1])
-                if bucket < xa.shape[1]:
-                    xa = xa[:, :bucket].contiguous()
-            return xa
+            with self._on(shard, side=True):
+                mel = log_mel_spectrogram(up[k], n_mels=self.config.n_mels)
+                xa = encode(shard.model, mel.to(self.compute_dtype))
+                if max_duration is not None:
+                    need = int(np.ceil(max_duration * FRAMES_PER_SECOND)) + 8
+                    bucket = next((b for b in CROSS_KV_BUCKETS if b >= need),
+                                  CROSS_KV_BUCKETS[-1])
+                    if bucket < xa.shape[1]:
+                        xa = xa[:, :bucket].contiguous()
+                return xa, _mark(shard.device)
 
         parts = self._map(enc)
-        return parts[0] if len(parts) == 1 else ShardedStates(parts)
+        return ShardedStates([x for x, _ in parts],
+                             ready=[e for _, e in parts], host=up.host)
 
-    def decode_batch(self, audio: np.ndarray, temperature: float = 0.0,
-                     seed: int = 0) -> DecodeResult:
-        """audio (B, N_SAMPLES) f32 → host results of one rung: the whole
+    def decode_batch(self, audio: Optional[np.ndarray] = None,
+                     temperature: float = 0.0, seed: int = 0,
+                     device_audio=None) -> DecodeResult:
+        """audio (B, N_SAMPLES) f32 (or ``device_audio``, its
+        :meth:`upload_audio`) -> device results of one rung: the whole
         encoder output (no bucket), then :meth:`decode_encoded` (beam
         search at temperature 0 when the options ask for beams)."""
-        return self.decode_encoded(self.encode_batch(audio), temperature,
-                                   seed)
+        return self.decode_encoded(
+            self.encode_batch(audio, device_audio=device_audio),
+            temperature, seed)
 
     def decode_encoded(self, xa, temperature: float = 0.0,
                        seed: int = 0) -> DecodeResult:
         """Decode encoder states (a tensor or :class:`ShardedStates`);
-        returns host (numpy) results in row order.
+        returns the results as tensors on the mesh's first device, in row
+        order (:func:`to_host` drains them).
 
         The token budget scales with the encoder-state length (a 448-frame
         bucket never needs the full 30 s budget). Temperature 0 runs beam
@@ -349,19 +455,29 @@ class TranscriptionEngine:
         starts = np.cumsum([0] + [x.shape[0] for x in parts])
         budget = min(self.options.max_new_tokens, parts[0].shape[1] // 4 + 32)
         opts = dataclasses.replace(self.options, max_new_tokens=budget)
-        out = self._map(lambda k, shard: self._decode_rows(
-            shard, parts[k], opts, temperature, seed, int(starts[k]), rows))
+
+        def dec(k, shard):
+            res = self._decode_rows(shard, self._states(xa, k), opts,
+                                    temperature, seed, int(starts[k]), rows)
+            return res, (_mark(shard.device) if shard.stream is not None
+                         else None)
+
+        out = self._map(dec)
         if len(out) == 1:
-            return out[0]
-        return DecodeResult(*(np.concatenate(f) for f in zip(*out)))
+            return out[0][0]
+        # each shard's rows, once its stream is done with them, onto the
+        # first device, in row order
+        parts = [[_after(x, event).to(self.device) for x in res]
+                 for res, event in out]
+        return DecodeResult(*(torch.cat(field) for field in zip(*parts)))
 
     def _decode_rows(self, shard: _Shard, xa: torch.Tensor,
                      opts: DecodeOptions, temperature: float, seed: int,
                      start: int, rows: int) -> DecodeResult:
         """One shard's rows [start, start + len(xa)) of a ``rows``-row
-        batch, on the shard's device."""
+        batch, on the shard's device, in full-vocab ids."""
         if temperature == 0.0 and opts.beam_size > 1:
-            return self._to_host(shard, decode_beam(
+            return self._full_ids(shard, decode_beam(
                 shard.model, xa, opts, prompt=self.prompt_tokens))
         n_best = opts.best_of if temperature > 0.0 else 1
         stop = start + xa.shape[0]
@@ -369,7 +485,7 @@ class TranscriptionEngine:
         for i in range(n_best):
             noise = gumbel_source(seed + 7919 * i, rows,
                                   shard.model.config.n_vocab, shard.device)
-            cand = self._to_host(shard, decode_greedy(
+            cand = self._full_ids(shard, decode_greedy(
                 shard.model, xa, opts, prompt=self.prompt_tokens,
                 temperature=temperature,
                 gumbel=lambda step: noise(step)[start:stop]))
@@ -378,20 +494,20 @@ class TranscriptionEngine:
                 continue
             win = cand.avg_logprob > best.avg_logprob
             best = DecodeResult(
-                np.where(win[:, None], cand.tokens, best.tokens),
-                np.where(win, cand.length, best.length),
-                np.where(win, cand.sum_logprob, best.sum_logprob),
-                np.where(win, cand.avg_logprob, best.avg_logprob),
+                torch.where(win[:, None], cand.tokens, best.tokens),
+                torch.where(win, cand.length, best.length),
+                torch.where(win, cand.sum_logprob, best.sum_logprob),
+                torch.where(win, cand.avg_logprob, best.avg_logprob),
                 best.no_speech_prob)
         return best
 
     @staticmethod
-    def _to_host(shard: _Shard, result: DecodeResult) -> DecodeResult:
-        """Device results -> numpy, tokens in full-vocab ids (mapped back
-        from subset ids on the device under a vocab slice)."""
+    def _full_ids(shard: _Shard, result: DecodeResult) -> DecodeResult:
+        """Tokens in full-vocab ids (mapped back from subset ids on the
+        device under a vocab slice)."""
         if shard.sub_ids is not None:
             result = result._replace(tokens=shard.sub_ids[result.tokens])
-        return DecodeResult(*(x.cpu().numpy() for x in result))
+        return result
 
     # ------------------------------------------------------------------
     def _compression_ratio(self, token_ids: Sequence[int]) -> float:
@@ -435,12 +551,47 @@ class TranscriptionEngine:
         return segs
 
     # ------------------------------------------------------------------
+    def transcribe_batch(self, batch: WindowBatch, seed: int = 0,
+                         device_audio=None, device_xa=None,
+                         on_decode_dispatched=None,
+                         trace: Optional[dict] = None,
+                         defer_pool: Optional[list] = None,
+                         ) -> List[Optional[List[DecodedSegment]]]:
+        """Decode one padded batch with the temperature ladder: segment
+        lists (window-relative times) of its valid windows, gated.
+
+        ``device_audio``: the batch's :meth:`upload_audio`;
+        ``device_xa``: its encoder states from :meth:`encode_batch`
+        (encoded ahead; the encoder is skipped here).
+        ``on_decode_dispatched``: called with no argument after the first
+        rung's decode and before its results are drained;
+        :meth:`transcribe_windows` enqueues the next batch's encode there.
+        """
+        t0 = time.perf_counter()
+        max_dur = max((w.duration for w in batch.windows), default=30.0)
+        xa = (device_xa if device_xa is not None
+              else self.encode_batch(batch.audio, device_audio=device_audio,
+                                     max_duration=max_dur))
+        t_enc = time.perf_counter()
+        result = self.decode_encoded(xa, self.thresholds.temperatures[0],
+                                     seed)
+        t_disp = time.perf_counter()
+        if on_decode_dispatched is not None:
+            on_decode_dispatched()
+        if trace is not None:
+            trace.update(encode_s=t_enc - t0, dispatch_s=t_disp - t_enc,
+                         ahead_s=time.perf_counter() - t_disp)
+        return self.finish_batch(batch, xa, result, seed, trace=trace,
+                                 defer_pool=defer_pool)
+
     def finish_batch(self, batch: WindowBatch, xa, result: DecodeResult,
-                     seed: int = 0, defer_pool: Optional[list] = None,
-                     trace: Optional[dict] = None,
+                     seed: int = 0, trace: Optional[dict] = None,
+                     defer_pool: Optional[list] = None,
                      ) -> List[Optional[List[DecodedSegment]]]:
-        """Run the ladder on the rows that fail the gates and extract
-        segments.
+        """Drain a first-rung decode, run the ladder on the rows that
+        fail the gates and extract segments (split from
+        :meth:`transcribe_batch` so decode-ahead can decode batch i+1
+        before finishing batch i).
 
         With ``defer_pool``, failing rows are not retried here: they go to
         the pool and their slot in the returned list is None, for
@@ -448,19 +599,28 @@ class TranscriptionEngine:
         it, each rung re-decodes the batch and a failed row adopts the
         retry if its avg logprob improved; the ladder stops at a rung that
         improves nothing or raises the mean logprob by less than 0.02.
-        ``trace`` receives the rungs run and the ladder's and extraction's
-        walls.
+        ``trace`` receives the drain's wall, the rungs run and the
+        ladder's and extraction's walls.
         """
         temps = self.thresholds.temperatures
-        tokens = np.array(result.tokens)
-        avg_lp = np.array(result.avg_logprob)
-        no_speech = np.array(result.no_speech_prob)
+        t_drain0 = time.perf_counter()
+        host = to_host(result)
+        tokens = np.array(host.tokens)            # writable host copies
+        avg_lp = np.array(host.avg_logprob)
+        no_speech = np.array(host.no_speech_prob)
+        if trace is not None:
+            trace.update(drain_s=time.perf_counter() - t_drain0,
+                         bucket=int(xa.shape[1]), rows=int(xa.shape[0]),
+                         rungs=1)
 
         def failed_rows() -> list:
             return [b for b in range(batch.n_valid)
                     if self._row_needs_fallback(tokens[b], avg_lp[b],
                                                 no_speech[b])]
 
+        prev_mean = (float(np.mean(avg_lp[:batch.n_valid]))
+                     if batch.n_valid else 0.0)
+        t_ladder0 = time.perf_counter()
         deferred_rows: set = set()
         if defer_pool is not None and len(temps) > 1:
             for b in failed_rows():
@@ -470,19 +630,13 @@ class TranscriptionEngine:
                                    "no_speech": float(no_speech[b])})
                 deferred_rows.add(b)
             temps = temps[:1]
-        prev_mean = (float(np.mean(avg_lp[:batch.n_valid]))
-                     if batch.n_valid else 0.0)
-        t_ladder0 = time.perf_counter()
-        if trace is not None:
-            trace.update(bucket=int(xa.shape[1]), rows=int(xa.shape[0]),
-                         rungs=1)
         for t_i, temp in enumerate(temps[1:], start=1):
             failed = failed_rows()
             if not failed:
                 break
             logger.debug("temperature fallback t=%.1f for %d/%d rows",
                          temp, len(failed), batch.n_valid)
-            retry = self.decode_encoded(xa, temp, seed + t_i)
+            retry = to_host(self.decode_encoded(xa, temp, seed + t_i))
             improved = False
             for b in failed:
                 if retry.avg_logprob[b] > avg_lp[b]:
@@ -532,7 +686,7 @@ class TranscriptionEngine:
             k, r = divmod(b, per)
             with self._on(self._shards[k]):
                 spans = word_timestamps(
-                    self._shards[k].model, parts[k][r:r + 1], row,
+                    self._shards[k].model, self._states(xa, k)[r:r + 1], row,
                     tokenizer=tok, audio_duration=batch.windows[b].duration)
             si = 0
             for seg in segs:
@@ -570,7 +724,8 @@ class TranscriptionEngine:
                 max_dur = max((w.duration for w in rb.windows),
                               default=30.0)
                 xa = self.encode_batch(rb.audio, max_duration=max_dur)
-                res = self.decode_encoded(xa, temp, seed + 7919 * t_i)
+                res = to_host(self.decode_encoded(xa, temp,
+                                                  seed + 7919 * t_i))
                 for b in range(rb.n_valid):
                     rec = by_id[id(rb.windows[b])]
                     if res.avg_logprob[b] > rec["avg_lp"]:
@@ -615,55 +770,142 @@ class TranscriptionEngine:
                                      "ladder_s": wall, "batch_s": wall})
         return out
 
-    def _sync(self) -> None:
-        """Wait for every device's queued work (the trace's walls)."""
-        for dev in dict.fromkeys(self.mesh.devices):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+    # ------------------------------------------------------------------
+    def _decode_ahead_bytes(self) -> int:
+        """The JAX engine's estimate of the bytes one in-flight decode
+        holds: cross-K/V, the self-attention cache and the encoder states
+        at the largest bucket (the weights are shared)."""
+        c = self.config
+        rows = self.batch_size * max(self.options.beam_size, 1)
+        bucket = CROSS_KV_BUCKETS[-1]
+        kv_byte = 1 if self.options.cross_kv_int8 else 2
+        cross = 2 * c.n_text_layer * rows * bucket * c.n_text_state * kv_byte
+        budget = self.options.max_new_tokens + 8
+        self_kv = 2 * c.n_text_layer * rows * budget * c.n_text_state * 2
+        xa = self.batch_size * bucket * c.n_audio_state * 2
+        return cross + self_kv + xa
+
+    # the JAX package's budget for two in-flight decodes (its own
+    # constant, kept as it is)
+    DECODE_AHEAD_BUDGET_BYTES = 5 * 1024 ** 3
+
+    def _decode_ahead_enabled(self) -> bool:
+        """``WJAV_DECODE_AHEAD``: ``1`` on, ``0`` off, ``auto`` (the
+        default) on when two decodes' bytes fit the budget."""
+        mode = os.environ.get("WJAV_DECODE_AHEAD", "auto")
+        if mode == "0":
+            return False
+        if mode == "1":
+            return True
+        return 2 * self._decode_ahead_bytes() < self.DECODE_AHEAD_BUDGET_BYTES
 
     def transcribe_windows(
         self, windows: Sequence[Window], seed: int = 0,
     ) -> List[Tuple[Window, List[DecodedSegment]]]:
         """Decode a window list in fixed-shape batches, batch i with seed
         ``seed + 131*i``, then settle the deferred rows; results come back
-        in (scene, group) order. Under ``WJAV_TRACE_BATCHES=1`` each batch
-        leaves a row of phase walls in ``batch_trace``."""
+        in (scene, group) order.
+
+        The JAX engine's pipelining: batch i+1's upload is enqueued
+        before batch i is drained (double buffering); with
+        ``WJAV_ENCODE_AHEAD`` (on unless ``0``) batch i+1's encode is
+        enqueued on the side stream right after batch i's first-rung
+        decode, before its drain; with decode-ahead as well
+        (:meth:`_decode_ahead_enabled`) the order is encode and decode
+        batch i, upload batch i+1, then finish batch i-1. A single batch
+        runs as it would without them."""
+        ahead_on = os.environ.get("WJAV_ENCODE_AHEAD", "1") != "0"
         trace_on = os.environ.get("WJAV_TRACE_BATCHES", "0") != "0"
+        defer_on = (os.environ.get("WJAV_DEFER_RETRY", "1") != "0"
+                    and len(self.thresholds.temperatures) > 1)
+        pool: Optional[list] = [] if defer_on else None
         self.batch_trace: List[dict] = []
-        pool: Optional[list] = (
-            [] if len(self.thresholds.temperatures) > 1 else None)
         results: List[Tuple[Window, List[DecodedSegment]]] = []
         batches = list(batch_windows(windows, self.batch_size))
-        for bi, batch in enumerate(batches):
-            t_b0 = time.perf_counter()
-            max_dur = max((w.duration for w in batch.windows), default=30.0)
-            xa = self.encode_batch(batch.audio, max_duration=max_dur)
-            trace = None
-            if trace_on:
-                self._sync()
-                trace = {"encode_s": time.perf_counter() - t_b0}
-                t_dec = time.perf_counter()
-            result = self.decode_encoded(
-                xa, self.thresholds.temperatures[0], seed + bi * 131)
+        t_up0 = time.perf_counter()
+        dev = self.upload_audio(batches[0].audio) if batches else None
+        # a row's upload_s is its own audio's upload: batch 0's here,
+        # each later one's enqueued during the batch before it
+        pending_upload_s = time.perf_counter() - t_up0
+
+        def record(batch, segs, trace, t_b0, bi) -> None:
             if trace is not None:
-                trace["decode_s"] = time.perf_counter() - t_dec
-            segs = self.finish_batch(batch, xa, result, seed + bi * 131,
-                                     defer_pool=pool, trace=trace)
-            if trace is not None:
-                self._sync()
                 trace["batch_s"] = time.perf_counter() - t_b0
                 trace["audio_s"] = round(
                     sum(w.duration for w in batch.windows), 1)
                 self.batch_trace.append(trace)
                 logger.info(
-                    "batch %d/%d: %.1fs (enc %.2f dec %.2f ladder %.2f "
-                    "extract %.2f) rungs=%d bucket=%d rows=%d audio=%.0fs",
+                    "batch %d/%d: %.1fs (upload %.2f enc %.2f disp %.2f "
+                    "ahead %.2f drain %.2f ladder %.2f extract %.2f) "
+                    "rungs=%d bucket=%d rows=%d audio=%.0fs",
                     bi + 1, len(batches), trace["batch_s"],
-                    trace["encode_s"], trace["decode_s"], trace["ladder_s"],
-                    trace["extract_s"], trace["rungs"], trace["bucket"],
-                    trace["rows"], trace["audio_s"])
+                    trace["upload_s"], trace["encode_s"],
+                    trace["dispatch_s"], trace["ahead_s"], trace["drain_s"],
+                    trace["ladder_s"], trace["extract_s"], trace["rungs"],
+                    trace["bucket"], trace["rows"], trace["audio_s"])
             results.extend((w, s) for w, s in zip(batch.windows, segs)
                            if s is not None)
+
+        def finish(batch, xa, result, seed_i, trace, t_b0, bi) -> None:
+            record(batch, self.finish_batch(batch, xa, result, seed_i,
+                                            trace=trace, defer_pool=pool),
+                   trace, t_b0, bi)
+
+        if ahead_on and len(batches) > 1 and self._decode_ahead_enabled():
+            prev = None     # (batch, xa, result, seed, trace, t_b0, bi)
+            for bi, batch in enumerate(batches):
+                t_b0 = time.perf_counter()
+                trace = {} if trace_on else None
+                max_dur = max((w.duration for w in batch.windows),
+                              default=30.0)
+                xa = self.encode_batch(batch.audio, device_audio=dev,
+                                       max_duration=max_dur)
+                t_enc = time.perf_counter()
+                result = self.decode_encoded(
+                    xa, self.thresholds.temperatures[0], seed + bi * 131)
+                t_disp = time.perf_counter()
+                nxt = (self.upload_audio(batches[bi + 1].audio)
+                       if bi + 1 < len(batches) else None)
+                t_upload = time.perf_counter() - t_disp
+                if trace is not None:
+                    trace.update(upload_s=pending_upload_s,
+                                 encode_s=t_enc - t_b0,
+                                 dispatch_s=t_disp - t_enc, ahead_s=0.0)
+                if prev is not None:
+                    finish(*prev)
+                prev = (batch, xa, result, seed + bi * 131, trace, t_b0, bi)
+                dev = nxt
+                pending_upload_s = t_upload
+            finish(*prev)
+        else:
+            xa = None
+            for bi, batch in enumerate(batches):
+                t_b0 = time.perf_counter()
+                nxt = (self.upload_audio(batches[bi + 1].audio)
+                       if bi + 1 < len(batches) else None)
+                t_upload = time.perf_counter() - t_b0
+                ahead: dict = {}
+
+                def encode_ahead(nxt=nxt, bi=bi, ahead=ahead) -> None:
+                    if nxt is not None:
+                        ahead["xa"] = self.encode_batch(
+                            device_audio=nxt,
+                            max_duration=max((w.duration for w in
+                                              batches[bi + 1].windows),
+                                             default=30.0))
+
+                trace = {} if trace_on else None
+                segs = self.transcribe_batch(
+                    batch, seed=seed + bi * 131, device_audio=dev,
+                    device_xa=xa,
+                    on_decode_dispatched=encode_ahead if ahead_on else None,
+                    trace=trace, defer_pool=pool)
+                if trace is not None:
+                    trace["upload_s"] = pending_upload_s
+                record(batch, segs, trace, t_b0, bi)
+                dev = nxt
+                xa = ahead.get("xa")
+                pending_upload_s = t_upload
         if pool:
             results.extend(self._retry_deferred(pool, seed, trace=trace_on))
         results.sort(key=lambda p: (p[0].scene_idx, p[0].group_idx))

@@ -6,6 +6,7 @@ cards when asked (``parallel/mesh.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -160,11 +161,18 @@ def build_pipeline(
         best_of=sens.best_of,
         cross_kv_int8=True,
     )
+    # WJAV_LADDER_RUNGS=N keeps the ladder's first N rungs (0 or unset:
+    # all), the JAX factory's measurement knob: random weights fail every
+    # gate and would run every rung
+    temperatures = ladder(sens.temperatures)
+    rungs = int(os.environ.get("WJAV_LADDER_RUNGS", "0"))
+    if rungs > 0:
+        temperatures = temperatures[:rungs]
     thresholds = QualityThresholds(
         logprob_threshold=sens.logprob_threshold,
         no_speech_threshold=sens.no_speech_threshold,
         compression_ratio_threshold=sens.compression_ratio_threshold,
-        temperatures=ladder(sens.temperatures),
+        temperatures=temperatures,
     )
     # the JAX factory's memory guard, per card: large-v2-class widths
     # above 64 effective decode rows (batch x beams) a card

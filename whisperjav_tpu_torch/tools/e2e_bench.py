@@ -14,8 +14,11 @@ Prints ONE JSON line:
 (vs_baseline anchors to the reference project's best case, 12x
 realtime.) With ``WJAV_TRACE_BATCHES=1`` in the environment the child
 records its per-batch phase walls, summed here into ``batch_phase_s``
-(encode, first-rung decode, ladder, extract), with ``batch_s_each`` and
-``rungs_each``.
+(the JAX tool's phases: upload, encode, first-rung dispatch, the next
+batch's encode enqueue, drain, ladder, extract), with ``batch_s_each``
+and ``rungs_each``. ``env`` records the knobs the port reads that change
+what the number means (``WJAV_DEFER_RETRY``, ``WJAV_LADDER_RUNGS``,
+``WJAV_DECODE_AHEAD``, as the JAX tool, and ``WJAV_TRACE_BATCHES``).
 
 This parent process imports no torch; the child makes its own device
 contact. The child is never killed before its first pipeline output (a
@@ -44,8 +47,9 @@ import numpy as np
 
 BASELINE_E2E_RTF = 12.0     # the reference's CUDA best case: 5 min/hour
 SR = 16000
-# the port's batch-trace phases (pipelines/engine.py)
-BATCH_PHASES = ("encode_s", "decode_s", "ladder_s", "extract_s")
+# the batch-trace phases (pipelines/engine.py), the JAX tool's tuple
+BATCH_PHASES = ("upload_s", "encode_s", "dispatch_s", "ahead_s", "drain_s",
+                "ladder_s", "extract_s")
 # the engine's first log line names its device
 _ENGINE_LINE = re.compile(r"engine (\S+) on (.+)$")
 
@@ -371,7 +375,9 @@ def main(argv=None) -> int:
     }
     # measurement provenance: the environment variables the port reads
     # that change what this number records
-    prov = {k: os.environ[k] for k in ("WJAV_TRACE_BATCHES",)
+    prov = {k: os.environ[k] for k in
+            ("WJAV_TRACE_BATCHES", "WJAV_DEFER_RETRY", "WJAV_LADDER_RUNGS",
+             "WJAV_DECODE_AHEAD")
             if k in os.environ}
     if "--daemon" in args.extra:
         prov["path"] = "daemon"
