@@ -104,7 +104,9 @@ def _jax_pipeline(weights, pooled, monkeypatch):
     return JaxQwenPipeline(decoupled, scene_backend="semantic")
 
 
-def _torch_pipeline(weights, pooled):
+def _torch_pipeline(weights, pooled=None):
+    """The port's pipeline; ``pooled`` None leaves pooling to
+    ``WJAV_POOL_SCENES``, as the JAX pipeline always does."""
     _, _, tparams, taparams = weights
     gen = tc.QwenGenerator(model_size="qwen3-asr-test", batch_size=4,
                            params=tparams, device="cpu")
@@ -140,8 +142,8 @@ def test_qwen_pipeline_srt_identical(tmp_path, weights, pooled,
     assert duration > 48.0
     want = _jax_pipeline(weights, pooled, monkeypatch).process(
         jax_probe(wav), tmp_path / "jax")
-    got = _torch_pipeline(weights, pooled).process(probe(wav),
-                                                   tmp_path / "torch")
+    # WJAV_POOL_SCENES as the JAX pipeline was given it, no argument
+    got = _torch_pipeline(weights).process(probe(wav), tmp_path / "torch")
     assert got.srt_path.name == want.srt_path.name == "clip.ja.whisperjav.srt"
     srt = got.srt_path.read_text(encoding="utf-8")
     assert srt == want.srt_path.read_text(encoding="utf-8")
@@ -166,6 +168,37 @@ def test_qwen_pipeline_srt_identical(tmp_path, weights, pooled,
     assert m["stats"]["e2e_rtf_x"] > 0
     for s in load_srt(got.srt_path):
         assert 0.0 <= s.start <= s.end <= duration
+
+
+class _Resident:
+    def load(self): ...
+
+    def unload(self): ...
+
+
+@pytest.mark.parametrize("env,arg,want", [
+    (None, None, "pooled"), ("1", None, "pooled"), ("0", None, "scene"),
+    ("0", True, "pooled"), (None, False, "scene")])
+def test_pool_scenes_environment_and_argument(monkeypatch, env, arg, want):
+    """``WJAV_POOL_SCENES`` read on each ``process_scenes`` call, as the
+    JAX orchestrator reads it; an explicit ``pool_scenes`` wins."""
+    if env is None:
+        monkeypatch.delenv("WJAV_POOL_SCENES", raising=False)
+    else:
+        monkeypatch.setenv("WJAV_POOL_SCENES", env)
+    scenes = [np.zeros(SR, np.float32)] * 2
+    routes = []
+    for cls, kw in ((JaxDecoupled, {}),
+                    (DecoupledSubtitlePipeline, {"pool_scenes": arg})):
+        pipe = cls(framer=None, generator=_Resident(), cleaner=None,
+                   aligner=_Resident(), **kw)
+        pipe._process_scenes_pooled = lambda audios, sr: ["pooled"]
+        pipe._process_scene = lambda si, audio, sr: "scene"
+        routes.append(pipe.process_scenes(scenes, SR)[0])
+    jax_route, port_route = routes
+    assert port_route == want
+    if arg is None:
+        assert port_route == jax_route
 
 
 def test_qwen_factory_default_stack():

@@ -16,6 +16,7 @@ draws, to compare sampled tokens exactly).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
@@ -346,7 +347,9 @@ def decode_beam(
     full or at max_new_tokens; the winner is the best length-normalized
     pooled hypothesis, or the best live beam for a row that never
     finished. All k beams of a row share one cross-K/V row (folded in
-    ``cross_attention``).
+    ``cross_attention``); ``WJAV_BEAM_SHARED_CROSS=0`` repeats the
+    encoder states k times first, so each beam has its own row (the JAX
+    package's A/B layout: k times the cross-K/V, no fold).
     """
     k = options.beam_size
     if k <= 1:
@@ -358,6 +361,8 @@ def decode_beam(
     dev = xa.device
     max_new = options.max_new_tokens
     n_fin = max(k, int(math.ceil(k * options.patience)))
+    if os.environ.get("WJAV_BEAM_SHARED_CROSS", "1") == "0":
+        xa = xa.repeat_interleave(k, dim=0)
     tokens, prompt_len, cross, cache, cur_logits, sot_logits = _prefill(
         model, xa, options, prompt, bk)
     total_len = tokens.shape[1]

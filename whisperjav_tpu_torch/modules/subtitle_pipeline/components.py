@@ -197,9 +197,14 @@ class QwenGenerator:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
             params = init_params(self.cfg, gen, device=self.device)
-        # one fused q/k/v matmul per LM layer per step, then int8 LM
-        # matmuls and head (halves the weights every step reads)
-        self._params = quantize_lm_weights(fuse_lm_qkv(params))
+        # one fused q/k/v matmul per LM layer per step (WJAV_FUSE_QKV=0:
+        # three), then int8 LM matmuls and head, which halve the weights
+        # every step reads (WJAV_QWEN_INT8=0: the LM stays as loaded)
+        if os.environ.get("WJAV_FUSE_QKV", "1") != "0":
+            params = fuse_lm_qkv(params)
+        if os.environ.get("WJAV_QWEN_INT8", "1") != "0":
+            params = quantize_lm_weights(params)
+        self._params = params
 
     def unload(self) -> None:
         self._params = None
@@ -556,7 +561,10 @@ class QwenAlignerAdapter:
     """ForcedAligner adapter producing per-word timestamps (reference:
     aligners/qwen3.py:19 — fresh instance per load, merge_master step),
     on ``device``; the whole alignment runs on the device
-    (``ForcedAligner.align_batch_audio``)."""
+    (``ForcedAligner.align_batch_audio``), or with ``WJAV_ALIGN_DEVICE=0``
+    the JAX package's host path: the log-mel of the padded batch drained
+    to the host, then ``ForcedAligner.align_batch`` (the similarity on the
+    device, the log-softmax and the Viterbi on the host)."""
 
     name = "qwen3"
 
@@ -620,8 +628,10 @@ class QwenAlignerAdapter:
         return groups
 
     def align_batch(self, clips, sample_rate, texts) -> List[AlignmentResult]:
+        from whisperjav_tpu_torch.ops.mel import log_mel_spectrogram
         assert self._aligner is not None, "call load() first"
         out: List[Optional[AlignmentResult]] = [None] * len(clips)
+        device_path = os.environ.get("WJAV_ALIGN_DEVICE", "1") != "0"
         for (a_b, t_b), jobs in self.buckets(clips, sample_rate,
                                              texts).items():
             t_samples = a_b * sample_rate
@@ -631,14 +641,23 @@ class QwenAlignerAdapter:
                     else max(8, 1 << (len(chunk) - 1).bit_length())
                 buf = np.zeros((rows, t_samples), np.float32)
                 sample_valid = np.zeros(rows, np.int32)
+                mel_valid = np.zeros(rows, np.int32)
                 token_rows: List[list] = [[] for _ in range(rows)]
                 for r, (i, clen, ids, _pieces) in enumerate(chunk):
                     clen = min(clen, t_samples)   # >180 s clips clamp
                     buf[r, :clen] = clips[i][:clen]
                     sample_valid[r] = clen
+                    mel_valid[r] = -(-clen // 160)   # true mel frames
                     token_rows[r] = ids
-                spans_rows = self._aligner.align_batch_audio(
-                    buf, token_rows, sample_valid, n_pad=t_b)
+                if device_path:
+                    spans_rows = self._aligner.align_batch_audio(
+                        buf, token_rows, sample_valid, n_pad=t_b)
+                else:
+                    mels = log_mel_spectrogram(
+                        torch.from_numpy(buf).to(self.device),
+                        n_mels=self._aligner.cfg.n_mels).cpu().numpy()
+                    spans_rows = self._aligner.align_batch(
+                        mels, token_rows, mel_valid, n_pad=t_b)
                 for r, (i, _clen, _ids, pieces) in enumerate(chunk):
                     words = [WordTimestamp(piece, s.start, s.end)
                              for piece, s in zip(pieces, spans_rows[r])]

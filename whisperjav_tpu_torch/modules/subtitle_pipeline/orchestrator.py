@@ -11,6 +11,7 @@ stay in memory as arrays, and the generator and aligner stay resident
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -51,7 +52,7 @@ class DecoupledSubtitlePipeline:
         hardening: Optional[HardeningConfig] = None,
         regroup_mode: RegroupMode = RegroupMode.STANDARD,
         regroup_config: Optional[RegroupConfig] = None,
-        pool_scenes: bool = True,
+        pool_scenes: Optional[bool] = None,
     ):
         self.framer = framer
         self.generator = generator
@@ -77,12 +78,17 @@ class DecoupledSubtitlePipeline:
         all frames generate/clean/align in full device batches, then the
         results scatter back per scene (step-down retries pool the same
         way in a second pass). ``pool_scenes=False`` (and a single scene)
-        runs the reference's scene-by-scene loop.
+        runs the reference's scene-by-scene loop; ``pool_scenes=None``
+        leaves it to ``WJAV_POOL_SCENES``, read on each call as the JAX
+        package does ("0": scene by scene).
         """
         self.generator.load()
         self.aligner.load()
         try:
-            if self.pool_scenes and len(scene_audios) > 1:
+            pooled = self.pool_scenes
+            if pooled is None:
+                pooled = os.environ.get("WJAV_POOL_SCENES", "1") != "0"
+            if pooled and len(scene_audios) > 1:
                 return self._process_scenes_pooled(scene_audios,
                                                    sample_rate)
             return [self._process_scene(si, audio, sample_rate)

@@ -223,10 +223,11 @@ class TranscriptionEngine:
     Takes ownership of ``model``: it is moved to ``device`` (the mesh's
     first device when ``mesh`` is given), cast to ``compute_dtype``, its
     token embedding is sliced to ``vocab_subset`` (and its config
-    replaced by the sliced one) and its decoder q/k/v weights are fused,
-    in place; with ``int8_weights`` the decoder matmuls and the lm head
-    are then quantised to int8 (``--int8-weights``), which single decode
-    steps run through the fused blocks. Over a mesh of N devices the
+    replaced by the sliced one) and its decoder q/k/v weights are fused
+    (unless ``WJAV_FUSE_QKV=0``), in place; with ``int8_weights`` the
+    decoder matmuls and the lm head are then quantised to int8
+    (``--int8-weights``), which single decode steps run through the
+    fused blocks when q/k/v are fused. Over a mesh of N devices the
     prepared model is then copied to the other N - 1, and
     ``batch_size`` must be a multiple of N.
     """
@@ -286,7 +287,11 @@ class TranscriptionEngine:
                                        requires_grad=False)
             self.model.config = self._vocab.config
         self.prompt_tokens = tuple(prompt_tokens)
-        fuse_qkv_weights(self.model)
+        if os.environ.get("WJAV_FUSE_QKV", "1") != "0":
+            # one (d, 3d) q/k/v product a decoder layer a step instead of
+            # three, bitwise identical; WJAV_FUSE_QKV=0 keeps them apart
+            # (on int8 weights the fused blocks then stand aside)
+            fuse_qkv_weights(self.model)
         if int8_weights:
             quantize_decoder_weights(self.model)
         self._shards = [_Shard(self.device, self.model,

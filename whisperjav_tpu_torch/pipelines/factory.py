@@ -71,11 +71,12 @@ def ladder(temperatures) -> tuple:
 
 def vocab_subset(vocab_slice: Optional[str], tokenizer: WhisperTokenizer,
                  config) -> Optional[np.ndarray]:
-    """The kept text ids of ``--vocab-slice``: "ja" derives the
-    JA-plausible subset from a real tokenizer (None, with a warning,
-    without one); a positive integer is the synthetic subset of that
-    size; unset or 0 keeps the full vocabulary."""
-    vs = str(vocab_slice or "")
+    """The kept text ids of ``--vocab-slice``, or of ``WJAV_VOCAB_SLICE``
+    when the flag is not given (the JAX factory's precedence): "ja"
+    derives the JA-plausible subset from a real tokenizer (None, with a
+    warning, without one); a positive integer is the synthetic subset of
+    that size; unset or 0 keeps the full vocabulary."""
+    vs = str(vocab_slice or os.environ.get("WJAV_VOCAB_SLICE", ""))
     if vs == "ja":
         keep = ja_text_ids(tokenizer, config)
         if keep is None:

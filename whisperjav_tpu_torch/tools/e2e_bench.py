@@ -50,6 +50,12 @@ SR = 16000
 # the batch-trace phases (pipelines/engine.py), the JAX tool's tuple
 BATCH_PHASES = ("upload_s", "encode_s", "dispatch_s", "ahead_s", "drain_s",
                 "ladder_s", "extract_s")
+# measurement provenance: the environment variables the port reads that
+# change what a recorded number means (the JAX tool's, bar the gate
+# injection the port does not read, and the port's batch trace)
+PROVENANCE_KEYS = ("WJAV_TRACE_BATCHES", "WJAV_DEFER_RETRY",
+                   "WJAV_ALIGN_DEVICE", "WJAV_LADDER_RUNGS",
+                   "WJAV_DECODE_AHEAD", "WJAV_QWEN_INT8")
 # the engine's first log line names its device
 _ENGINE_LINE = re.compile(r"engine (\S+) on (.+)$")
 
@@ -279,6 +285,16 @@ def run_serve(wav: Path, mode: str, model: str | None,
             proc.kill()
 
 
+def provenance(extra) -> dict:
+    """The variables of :data:`PROVENANCE_KEYS` that are set, with their
+    values, and ``path`` "daemon" when the CLI's ``extra`` arguments send
+    it to the resident engine."""
+    prov = {k: os.environ[k] for k in PROVENANCE_KEYS if k in os.environ}
+    if "--daemon" in extra:
+        prov["path"] = "daemon"
+    return prov
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--minutes", type=float, default=30.0,
@@ -373,14 +389,7 @@ def main(argv=None) -> int:
         "windows": stats.get("windows"),
         "device": device,
     }
-    # measurement provenance: the environment variables the port reads
-    # that change what this number records
-    prov = {k: os.environ[k] for k in
-            ("WJAV_TRACE_BATCHES", "WJAV_DEFER_RETRY", "WJAV_LADDER_RUNGS",
-             "WJAV_DECODE_AHEAD")
-            if k in os.environ}
-    if "--daemon" in args.extra:
-        prov["path"] = "daemon"
+    prov = provenance(args.extra)
     if prov:
         result["env"] = prov
     trace = stats.get("batch_trace")

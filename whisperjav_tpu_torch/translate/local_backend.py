@@ -12,6 +12,7 @@ keeps the JAX CLI's name, ``tpu-local``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -67,7 +68,9 @@ class LocalLMBackend:
                         self.device)
         if not isinstance(params, QwenASR):
             params = params_from_jax(params, cfg)
-        self.model = fuse_lm_qkv(params.to(self.device))
+        self.model = params.to(self.device)
+        if os.environ.get("WJAV_FUSE_QKV", "1") != "0":
+            self.model = fuse_lm_qkv(self.model)
         self.cfg = self.model.config
         if tokenizer is None and checkpoint is not None:
             from whisperjav_tpu_torch.models.qwen.tokenizer import (
