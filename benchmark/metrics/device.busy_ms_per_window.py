@@ -1,0 +1,17 @@
+"""Device milliseconds a window: the union of the device's activity
+intervals over the windows the stretch decoded. The device's share of
+``audio_rtf``, without the host's time: steadier from run to run than
+the walls the host sets."""
+
+LAYER = "device"
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "device_trace"
+MOVES = "audio_rtf"
+
+
+def read(stretch):
+    rows = sum(b["rows"] for b in stretch.batches)
+    if not stretch.spans or not rows:
+        return None
+    return 1e3 * stretch.busy_s() / rows

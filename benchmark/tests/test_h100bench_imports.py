@@ -1,0 +1,46 @@
+"""Nothing the benchmark runs imports JAX or the JAX package, and the
+reference imports nothing of the port either (whole top-level module
+names: the port's name begins with the JAX package's)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+BENCH = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "whisperjav_tpu", "bench"}
+SOURCES = sorted(p for p in BENCH.rglob("*.py") if "tests" not in p.parts)
+
+
+def top_level_imports(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_sources_found():
+    assert BENCH / "run.py" in SOURCES
+    assert BENCH / "reference" / "whisper.py" in SOURCES
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(
+    BENCH)))
+def test_no_jax(path):
+    assert not top_level_imports(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
+                         ids=lambda p: p.name)
+def test_reference_is_plain(path):
+    assert top_level_imports(path) <= {"__future__", "typing", "numpy",
+                                       "torch"}
+
+
+def test_the_port_is_not_the_jax_package():
+    names = top_level_imports(BENCH / "h100bench" / "harness.py")
+    assert "whisperjav_tpu_torch" in names
+    assert "whisperjav_tpu" not in names
