@@ -93,6 +93,10 @@ def test_e2e_bench_cli_line(tmp_path):
     assert line["env"] == {"WJAV_TRACE_BATCHES": "1"}
     assert set(line["batch_phase_s"]) == set(te2e.BATCH_PHASES)
     assert len(line["rungs_each"]) == len(line["batch_s_each"]) >= 1
+    # the engine's spans: host seconds by name, and the drained tokens
+    assert {"engine.batch", "engine.decode", "decode.loop", "decode.step",
+            "decode.stop_check"} <= set(line["span_self_s"])
+    assert isinstance(line["tokens"], int) and line["tokens"] > 0
     assert line["audio_s"] == 30.0 and line["windows"] >= 1
 
 

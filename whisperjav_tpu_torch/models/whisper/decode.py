@@ -7,6 +7,16 @@ fixed-shape tensors (the whole batch in lockstep, finished rows frozen),
 which reads one flag back from the device per step to decide whether to
 go on.
 
+Under a span the engine entered (``WJAV_TRACE_BATCHES=1``, see
+``utils/tracer.py``) each loop records ``decode.loop`` (counters
+``steps``, the iterations run, and ``rows``) with the children
+``decode.prefill``, one ``decode.step`` an iteration and
+``decode.finalize``; each step has the children ``decode.rules`` (logit
+rules, log-softmax), ``decode.select`` (the token choice and the state
+it updates; for beams the pool and the cache reorder),
+``decode.forward`` (``decode_step``'s enqueue) and ``decode.stop_check``
+(the wait for the flag). Untraced, a phase costs one ``is None`` check.
+
 Sampling is ``argmax(logits + T * gumbel)``, so temperature 0 is exact
 greedy. The gumbel noise comes from a ``torch.Generator``; a ``gumbel``
 callable may supply it instead (tests feed it the noise the JAX package
@@ -32,6 +42,7 @@ from whisperjav_tpu_torch.models.whisper.tokenizer import (
 from whisperjav_tpu_torch.models.whisper.model import (
     KVCache, Whisper, decode_step, precompute_cross_kv,
 )
+from whisperjav_tpu_torch.utils import tracer
 
 _BLANK_TOKEN = 220  # GPT-2 BPE " " token; suppressed at the first step
 _NEG = float("-inf")
@@ -252,6 +263,7 @@ def decode_greedy(
     config = model.config
     b = xa.shape[0]
     dev = xa.device
+    loop = tracer.child(tracer.current(), "decode.loop")
     tokens, prompt_len, cross, cache, cur_logits, sot_logits = _prefill(
         model, xa, options, prompt, b)
     max_new = options.max_new_tokens
@@ -275,13 +287,20 @@ def decode_greedy(
                           device=dev),
         seen=torch.zeros((b, config.n_vocab), dtype=torch.bool,
                          device=dev))
+    if loop is not None:
+        loop.lap("decode.prefill")
 
     steps = max_new if stop_at is None else min(stop_at, max_new)
     step = 0
-    while step < steps and not bool(finished.all()):
+    while step < steps:
+        if loop is not None:
+            span = loop.child("decode.step")
         rules.step = step
         logits = _apply_logit_rules(cur_logits, rules, config, options,
                                     static_mask, prompt_len)
+        lp = torch.log_softmax(logits, dim=-1)
+        if loop is not None:
+            span.lap("decode.rules")
         if sample:
             noise = (gumbel(step) if gumbel is not None
                      else draw_gumbel(generator, logits.shape, dev))
@@ -290,7 +309,6 @@ def decode_greedy(
             token = torch.argmax(logits, dim=-1)
         token = torch.where(finished, config.eot, token)
 
-        lp = torch.log_softmax(logits, dim=-1)
         tok_lp = lp.gather(1, token[:, None])[:, 0]
         sum_lp = sum_lp + torch.where(finished, 0.0, tok_lp)
         is_eot = token == config.eot
@@ -306,14 +324,28 @@ def decode_greedy(
             torch.where(finished, rules.last_was_ts, is_ts),
             torch.where(finished, rules.penult_was_ts, rules.last_was_ts))
         finished = finished | is_eot
+        if loop is not None:
+            span.lap("decode.select")
 
         next_logits, cache = decode_step(model, token[:, None], pos, cache,
                                          cross)
         cur_logits = next_logits[:, 0]
+        if loop is not None:
+            span.lap("decode.forward")
         step += 1
+        stop = step < steps and bool(finished.all())
+        if loop is not None:
+            span.lap("decode.stop_check")
+            span.close()
+        if stop:
+            break
 
-    return _finalize(tokens, prompt_len, max_new, length, sum_lp,
-                     no_speech_prob, config.eot)
+    result = _finalize(tokens, prompt_len, max_new, length, sum_lp,
+                       no_speech_prob, config.eot)
+    if loop is not None:
+        loop.lap("decode.finalize")
+        loop.close(steps=step, rows=b)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +391,7 @@ def decode_beam(
     bk = b * k
     v = config.n_vocab
     dev = xa.device
+    loop = tracer.child(tracer.current(), "decode.loop")
     max_new = options.max_new_tokens
     n_fin = max(k, int(math.ceil(k * options.patience)))
     if os.environ.get("WJAV_BEAM_SHARED_CROSS", "1") == "0":
@@ -388,13 +421,19 @@ def decode_beam(
     pool_sum_lp = torch.zeros((b, n_fin), device=dev)
     pool_len = torch.zeros((b, n_fin), dtype=torch.long, device=dev)
     row_base = (torch.arange(b, device=dev) * k)[:, None]
+    if loop is not None:
+        loop.lap("decode.prefill")
 
     step = 0
-    while step < max_new and not bool((pool_score > -1e29).all()):
+    while step < max_new:
+        if loop is not None:
+            span = loop.child("decode.step")
         rules.step = step
         logits = _apply_logit_rules(cur_logits, rules, config, options,
                                     static_mask, prompt_len)
         lp = torch.log_softmax(logits, dim=-1)                 # (B*k, V)
+        if loop is not None:
+            span.lap("decode.rules")
         total = cum_lp.reshape(bk, 1) + lp
 
         # top 2k candidates per row: each source beam gives at most one
@@ -447,11 +486,21 @@ def decode_beam(
             max_ts=torch.where(is_ts, torch.maximum(max_ts, tok_flat),
                                max_ts),
             seen=seen)
+        if loop is not None:
+            span.lap("decode.select")
 
         next_logits, cache = decode_step(model, tok_flat[:, None], pos,
                                          cache, cross)
         cur_logits = next_logits[:, 0]
+        if loop is not None:
+            span.lap("decode.forward")
         step += 1
+        stop = step < max_new and bool((pool_score > -1e29).all())
+        if loop is not None:
+            span.lap("decode.stop_check")
+            span.close()
+        if stop:
+            break
 
     # winner: best pooled hypothesis, else the best live beam
     best_pool = pool_score.argmax(dim=1)                       # (B,)
@@ -470,8 +519,12 @@ def decode_beam(
     tokens = torch.where(pool_has[:, None], pool_tok, live_tok)
     sum_lp = torch.where(pool_has, pool_sum, live_sum)
     length = torch.where(pool_has, pool_l, live_len)
-    return _finalize(tokens, prompt_len, max_new, length, sum_lp,
-                     no_speech_prob, config.eot)
+    result = _finalize(tokens, prompt_len, max_new, length, sum_lp,
+                       no_speech_prob, config.eot)
+    if loop is not None:
+        loop.lap("decode.finalize")
+        loop.close(steps=step, rows=bk)
+    return result
 
 
 # ---------------------------------------------------------------------------

@@ -53,23 +53,27 @@ before int8 quantisation (so the int8 lm head is built at subset size),
 decoding runs in subset ids, and emitted tokens map back to full-vocab
 ids on the device.
 
-``WJAV_TRACE_BATCHES=1`` records one row per batch in ``batch_trace``
-with the JAX engine's host walls (no device sync is added): ``upload_s``
-(this batch's upload), ``encode_s`` (its encode's enqueue, when not
-encoded ahead), ``dispatch_s`` (the first rung's host loop), ``ahead_s``
-(the next batch's encode enqueue), ``drain_s`` (the wait for the first
-rung's results), ``ladder_s``, ``extract_s``, and one row for the
-deferred retries; the file pipeline copies it into its stats.
+``WJAV_TRACE_BATCHES=1``: each :meth:`transcribe_windows` call records
+host spans in a recorder (``recorder``, ``utils/tracer.py``), adding no
+device sync: ``engine.batch`` a batch over its ``engine.upload``,
+``engine.encode``, ``engine.decode`` (the decode loop's spans below it),
+``engine.drain``, ``engine.ladder``, ``engine.extract`` and
+``engine.align``, then ``engine.retry``. ``batch_trace`` is their view in
+the JAX engine's rows, a wall the length of its spans: ``upload_s``,
+``encode_s`` (when not encoded ahead), ``dispatch_s`` (the first rung's
+host loop), ``ahead_s`` (the next batch's encode), ``drain_s``,
+``ladder_s``, ``extract_s``, ``batch_s``, and a row for the deferred
+retries; the file pipeline copies it into its stats.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import contextvars
 import copy
 import dataclasses
 import os
-import time
 import zlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -98,6 +102,7 @@ from whisperjav_tpu_torch.parallel.batching import (
     Window, WindowBatch, batch_windows,
 )
 from whisperjav_tpu_torch.parallel.mesh import Mesh
+from whisperjav_tpu_torch.utils import tracer
 
 
 @dataclass
@@ -114,6 +119,11 @@ class QualityThresholds:
 # the smallest bucket that covers its longest window.
 CROSS_KV_BUCKETS = (448, 960, 1500)
 FRAMES_PER_SECOND = 50   # whisper encoder frames
+# batch_trace's walls (the JAX engine's keys) and the spans each sums
+_BATCH_WALLS = {"upload_s": "engine.upload", "encode_s": "engine.encode",
+                "dispatch_s": "engine.decode", "ahead_s": "engine.encode",
+                "drain_s": "engine.drain", "ladder_s": "engine.ladder",
+                "extract_s": "engine.extract"}
 
 
 def device_label(device) -> str:
@@ -302,6 +312,7 @@ class TranscriptionEngine:
                 sub_ids=(None if self._sub_ids is None
                          else self._sub_ids.to(dev))))
         self._pool = None
+        self.recorder: Optional[tracer.SpanRecorder] = None
         for shard in self._shards:
             if shard.device.type == "cuda":
                 # the prepared weights are whole before another stream
@@ -345,10 +356,13 @@ class TranscriptionEngine:
                 len(self._shards), thread_name_prefix="wjt-shard")
 
         def run(k):
+            tracer.set_shard(k)
             with self._on(self._shards[k]):
                 return fn(k, self._shards[k])
 
-        futures = [self._pool.submit(run, k)
+        # each thread in a copy of the caller's context: its spans open
+        # under the caller's
+        futures = [self._pool.submit(contextvars.copy_context().run, run, k)
                    for k in range(len(self._shards))]
         concurrent.futures.wait(futures)
         return [f.result() for f in futures]
@@ -559,7 +573,7 @@ class TranscriptionEngine:
     def transcribe_batch(self, batch: WindowBatch, seed: int = 0,
                          device_audio=None, device_xa=None,
                          on_decode_dispatched=None,
-                         trace: Optional[dict] = None,
+                         trace: Optional[tracer.Span] = None,
                          defer_pool: Optional[list] = None,
                          ) -> List[Optional[List[DecodedSegment]]]:
         """Decode one padded batch with the temperature ladder: segment
@@ -571,26 +585,26 @@ class TranscriptionEngine:
         ``on_decode_dispatched``: called with no argument after the first
         rung's decode and before its results are drained;
         :meth:`transcribe_windows` enqueues the next batch's encode there.
+        ``trace``: the batch's ``engine.batch`` span, under which its
+        phases are recorded (None: untraced).
         """
-        t0 = time.perf_counter()
-        max_dur = max((w.duration for w in batch.windows), default=30.0)
-        xa = (device_xa if device_xa is not None
-              else self.encode_batch(batch.audio, device_audio=device_audio,
-                                     max_duration=max_dur))
-        t_enc = time.perf_counter()
-        result = self.decode_encoded(xa, self.thresholds.temperatures[0],
-                                     seed)
-        t_disp = time.perf_counter()
+        xa = device_xa
+        if xa is None:
+            with tracer.span(trace, "engine.encode"):
+                xa = self.encode_batch(
+                    batch.audio, device_audio=device_audio,
+                    max_duration=max((w.duration for w in batch.windows),
+                                     default=30.0))
+        with tracer.span(trace, "engine.decode"):
+            result = self.decode_encoded(xa, self.thresholds.temperatures[0],
+                                         seed)
         if on_decode_dispatched is not None:
             on_decode_dispatched()
-        if trace is not None:
-            trace.update(encode_s=t_enc - t0, dispatch_s=t_disp - t_enc,
-                         ahead_s=time.perf_counter() - t_disp)
         return self.finish_batch(batch, xa, result, seed, trace=trace,
                                  defer_pool=defer_pool)
 
     def finish_batch(self, batch: WindowBatch, xa, result: DecodeResult,
-                     seed: int = 0, trace: Optional[dict] = None,
+                     seed: int = 0, trace: Optional[tracer.Span] = None,
                      defer_pool: Optional[list] = None,
                      ) -> List[Optional[List[DecodedSegment]]]:
         """Drain a first-rung decode, run the ladder on the rows that
@@ -604,19 +618,19 @@ class TranscriptionEngine:
         it, each rung re-decodes the batch and a failed row adopts the
         retry if its avg logprob improved; the ladder stops at a rung that
         improves nothing or raises the mean logprob by less than 0.02.
-        ``trace`` receives the drain's wall, the rungs run and the
-        ladder's and extraction's walls.
+        ``trace`` (the batch's ``engine.batch`` span) receives the drain,
+        ladder, extraction and alignment spans and the batch's counters.
         """
         temps = self.thresholds.temperatures
-        t_drain0 = time.perf_counter()
-        host = to_host(result)
+        with tracer.span(trace, "engine.drain"):
+            host = to_host(result)
         tokens = np.array(host.tokens)            # writable host copies
         avg_lp = np.array(host.avg_logprob)
         no_speech = np.array(host.no_speech_prob)
         if trace is not None:
-            trace.update(drain_s=time.perf_counter() - t_drain0,
-                         bucket=int(xa.shape[1]), rows=int(xa.shape[0]),
-                         rungs=1)
+            trace.counters.update(bucket=int(xa.shape[1]),
+                                  rows=int(xa.shape[0]), rungs=1,
+                                  tokens=int(host.length.sum()))
 
         def failed_rows() -> list:
             return [b for b in range(batch.n_valid)
@@ -625,46 +639,47 @@ class TranscriptionEngine:
 
         prev_mean = (float(np.mean(avg_lp[:batch.n_valid]))
                      if batch.n_valid else 0.0)
-        t_ladder0 = time.perf_counter()
         deferred_rows: set = set()
-        if defer_pool is not None and len(temps) > 1:
-            for b in failed_rows():
-                defer_pool.append({"window": batch.windows[b],
-                                   "tokens": np.array(tokens[b]),
-                                   "avg_lp": float(avg_lp[b]),
-                                   "no_speech": float(no_speech[b])})
-                deferred_rows.add(b)
-            temps = temps[:1]
-        for t_i, temp in enumerate(temps[1:], start=1):
-            failed = failed_rows()
-            if not failed:
-                break
-            logger.debug("temperature fallback t=%.1f for %d/%d rows",
-                         temp, len(failed), batch.n_valid)
-            retry = to_host(self.decode_encoded(xa, temp, seed + t_i))
-            improved = False
-            for b in failed:
-                if retry.avg_logprob[b] > avg_lp[b]:
-                    tokens[b] = retry.tokens[b]
-                    avg_lp[b] = retry.avg_logprob[b]
-                    improved = True
-            mean_now = float(np.mean(avg_lp[:batch.n_valid]))
-            if trace is not None:
-                trace["rungs"] = t_i + 1
-            if not improved or mean_now < prev_mean + 0.02:
-                break
-            prev_mean = mean_now
-        t_extract0 = time.perf_counter()
+        with tracer.span(trace, "engine.ladder") as ladder:
+            if defer_pool is not None and len(temps) > 1:
+                for b in failed_rows():
+                    defer_pool.append({"window": batch.windows[b],
+                                       "tokens": np.array(tokens[b]),
+                                       "avg_lp": float(avg_lp[b]),
+                                       "no_speech": float(no_speech[b])})
+                    deferred_rows.add(b)
+                temps = temps[:1]
+            for t_i, temp in enumerate(temps[1:], start=1):
+                failed = failed_rows()
+                if not failed:
+                    break
+                logger.debug("temperature fallback t=%.1f for %d/%d rows",
+                             temp, len(failed), batch.n_valid)
+                with tracer.span(ladder, "engine.decode"):
+                    retry = self.decode_encoded(xa, temp, seed + t_i)
+                with tracer.span(ladder, "engine.drain"):
+                    retry = to_host(retry)
+                improved = False
+                for b in failed:
+                    if retry.avg_logprob[b] > avg_lp[b]:
+                        tokens[b] = retry.tokens[b]
+                        avg_lp[b] = retry.avg_logprob[b]
+                        improved = True
+                mean_now = float(np.mean(avg_lp[:batch.n_valid]))
+                if trace is not None:
+                    trace.counters["rungs"] = t_i + 1
+                if not improved or mean_now < prev_mean + 0.02:
+                    break
+                prev_mean = mean_now
 
-        out = [None if b in deferred_rows
-               else self._segments(batch.windows[b], tokens[b], avg_lp[b],
-                                   no_speech[b])
-               for b in range(batch.n_valid)]
-        if trace is not None:
-            trace["ladder_s"] = t_extract0 - t_ladder0
-            trace["extract_s"] = time.perf_counter() - t_extract0
+        with tracer.span(trace, "engine.extract"):
+            out = [None if b in deferred_rows
+                   else self._segments(batch.windows[b], tokens[b],
+                                       avg_lp[b], no_speech[b])
+                   for b in range(batch.n_valid)]
         if self.word_timestamps:
-            self._refine_with_word_alignment(xa, tokens, batch, out)
+            with tracer.span(trace, "engine.align"):
+                self._refine_with_word_alignment(xa, tokens, batch, out)
         return out
 
     def _refine_with_word_alignment(self, xa, tokens, batch, out) -> None:
@@ -706,15 +721,15 @@ class TranscriptionEngine:
                 if abs(new_end - seg.end) <= 0.5:
                     seg.end = max(new_end, seg.start + 0.05)
 
-    def _retry_deferred(self, pool: list, seed: int, trace: bool = False,
+    def _retry_deferred(self, pool: list, seed: int,
                         ) -> List[Tuple[Window, List[DecodedSegment]]]:
         """Run the ladder over the file's deferred rows: each rung
         re-encodes the still-failing rows in packed batches and decodes
         them at ``temperatures[t_i]``; a row adopts a retry that improves
         its avg logprob and leaves once it passes the gates; the ladder
-        stops at a rung that improves nothing. With ``trace``, one row
-        (rows, rungs, wall) goes to ``batch_trace``."""
-        t0 = time.perf_counter()
+        stops at a rung that improves nothing. Traced, one
+        ``engine.retry`` span, whose row goes to ``batch_trace``."""
+        retry = tracer.child(self.recorder, "engine.retry", "retry")
         active = list(pool)
         rungs_run = 0
         for t_i, temp in enumerate(self.thresholds.temperatures[1:],
@@ -728,9 +743,12 @@ class TranscriptionEngine:
                                     self.batch_size):
                 max_dur = max((w.duration for w in rb.windows),
                               default=30.0)
-                xa = self.encode_batch(rb.audio, max_duration=max_dur)
-                res = to_host(self.decode_encoded(xa, temp,
-                                                  seed + 7919 * t_i))
+                with tracer.span(retry, "engine.encode", f"retry:{t_i}"):
+                    xa = self.encode_batch(rb.audio, max_duration=max_dur)
+                with tracer.span(retry, "engine.decode", f"retry:{t_i}"):
+                    res = self.decode_encoded(xa, temp, seed + 7919 * t_i)
+                with tracer.span(retry, "engine.drain", f"retry:{t_i}"):
+                    res = to_host(res)
                 for b in range(rb.n_valid):
                     rec = by_id[id(rb.windows[b])]
                     if res.avg_logprob[b] > rec["avg_lp"]:
@@ -743,14 +761,16 @@ class TranscriptionEngine:
                                                   rec["no_speech"])]
             if not improved_any:
                 break
-        out = [(rec["window"],
-                self._segments(rec["window"], rec["tokens"], rec["avg_lp"],
-                               rec["no_speech"]))
-               for rec in pool]
+        with tracer.span(retry, "engine.extract"):
+            out = [(rec["window"],
+                    self._segments(rec["window"], rec["tokens"],
+                                   rec["avg_lp"], rec["no_speech"]))
+                   for rec in pool]
         if self.word_timestamps and any(segs for _, segs in out):
             # one alignment pass per retry batch over freshly encoded
             # states; rows padded to one length with EOT (the pass ignores
             # a row past its EOT)
+            align = tracer.child(retry, "engine.align")
             recs = {id(rec["window"]): rec for rec in pool}
             segs_by_id = {id(w): segs for w, segs in out}
             for rb in batch_windows([rec["window"] for rec in pool],
@@ -766,14 +786,37 @@ class TranscriptionEngine:
                     tok[b, :len(row)] = row
                 self._refine_with_word_alignment(
                     xa, tok, rb, [segs_by_id[id(w)] for w in rb.windows])
-        wall = time.perf_counter() - t0
-        logger.info("deferred retry: %d row(s), %d rung(s), %.1fs",
-                    len(pool), rungs_run, wall)
-        if trace:
+            if align is not None:
+                align.close()
+        logger.info("deferred retry: %d row(s), %d rung(s)", len(pool),
+                    rungs_run)
+        if retry is not None:
+            retry.close(retry_rows=len(pool), rungs=rungs_run + 1)
             self.batch_trace.append({"retry_rows": len(pool),
                                      "rungs": rungs_run + 1,
-                                     "ladder_s": wall, "batch_s": wall})
+                                     "ladder_s": retry.seconds,
+                                     "batch_s": retry.seconds})
         return out
+
+    def _trace_batch(self, batch: WindowBatch, root: tracer.Span,
+                     n_batches: int) -> None:
+        """Append and log the ``batch_trace`` row of the batch ``root``
+        closed. A wall sums its spans of the batch under ``root``;
+        ``ahead_s`` the next batch's encode under ``root``, ``upload_s``
+        the batch's own upload wherever it ran."""
+        row = {key: sum((s.seconds for s in self.recorder.spans
+                         if s.name == name
+                         and (s.batch == root.batch) != (key == "ahead_s")
+                         and (key == "upload_s" or s.parent is root)), 0.0)
+               for key, name in _BATCH_WALLS.items()}
+        c = root.counters
+        row.update(batch_s=root.seconds,
+                   audio_s=round(sum(w.duration for w in batch.windows), 1),
+                   rungs=c["rungs"], bucket=c["bucket"], rows=c["rows"])
+        self.batch_trace.append(row)
+        logger.info("batch %d/%d: %s", root.batch + 1, n_batches, " ".join(
+            f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in row.items()))
 
     # ------------------------------------------------------------------
     def _decode_ahead_bytes(self) -> int:
@@ -820,98 +863,81 @@ class TranscriptionEngine:
         batch i, upload batch i+1, then finish batch i-1. A single batch
         runs as it would without them."""
         ahead_on = os.environ.get("WJAV_ENCODE_AHEAD", "1") != "0"
-        trace_on = os.environ.get("WJAV_TRACE_BATCHES", "0") != "0"
         defer_on = (os.environ.get("WJAV_DEFER_RETRY", "1") != "0"
                     and len(self.thresholds.temperatures) > 1)
         pool: Optional[list] = [] if defer_on else None
+        rec = self.recorder = (
+            tracer.SpanRecorder()
+            if os.environ.get("WJAV_TRACE_BATCHES", "0") != "0" else None)
         self.batch_trace: List[dict] = []
         results: List[Tuple[Window, List[DecodedSegment]]] = []
         batches = list(batch_windows(windows, self.batch_size))
-        t_up0 = time.perf_counter()
-        dev = self.upload_audio(batches[0].audio) if batches else None
-        # a row's upload_s is its own audio's upload: batch 0's here,
-        # each later one's enqueued during the batch before it
-        pending_upload_s = time.perf_counter() - t_up0
 
-        def record(batch, segs, trace, t_b0, bi) -> None:
-            if trace is not None:
-                trace["batch_s"] = time.perf_counter() - t_b0
-                trace["audio_s"] = round(
-                    sum(w.duration for w in batch.windows), 1)
-                self.batch_trace.append(trace)
-                logger.info(
-                    "batch %d/%d: %.1fs (upload %.2f enc %.2f disp %.2f "
-                    "ahead %.2f drain %.2f ladder %.2f extract %.2f) "
-                    "rungs=%d bucket=%d rows=%d audio=%.0fs",
-                    bi + 1, len(batches), trace["batch_s"],
-                    trace["upload_s"], trace["encode_s"],
-                    trace["dispatch_s"], trace["ahead_s"], trace["drain_s"],
-                    trace["ladder_s"], trace["extract_s"], trace["rungs"],
-                    trace["bucket"], trace["rows"], trace["audio_s"])
+        def longest(bi: int) -> float:
+            return max((w.duration for w in batches[bi].windows),
+                       default=30.0)
+
+        def upload(bi: int, under):
+            """Batch bi's audio on the devices (None past the last)."""
+            if bi == len(batches):
+                return None
+            with tracer.span(under, "engine.upload", bi):
+                return self.upload_audio(batches[bi].audio)
+
+        def record(batch, segs, root) -> None:
+            if root is not None:
+                root.close()
+                self._trace_batch(batch, root, len(batches))
             results.extend((w, s) for w, s in zip(batch.windows, segs)
                            if s is not None)
 
-        def finish(batch, xa, result, seed_i, trace, t_b0, bi) -> None:
+        def finish(batch, xa, result, seed_i, root) -> None:
             record(batch, self.finish_batch(batch, xa, result, seed_i,
-                                            trace=trace, defer_pool=pool),
-                   trace, t_b0, bi)
+                                            trace=root, defer_pool=pool),
+                   root)
 
+        # batch 0's upload, before any batch; each later one's during the
+        # batch before it
+        dev = upload(0, rec) if batches else None
         if ahead_on and len(batches) > 1 and self._decode_ahead_enabled():
-            prev = None     # (batch, xa, result, seed, trace, t_b0, bi)
+            prev = None     # (batch, xa, result, seed, root)
             for bi, batch in enumerate(batches):
-                t_b0 = time.perf_counter()
-                trace = {} if trace_on else None
-                max_dur = max((w.duration for w in batch.windows),
-                              default=30.0)
-                xa = self.encode_batch(batch.audio, device_audio=dev,
-                                       max_duration=max_dur)
-                t_enc = time.perf_counter()
-                result = self.decode_encoded(
-                    xa, self.thresholds.temperatures[0], seed + bi * 131)
-                t_disp = time.perf_counter()
-                nxt = (self.upload_audio(batches[bi + 1].audio)
-                       if bi + 1 < len(batches) else None)
-                t_upload = time.perf_counter() - t_disp
-                if trace is not None:
-                    trace.update(upload_s=pending_upload_s,
-                                 encode_s=t_enc - t_b0,
-                                 dispatch_s=t_disp - t_enc, ahead_s=0.0)
+                root = tracer.child(rec, "engine.batch", bi)
+                with tracer.span(root, "engine.encode"):
+                    xa = self.encode_batch(batch.audio, device_audio=dev,
+                                           max_duration=longest(bi))
+                with tracer.span(root, "engine.decode"):
+                    result = self.decode_encoded(
+                        xa, self.thresholds.temperatures[0], seed + bi * 131)
+                dev = upload(bi + 1, root)
                 if prev is not None:
                     finish(*prev)
-                prev = (batch, xa, result, seed + bi * 131, trace, t_b0, bi)
-                dev = nxt
-                pending_upload_s = t_upload
+                prev = (batch, xa, result, seed + bi * 131, root)
             finish(*prev)
         else:
             xa = None
             for bi, batch in enumerate(batches):
-                t_b0 = time.perf_counter()
-                nxt = (self.upload_audio(batches[bi + 1].audio)
-                       if bi + 1 < len(batches) else None)
-                t_upload = time.perf_counter() - t_b0
+                root = tracer.child(rec, "engine.batch", bi)
+                nxt = upload(bi + 1, root)
                 ahead: dict = {}
 
-                def encode_ahead(nxt=nxt, bi=bi, ahead=ahead) -> None:
+                def encode_ahead(nxt=nxt, bi=bi, ahead=ahead,
+                                 root=root) -> None:
                     if nxt is not None:
-                        ahead["xa"] = self.encode_batch(
-                            device_audio=nxt,
-                            max_duration=max((w.duration for w in
-                                              batches[bi + 1].windows),
-                                             default=30.0))
+                        with tracer.span(root, "engine.encode", bi + 1):
+                            ahead["xa"] = self.encode_batch(
+                                device_audio=nxt,
+                                max_duration=longest(bi + 1))
 
-                trace = {} if trace_on else None
                 segs = self.transcribe_batch(
                     batch, seed=seed + bi * 131, device_audio=dev,
                     device_xa=xa,
                     on_decode_dispatched=encode_ahead if ahead_on else None,
-                    trace=trace, defer_pool=pool)
-                if trace is not None:
-                    trace["upload_s"] = pending_upload_s
-                record(batch, segs, trace, t_b0, bi)
+                    trace=root, defer_pool=pool)
+                record(batch, segs, root)
                 dev = nxt
                 xa = ahead.get("xa")
-                pending_upload_s = t_upload
         if pool:
-            results.extend(self._retry_deferred(pool, seed, trace=trace_on))
+            results.extend(self._retry_deferred(pool, seed))
         results.sort(key=lambda p: (p[0].scene_idx, p[0].group_idx))
         return results

@@ -194,6 +194,14 @@ class TranscribePipeline:
             stats["batch_trace"] = [
                 {k: (round(v, 3) if isinstance(v, float) else v)
                  for k, v in t.items()} for t in trace]
+            # and the host seconds of each span name, with the tokens the
+            # batches' first rungs drained
+            rec = self.engine.recorder
+            stats["span_self_s"] = {k: round(v, 3) for k, v in
+                                    rec.self_seconds().items()}
+            stats["tokens"] = sum(s.counters.get("tokens", 0)
+                                  for s in rec.spans
+                                  if s.name == "engine.batch")
         stats.update({
             "segmentation_s": round(t_seg, 3),
             "asr_s": round(t_asr, 3),

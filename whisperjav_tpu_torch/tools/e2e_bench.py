@@ -16,8 +16,11 @@ realtime.) With ``WJAV_TRACE_BATCHES=1`` in the environment the child
 records its per-batch phase walls, summed here into ``batch_phase_s``
 (the JAX tool's phases: upload, encode, first-rung dispatch, the next
 batch's encode enqueue, drain, ladder, extract), with ``batch_s_each``
-and ``rungs_each``. ``env`` records the knobs the port reads that change
-what the number means (``WJAV_DEFER_RETRY``, ``WJAV_LADDER_RUNGS``,
+and ``rungs_each``, and from the engine's spans ``span_self_s`` (each
+span name's host seconds less its children's; ``pipelines/engine.py``
+and ``models/whisper/decode.py`` name them) and ``tokens`` (the first
+rungs' drained tokens). ``env`` records the knobs the port reads that
+change what the number means (``WJAV_DEFER_RETRY``, ``WJAV_LADDER_RUNGS``,
 ``WJAV_DECODE_AHEAD``, as the JAX tool, and ``WJAV_TRACE_BATCHES``).
 
 This parent process imports no torch; the child makes its own device
@@ -400,6 +403,8 @@ def main(argv=None) -> int:
         result["batch_s_each"] = [round(t.get("batch_s", 0.0), 1)
                                   for t in trace]
         result["rungs_each"] = [t.get("rungs") for t in trace]
+        result["span_self_s"] = stats.get("span_self_s", {})
+        result["tokens"] = stats.get("tokens")
     print(json.dumps(result), flush=True)
     if not args.keep:
         import shutil
