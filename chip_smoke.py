@@ -192,7 +192,9 @@ Phases, in order; any failure exits non-zero before the result line:
    one shard and over two shards of ``cuda:0`` (the engine's ``mesh``;
    two model replicas, a host thread and a stream a shard) on the turbo
    clip: SRTs and window diagnostics byte-identical, Kernel A called on
-   each shard's side stream and Kernel B's bf16 form on its stream, the
+   each shard's side stream and Kernel B's bf16 form on its stream (or
+   on the stream the decode step's graphs are captured on, their
+   replays counted as the launches they hold), the
    walls and peak memory printed; with a second card, the same over
    ``cuda:0`` and ``cuda:1`` and every kernel checked on ``cuda:1``;
 19. the ahead phase: the flagless turbo engine (``pipelines.factory``,
@@ -256,9 +258,8 @@ null elsewhere), and the launches on the large-v2 int8 path
 async run's, the ahead phase's and the switches phase's included). The kernels inside the fused blocks are timed by the profiler at
 the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
 holds an older version of the kernels (an unpacked earlier commit), it
-is built too, and Kernel A, Kernel B (f32 form, every case), the fused
-blocks and their inner kernels of both versions are timed in turns in
-this run (``v1_ms``).
+is built too, and Kernel A and Kernel B (f32 form, every case) of both
+versions are timed in turns in this run (``v1_ms``).
 """
 
 from __future__ import annotations
@@ -674,7 +675,10 @@ def _fused_case(name, fn, plain, args, label, iters=20):
     """Kernel vs plain version on one input: errors against one bf16 step
     at each output's largest magnitude, and device times of both."""
     outs = fn(**args)
-    refs = plain(**args)
+    # the plain version reads a device position on the host: give it the
+    # int, so that its timing waits for nothing
+    plain_args = {k: int(v) if k == "pos" else v for k, v in args.items()}
+    refs = plain(**plain_args)
     torch.cuda.synchronize()
     outs = outs if isinstance(outs, tuple) else (outs,)
     refs = refs if isinstance(refs, tuple) else (refs,)
@@ -691,7 +695,7 @@ def _fused_case(name, fn, plain, args, label, iters=20):
         max_err = max(max_err, err.max().item())
         mean_err = max(mean_err, err.mean().item())
     ms = device_ms(lambda: fn(**args), iters)
-    plain_ms = device_ms(lambda: plain(**args), max(iters // 4, 3))
+    plain_ms = device_ms(lambda: plain(**plain_args), max(iters // 4, 3))
     wall = call_ms(lambda: fn(**args), 5)
     log(f"{name} {label}: max_abs_err {max_err:.6g} mean_abs_err "
         f"{mean_err:.6g} (tol one bf16 step at max |out|); device "
@@ -710,12 +714,13 @@ GEMV_EPILOGUES = {"0": "LN -> wqkv, store with the k/v columns",
 LAUNCHES_PER_LAYER_STEP = 8
 
 
-def check_fused_blocks(dev, gen, v1_lib):
+def check_fused_blocks(dev, gen):
     """The three fused decode blocks against their plain versions at
     large-v2 widths (d=1280, H=20, L=32), layers 0 and 31; then, at the
     main shapes (self R=64 pos 100, cross B=32 g=2 T=1500, MLP R=64, layer
     31), the device time of every kernel inside them, their bounds and
-    plain versions, and the older version's times where it is built."""
+    plain versions. (The blocks are not timed beside an older version of
+    the kernels: the self block's position moved to device memory.)"""
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
     d, h = LV2_D, LV2_H
     ln = dict(ln_s=_bf16(gen, dev, LV2_L, d, base=1.0),
@@ -734,9 +739,11 @@ def check_fused_blocks(dev, gen, v1_lib):
         x = _bf16(gen, dev, rows, d, scale=1.0)
         for layer in (0, LV2_L - 1):
             for pos in (1, 100, SELF_T - 1):
+                # the position on the card, as the decode step keeps it
                 args = dict(x=x, **ln, wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo,
                             cache_k=cache[0], cache_v=cache[1], layer=layer,
-                            pos=pos, n_head=h)
+                            pos=torch.tensor([pos], dtype=torch.int32,
+                                             device=dev), n_head=h)
                 err, ms, plain_ms = _fused_case(
                     "self_block", fd.self_block, fd.self_block_plain, args,
                     f"R={rows} layer={layer} pos={pos}")
@@ -814,31 +821,18 @@ def check_fused_blocks(dev, gen, v1_lib):
     results.append(record(
         "mlp_block", src, f"{pallas}:265", worst, *timed[(64, LV2_L - 1)],
         bound(mlp_bytes, 2 * rows * 8 * d * d * 2, PEAK_BF16)))
-    results.extend(inner_kernels(main, selfw, (cwq, cwo), (w1, w2), v1_lib,
+    results.extend(inner_kernels(main, selfw, (cwq, cwo), (w1, w2),
                                  max(r["max_abs_err"] for r in results)))
-    if v1_lib is not None:
-        # each block at its main shape, this version and the older in turns
-        for rec, kind in zip(results[:3], ("self", "cross", "mlp")):
-            fn = getattr(fd, f"{kind}_block")
-            turns = {"kernel": [], "v1": []}
-            for turn in ("kernel", "v1", "v1", "kernel"):
-                with turn_kernels(turn, v1_lib):
-                    turns[turn].append(device_ms(lambda: fn(**main[kind]),
-                                                 iters=20))
-            rec["v1_ms"] = statistics.median(turns["v1"])
-            log(f"{rec['name']} at its main shape: "
-                f"{statistics.median(turns['kernel']):.4f} ms, older version "
-                f"{rec['v1_ms']:.4f} ms; turns {json.dumps(turns)}")
     del main, wqkv, wo, cwq, cwo, w1, w2
     torch.cuda.empty_cache()
     return results
 
 
-def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
+def inner_kernels(main, selfw, crossw, mlpw, block_err):
     """One decode layer-step of large-v2 at R=64 (the three blocks at
     their main shapes) under the profiler: the device time of each kernel
-    inside the blocks, beside its bound and its plain version; the older
-    version's where it is built. The step must launch exactly the
+    inside the blocks, beside its bound and its plain version. The step
+    must launch exactly the
     LAUNCHES_PER_LAYER_STEP kernels of this design. The inner kernels'
     outputs are checked through the blocks' (``block_err``, the blocks'
     worst error)."""
@@ -851,30 +845,17 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
         fd.cross_block(**ca)
         fd.mlp_block(**ma)
 
-    turns = {"kernel": [], "v1": []}
-    for turn in ("kernel", "v1", "v1", "kernel"):
-        if turn == "v1" and v1_lib is None:
-            continue
-        with turn_kernels(turn, v1_lib):
-            turns[turn].append(device_ms(step, iters=20))
+    turns = [device_ms(step, iters=20) for _ in range(2)]
     prof, counts = kernel_device_ms(step)
     if sum(counts.values()) != LAUNCHES_PER_LAYER_STEP:
         raise RuntimeError(f"a layer-step launched {counts}, not the "
                            f"{LAUNCHES_PER_LAYER_STEP} kernels of the design")
-    v1_prof = None
-    if v1_lib is not None:
-        with kernels_from(v1_lib):
-            v1_prof = kernel_device_ms(step)[0]
     log(f"large-v2 layer-step (self + cross + MLP, R=64, T=1500, pos 100): "
-        f"device {statistics.median(turns['kernel']):.4f} ms per step, "
-        f"{sum(counts.values())} launches"
-        + (f", older version {statistics.median(turns['v1']):.4f} ms"
-           if turns["v1"] else "") + f"; turns {json.dumps(turns)}")
-    for label, pr in (("kernels", prof), ("older version", v1_prof)):
-        if pr:
-            log(f"  {label} per layer-step (profiler): " + "; ".join(
-                f"{k} {v:.4f} ms" for k, v in sorted(pr.items(),
-                                                     key=lambda kv: -kv[1])))
+        f"device {statistics.median(turns):.4f} ms per step, "
+        f"{sum(counts.values())} launches; turns {json.dumps(turns)}")
+    log("  kernels per layer-step (profiler): " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in sorted(prof.items(),
+                                             key=lambda kv: -kv[1])))
 
     # the GEMVs' bytes: int8 weights, f32 scale and bf16 bias per column;
     # LN mode reads bf16 x and the LN parameters, the others bf16 terms
@@ -896,17 +877,11 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
         bnd = bound(sum(gemvs[epi]), 2 * flop[epi], PEAK_BF16)
         log(f"  qgemv_kernel<{epi}, 4> ({GEMV_EPILOGUES[epi]}, "
             f"{len(gemvs[epi])} a layer-step): {ms:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]})"
-            + (f", older version "
-               f"{v1_prof.get(f'qgemv_kernel<{epi}, 4>', 0.0):.4f} ms"
-               if v1_prof else ""))
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
     kb = sum(v for k, v in prof.items()
              if k.startswith("decode_cross_attention_kernel"))
     log(f"  Kernel B in the cross block (B=32, g=2, T=1500, terms form): "
-        f"{kb:.4f} ms" + (
-            f"; older version {v1_prof.get('decode_cross_attention_kernel<2>', 0.0):.4f}"
-            f" ms + its v_scale split "
-            f"{v1_prof.get('split_kernel', 0.0):.4f} ms" if v1_prof else ""))
+        f"{kb:.4f} ms")
 
     # plain versions of the inner kernels, on f32 inputs of the shapes
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -949,8 +924,6 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
     def library_self_attention():
         torch.nn.functional.scaled_dot_product_attention(q_lib, k_lib, v_lib)
 
-    v1 = v1_prof or {}
-    sum_v1 = lambda *names: sum(v1.get(n, 0.0) for n in names) or None  # noqa
     ln_epis = ("0", "3", "1")
     recs = [
         record("qgemv_ln", "whisperjav_tpu_torch/csrc/fused_decode.cu",
@@ -960,17 +933,13 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
                device_ms(plain_ln_gemvs, iters=10),
                bound(sum(sum(gemvs[e]) for e in ln_epis),
                      2 * sum(flop[e] for e in ln_epis), PEAK_BF16),
-               v1_ms=sum_v1(*(f"qgemv_kernel<{e}, 4>" for e in ln_epis),
-                            "ln_split_kernel"),
                per="the three LN-mode int8 GEMVs of one large-v2 "
-                   "layer-step (wqkv, cwq, w1), R=64; older version: the "
-                   "same GEMVs plus the three LN pre-passes they replace"),
+                   "layer-step (wqkv, cwq, w1), R=64"),
         record("qgemv", "whisperjav_tpu_torch/csrc/fused_decode.cu",
                "whisperjav_tpu/ops/pallas/fused_decode.py:166,248,323",
                block_err, prof.get("qgemv_kernel<2, 4>", 0.0),
                device_ms(plain_gemvs, iters=10),
                bound(sum(gemvs["2"]), 2 * flop["2"], PEAK_BF16),
-               v1_ms=sum_v1("qgemv_kernel<2, 4>"),
                per="the three residual int8 GEMVs of one large-v2 "
                    "layer-step (wo, cwo, w2), R=64"),
         record("self_attention", "whisperjav_tpu_torch/csrc/fused_decode.cu",
@@ -979,7 +948,6 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
                device_ms(plain_self_attention, iters=10),
                bound(2 * rows * pos * d * 2 + rows * 3 * d * 4
                      + 2 * rows * d * 2, 4 * rows * pos * d, PEAK_F32),
-               v1_ms=v1.get("self_attention_kernel"),
                library_ms=device_ms(library_self_attention, iters=10),
                library="scaled_dot_product_attention of the new query "
                        "over the cache slice up to pos and the new column "
@@ -989,8 +957,6 @@ def inner_kernels(main, selfw, crossw, mlpw, v1_lib, block_err):
         log(f"  {r['name']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
             + (f", library {r['library_ms']:.4f} ms" if r["library_ms"]
-               else "")
-            + (f", older version {r['v1_ms']:.4f} ms" if r.get("v1_ms")
                else ""))
     return recs
 
@@ -4309,26 +4275,42 @@ DEVICES_SPIED = ("encoder_attention", "decode_cross_attention_bf16")
 @contextlib.contextmanager
 def calls_by_stream():
     """Count the model's calls of Kernel A's and Kernel B's bf16 wrappers
-    by (name, device index, stream) of the caller; the wrappers launch
-    and count as they do."""
+    by (name, device index, stream) of the caller; besides, under
+    ("captured", name) the calls made inside a CUDA graph capture (they
+    launch at the graph's replays, not then), and under ("replayed",
+    name) the launches the replays of the decode step's graphs added.
+    The wrappers launch and count as they do."""
     from whisperjav_tpu_torch.models.whisper import model as wm
+    from whisperjav_tpu_torch.ops.cuda import _build
     seen: dict = {}
     origs = {name: getattr(wm, name) for name in DEVICES_SPIED}
+    count_replay = _build.count_replay
+
+    def add(key, n=1):
+        seen[key] = seen.get(key, 0) + n
 
     def spy(name, fn):
         def wrapped(*a, **k):
             stream = torch.cuda.current_stream()
-            key = (name, stream.device.index, stream.cuda_stream)
-            seen[key] = seen.get(key, 0) + 1
+            add((name, stream.device.index, stream.cuda_stream))
+            if getattr(_build._CAPTURING, "launches", None) is not None:
+                add(("captured", name))
             return fn(*a, **k)
         return wrapped
+
+    def replay(held):
+        for counter, n in held.values():
+            add(("replayed", counter.__name__), n)
+        count_replay(held)
     for name, fn in origs.items():
         setattr(wm, name, spy(name, fn))
+    _build.count_replay = replay
     try:
         yield seen
     finally:
         for name, fn in origs.items():
             setattr(wm, name, fn)
+        _build.count_replay = count_replay
 
 
 def devices_run(wav: Path, out: Path, dev, mesh, label: str) -> dict:
@@ -4336,6 +4318,7 @@ def devices_run(wav: Path, out: Path, dev, mesh, label: str) -> dict:
     card) through one file; the launch counts zeroed just before and read
     just after, and each kernel's calls by the shard that made them."""
     from whisperjav_tpu_torch.config.presets import resolve_pipeline_config
+    from whisperjav_tpu_torch.models.whisper import step_graph
     from whisperjav_tpu_torch.modules.media_discovery import probe
     from whisperjav_tpu_torch.pipelines.factory import build_pipeline
     torch.cuda.synchronize()
@@ -4355,23 +4338,34 @@ def devices_run(wav: Path, out: Path, dev, mesh, label: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     shards = []
     for shard in engine._shards:
-        # a shard encodes on its side stream and decodes on its stream
-        streams = {"encoder_attention": shard.side,
-                   "decode_cross_attention_bf16": (
+        # a shard encodes on its side stream and decodes on its stream,
+        # the decode step's graphs captured on the stream its model's
+        # graph cache keeps for that (and replayed on the shard's)
+        capture = [slot.side for slot in
+                   step_graph._SLOTS.get(shard.model, {}).values()
+                   if slot.side is not None]
+        streams = {"encoder_attention": [shard.side],
+                   "decode_cross_attention_bf16": [
                        shard.stream if shard.stream is not None
-                       else torch.cuda.current_stream(shard.device))}
-        shards.append({name: seen.get((name, streams[name].device.index,
-                                       streams[name].cuda_stream), 0)
+                       else torch.cuda.current_stream(shard.device),
+                       *capture]}
+        shards.append({name: sum(seen.get((name, st.device.index,
+                                           st.cuda_stream), 0)
+                                 for st in streams[name])
                        for name in DEVICES_SPIED})
     missing = [(k, name) for k, calls in enumerate(shards)
                for name, n in calls.items() if n < 1]
-    if missing or sum(sum(c.values()) for c in shards) != sum(seen.values()):
+    calls = sum(n for key, n in seen.items() if len(key) == 3)
+    if missing or sum(sum(c.values()) for c in shards) != calls:
         raise RuntimeError(f"devices {label}: kernels not called on every "
                            f"shard {missing}, calls {seen}")
+    # each call launches once, but a captured one, which launches at every
+    # replay of its graph
     if any(launches[name] != sum(c[name] for c in shards)
+           - seen.get(("captured", name), 0) + seen.get(("replayed", name), 0)
            for name in DEVICES_SPIED):
         raise RuntimeError(f"devices {label}: launch counts {launches} "
-                           f"against the shards' calls {shards}")
+                           f"against the shards' calls {shards}, {seen}")
     stats = result.metadata["stats"]
     log(f"devices {label} ({engine.mesh.size} shard(s) on "
         f"{[str(d) for d in engine.mesh.devices]}, B={engine.batch_size}): "
@@ -5396,7 +5390,7 @@ def main(argv=None) -> int:
         with phase("kernels"):
             kernels = [check_encoder_attention(dev, gen, v1_lib),
                        check_decode_attention(dev, gen, v1_lib),
-                       *check_fused_blocks(dev, gen, v1_lib)]
+                       *check_fused_blocks(dev, gen)]
             torch.cuda.empty_cache()
     if "reference" in only:
         with phase("reference"):

@@ -131,7 +131,8 @@ def test_steps_are_the_budget_with_eot_suppressed(monkeypatch):
     (loop,) = [s for s in spans if s.name == "decode.loop"]
     (root,) = [s for s in spans if s.name == "engine.batch"]
     budget = min(150, 448 // 4 + 32)
-    assert loop.counters == {"steps": budget, "rows": 2 * 2}
+    assert loop.counters == {"steps": budget, "rows": 2 * 2,
+                             "graph_steps": 0, "captures": 0}
     assert sum(s.parent is loop and s.name == "decode.step"
                for s in spans) == budget
     assert root.counters == {"bucket": 448, "rows": 2, "rungs": 1,
@@ -160,6 +161,21 @@ def test_greedy_rungs_and_the_retry_are_traced(monkeypatch, defer):
     else:
         assert not retry
         assert all(r["rungs"] == 2 for r in engine.batch_trace)
+
+
+def test_loops_count_graph_steps_and_captures(monkeypatch):
+    """Every loop, beam and greedy alike, carries ``graph_steps`` and
+    ``captures``: on the CPU each step's forward runs eagerly, so both
+    read 0 beside the steps run."""
+    spans = _traced(_engine(), monkeypatch)
+    loops = [s for s in spans if s.name == "decode.loop"]
+    assert {s.counters["rows"] for s in loops} == {2, 2 * 2}
+    for loop in loops:
+        assert set(loop.counters) == {"steps", "rows", "graph_steps",
+                                      "captures"}
+        assert loop.counters["steps"] > 0
+        assert loop.counters["graph_steps"] == 0
+        assert loop.counters["captures"] == 0
 
 
 @pytest.mark.parametrize("decode_ahead", ["0", "1"])

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of whisperjav_tpu/ops/pallas/fused_decode.py:
 //
-//   wjt_self_block  <- self_block_stacked:  LN -> fused-QKV int8 GEMV
+//   wjt_self_block_at <- self_block_stacked:  LN -> fused-QKV int8 GEMV
 //                      (per-channel scale, bias) -> per-head causal
 //                      attention over the (L, R, T, d) self cache (slots
 //                      >= pos masked, the new key's logit joined on) ->
@@ -620,13 +620,18 @@ __global__ void __launch_bounds__(kThreads, 2) qgemv_kernel(Gemv p) {
 // Decode-step self-attention of one (row, head) over the cache slots
 // t < pos plus the new key, whose logit and value come from the f32 qkv;
 // the output goes out as bf16 hi/lo terms, the out-projection's input.
+// `pos` is read from device memory, so that one launch (captured in a
+// CUDA graph) serves every step; the logits' shared memory is sized by
+// t_cache, the loops still run to pos.
 __global__ void __launch_bounds__(kAttnThreads)
 self_attention_kernel(const float* __restrict__ qkv,
                       const bf16* __restrict__ ck,
                       const bf16* __restrict__ cv, bf16* __restrict__ out_hi,
                       bf16* __restrict__ out_lo, int d, int n_head,
-                      int t_cache, int pos, float scale) {
-  extern __shared__ float p_s[];          // [pos] logits, then exp
+                      int t_cache, const int* __restrict__ pos_ptr,
+                      float scale) {
+  extern __shared__ float p_s[];          // [t_cache] logits, then exp
+  const int pos = min(max(*pos_ptr, 0), t_cache - 1);
   __shared__ float q_s[kHd];
   __shared__ float red_s[kAttnWarps][kHd];
   __shared__ float wred_s[kAttnWarps];
@@ -838,8 +843,8 @@ int self_block(const void* x, const void* ln_s, const void* ln_b,
                const void* wqkv, const void* wqkv_s, const void* bqkv,
                const void* wo, const void* wo_s, const void* bo,
                const void* cache_k, const void* cache_v, void* x_out,
-               void* k_new, void* v_new, void* work, int layer, int pos,
-               int rows, int d, int n_head, int t_cache,
+               void* k_new, void* v_new, void* work, const int* pos,
+               int layer, int rows, int d, int n_head, int t_cache,
                cudaStream_t stream) {
   Work wk;
   workspace_bytes(kSelf, rows, d, 0, &wk, work);
@@ -860,8 +865,7 @@ int self_block(const void* x, const void* ln_s, const void* ln_b,
   // the attention output, as terms in s0
   const int64_t slab = L * rows * t_cache * d;
   self_attention_kernel<<<rows * n_head, kAttnThreads,
-                          (size_t)(pos > 0 ? pos : 1) * sizeof(float),
-                          stream>>>(
+                          (size_t)t_cache * sizeof(float), stream>>>(
       qkv, static_cast<const bf16*>(cache_k) + slab,
       static_cast<const bf16*>(cache_v) + slab, wk.s0_hi, wk.s0_lo, d,
       n_head, t_cache, pos, kAttnScale);
@@ -958,18 +962,22 @@ extern "C" long long wjt_fused_workspace_bytes(int kind, int rows, int d,
   return workspace_bytes(kind, rows, d, hidden, nullptr, nullptr);
 }
 
-extern "C" int wjt_self_block(const void* x, const void* ln_s,
-                              const void* ln_b, const void* wqkv,
-                              const void* wqkv_s, const void* bqkv,
-                              const void* wo, const void* wo_s,
-                              const void* bo, const void* cache_k,
-                              const void* cache_v, void* x_out, void* k_new,
-                              void* v_new, void* work, int layer, int pos,
-                              int rows, int d, int n_head, int t_cache,
-                              void* stream) {
+// `pos` points to one int32 on the device (the step's position), read by
+// the attention kernel when it runs; an older build's wjt_self_block took
+// it by value.
+extern "C" int wjt_self_block_at(const void* x, const void* ln_s,
+                                 const void* ln_b, const void* wqkv,
+                                 const void* wqkv_s, const void* bqkv,
+                                 const void* wo, const void* wo_s,
+                                 const void* bo, const void* cache_k,
+                                 const void* cache_v, void* x_out,
+                                 void* k_new, void* v_new, void* work,
+                                 const void* pos, int layer, int rows, int d,
+                                 int n_head, int t_cache, void* stream) {
   return self_block(x, ln_s, ln_b, wqkv, wqkv_s, bqkv, wo, wo_s, bo, cache_k,
-                    cache_v, x_out, k_new, v_new, work, layer, pos, rows, d,
-                    n_head, t_cache, static_cast<cudaStream_t>(stream));
+                    cache_v, x_out, k_new, v_new, work,
+                    static_cast<const int*>(pos), layer, rows, d, n_head,
+                    t_cache, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int wjt_cross_block(const void* x, const void* ln_s,

@@ -7,15 +7,27 @@ fixed-shape tensors (the whole batch in lockstep, finished rows frozen),
 which reads one flag back from the device per step to decide whether to
 go on.
 
+A step's forward (``decode_step`` at q_len == 1, lm head included)
+goes through ``step_graph.StepForward``: on CUDA a replay of a CUDA
+graph captured once over fixed buffers (the cross-K/V, a pair of self
+caches the beam reorder gathers between, the token, position and
+logits), since ~40 to ~260 launches a step from Python held the card
+back; on the CPU the same forward runs eagerly. The prefill, the logit
+rules and the selection stay eager everywhere.
+
 Under a span the engine entered (``WJAV_TRACE_BATCHES=1``, see
 ``utils/tracer.py``) each loop records ``decode.loop`` (counters
-``steps``, the iterations run, and ``rows``) with the children
-``decode.prefill``, one ``decode.step`` an iteration and
-``decode.finalize``; each step has the children ``decode.rules`` (logit
-rules, log-softmax), ``decode.select`` (the token choice and the state
-it updates; for beams the pool and the cache reorder),
-``decode.forward`` (``decode_step``'s enqueue) and ``decode.stop_check``
-(the wait for the flag). Untraced, a phase costs one ``is None`` check.
+``steps``, the iterations run, ``rows``, ``graph_steps``, the steps
+whose forward was a replay, and ``captures``, the graphs captured for
+the loop) with the children ``decode.prefill``, one ``decode.step`` an
+iteration and ``decode.finalize``; each step has the children
+``decode.rules`` (logit rules, log-softmax), ``decode.select`` (the
+token choice and the state it updates; for beams the pool and the cache
+reorder), ``decode.forward`` (the forward's enqueue or replay, and a
+capture where one is made) and ``decode.stop_check`` (the wait for the
+flag, whose copy was enqueued before the forward, so the host waits for
+the selection's kernels and not for the forward). Untraced, a phase
+costs one ``is None`` check.
 
 Sampling is ``argmax(logits + T * gumbel)``, so temperature 0 is exact
 greedy. The gumbel noise comes from a ``torch.Generator``; a ``gumbel``
@@ -40,8 +52,9 @@ from whisperjav_tpu_torch.models.whisper.tokenizer import (
     DEFAULT_NONSPEECH_TOKENS,
 )
 from whisperjav_tpu_torch.models.whisper.model import (
-    KVCache, Whisper, decode_step, precompute_cross_kv,
+    Whisper, decode_step, precompute_cross_kv,
 )
+from whisperjav_tpu_torch.models.whisper.step_graph import StepForward
 from whisperjav_tpu_torch.utils import tracer
 
 _BLANK_TOKEN = 220  # GPT-2 BPE " " token; suppressed at the first step
@@ -207,6 +220,20 @@ def draw_gumbel(generator: torch.Generator, shape,
     return -torch.log(-torch.log(u))
 
 
+def _read_later(flag: torch.Tensor) -> Callable[[], bool]:
+    """The one-element bool ``flag`` as a call that returns it on the
+    host. On CUDA its copy is enqueued now, before the step's forward:
+    the read waits for the work before the copy, and the host goes on to
+    the next step's rules while the card runs the forward."""
+    if not flag.is_cuda:
+        return lambda: bool(flag)
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return lambda: copied.synchronize() or bool(host)
+
+
 def _finalize(tokens, prompt_len, max_new, length, sum_lp, no_speech_prob,
               eot) -> DecodeResult:
     gen = tokens[:, prompt_len:prompt_len + max_new]
@@ -220,9 +247,10 @@ def _finalize(tokens, prompt_len, max_new, length, sum_lp, no_speech_prob,
 
 
 def _prefill(model: Whisper, xa: torch.Tensor, options: DecodeOptions,
-             prompt: Sequence[int], rows: int):
-    """Cross-K/V, the zeroed cache and token buffer for ``rows`` rows, and
-    the prefill logits of the SOT sequence."""
+             prompt: Sequence[int], rows: int, pair: bool):
+    """The token buffer for ``rows`` rows, the step forward (cross-K/V
+    and the zeroed cache in it, with a second cache for the beam reorder
+    with ``pair``) and the prefill logits of the SOT sequence."""
     config = model.config
     init = initial_tokens(config, options, prompt)
     prompt_len = len(init)
@@ -231,15 +259,14 @@ def _prefill(model: Whisper, xa: torch.Tensor, options: DecodeOptions,
     init_t = torch.as_tensor(init, device=dev)
     tokens = torch.zeros((rows, total_len), dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init_t
-    cross = precompute_cross_kv(model, xa, int8=options.cross_kv_int8,
-                                int4=options.cross_kv_int4)
-    cache = KVCache.zeros(config, rows, total_len,
-                          model.decoder.tok_emb.dtype, dev)
-    prefill, cache = decode_step(
-        model, init_t[None, :].expand(rows, prompt_len), 0, cache, cross)
+    fwd = StepForward(model, xa, rows, total_len, options.cross_kv_int8,
+                      options.cross_kv_int4, pair, decode_step,
+                      precompute_cross_kv)
+    prefill, _ = decode_step(
+        model, init_t[None, :].expand(rows, prompt_len), 0, fwd.cache,
+        fwd.cross)
     sot_pos = prompt_len - (3 if options.with_timestamps else 4)
-    return tokens, prompt_len, cross, cache, prefill[:, -1], \
-        prefill[:, sot_pos]
+    return tokens, prompt_len, fwd, prefill[:, -1], prefill[:, sot_pos]
 
 
 def decode_greedy(
@@ -264,12 +291,15 @@ def decode_greedy(
     b = xa.shape[0]
     dev = xa.device
     loop = tracer.child(tracer.current(), "decode.loop")
-    tokens, prompt_len, cross, cache, cur_logits, sot_logits = _prefill(
-        model, xa, options, prompt, b)
+    tokens, prompt_len, fwd, cur_logits, sot_logits = _prefill(
+        model, xa, options, prompt, b, pair=False)
     max_new = options.max_new_tokens
     static_mask = torch.as_tensor(_static_suppress_mask(config, options),
                                   device=dev)
-    no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, config.no_speech]
+    # a copy of the column: a view would keep the (B, V) softmax alive as
+    # long as the result
+    no_speech_prob = torch.softmax(sot_logits,
+                                   dim=-1)[:, config.no_speech].clone()
     sample = temperature > 0.0 and not options.assume_greedy
     if sample and gumbel is None and generator is None:
         raise ValueError("sampling at temperature > 0 needs a generator "
@@ -324,16 +354,15 @@ def decode_greedy(
             torch.where(finished, rules.last_was_ts, is_ts),
             torch.where(finished, rules.penult_was_ts, rules.last_was_ts))
         finished = finished | is_eot
+        all_done = _read_later(finished.all())
         if loop is not None:
             span.lap("decode.select")
 
-        next_logits, cache = decode_step(model, token[:, None], pos, cache,
-                                         cross)
-        cur_logits = next_logits[:, 0]
+        cur_logits = fwd(token, pos)
         if loop is not None:
             span.lap("decode.forward")
         step += 1
-        stop = step < steps and bool(finished.all())
+        stop = step < steps and all_done()
         if loop is not None:
             span.lap("decode.stop_check")
             span.close()
@@ -344,7 +373,8 @@ def decode_greedy(
                        no_speech_prob, config.eot)
     if loop is not None:
         loop.lap("decode.finalize")
-        loop.close(steps=step, rows=b)
+        loop.close(steps=step, rows=b, graph_steps=fwd.graph_steps,
+                   captures=fwd.captures)
     return result
 
 
@@ -396,13 +426,13 @@ def decode_beam(
     n_fin = max(k, int(math.ceil(k * options.patience)))
     if os.environ.get("WJAV_BEAM_SHARED_CROSS", "1") == "0":
         xa = xa.repeat_interleave(k, dim=0)
-    tokens, prompt_len, cross, cache, cur_logits, sot_logits = _prefill(
-        model, xa, options, prompt, bk)
+    tokens, prompt_len, fwd, cur_logits, sot_logits = _prefill(
+        model, xa, options, prompt, bk, pair=True)
     total_len = tokens.shape[1]
     static_mask = torch.as_tensor(_static_suppress_mask(config, options),
                                   device=dev)
     no_speech_prob = torch.softmax(
-        sot_logits.reshape(b, k, v)[:, 0], dim=-1)[:, config.no_speech]
+        sot_logits.reshape(b, k, v)[:, 0], dim=-1)[:, config.no_speech].clone()
 
     # symmetry breaking: only beam 0 is live initially
     cum_lp = torch.tensor([0.0] + [-1e30] * (k - 1),
@@ -469,7 +499,7 @@ def decode_beam(
 
         gidx = (row_base + live_src).reshape(bk)
         tokens = rules.tokens[gidx]
-        cache = KVCache(cache.k[:, gidx], cache.v[:, gidx])
+        fwd.reorder(gidx)
         length = length[gidx] + 1
         last_was_ts = rules.last_was_ts[gidx]
         max_ts = rules.max_ts[gidx]
@@ -486,16 +516,15 @@ def decode_beam(
             max_ts=torch.where(is_ts, torch.maximum(max_ts, tok_flat),
                                max_ts),
             seen=seen)
+        pools_full = _read_later((pool_score > -1e29).all())
         if loop is not None:
             span.lap("decode.select")
 
-        next_logits, cache = decode_step(model, tok_flat[:, None], pos,
-                                         cache, cross)
-        cur_logits = next_logits[:, 0]
+        cur_logits = fwd(tok_flat, pos)
         if loop is not None:
             span.lap("decode.forward")
         step += 1
-        stop = step < max_new and bool((pool_score > -1e29).all())
+        stop = step < max_new and pools_full()
         if loop is not None:
             span.lap("decode.stop_check")
             span.close()
@@ -523,7 +552,8 @@ def decode_beam(
                        no_speech_prob, config.eot)
     if loop is not None:
         loop.lap("decode.finalize")
-        loop.close(steps=step, rows=bk)
+        loop.close(steps=step, rows=bk, graph_steps=fwd.graph_steps,
+                   captures=fwd.captures)
     return result
 
 

@@ -236,8 +236,27 @@ class CrossKV(NamedTuple):
     v_scale: torch.Tensor
 
 
+def cross_kv_layout(model: Whisper, xa: torch.Tensor, int8: bool = False,
+                    int4: bool = False) -> tuple:
+    """The shapes and dtypes of :func:`precompute_cross_kv`'s buffers for
+    ``xa`` (B, T, d): ((K/V shape, dtype), (scales shape, f32)). K/V are
+    (L, B, H, hd, T) int8, (L, B, H, hd, T/2) uint8 for ``int4`` (which
+    wins over int8), or in xa's dtype; the scales (L, B, H, 1, 1)."""
+    cfg = model.config
+    n_layer = model.decoder.blocks["cwk"].shape[0]
+    b, t, _ = xa.shape
+    h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+    if int4 and t % 2:
+        raise ValueError(f"int4 cross-KV needs an even T axis, got {t} — "
+                         "cross-KV buckets (448/960/1500) are all even")
+    dtype = torch.uint8 if int4 else torch.int8 if int8 else xa.dtype
+    return (((n_layer, b, h, hd, t // 2 if int4 else t), dtype),
+            ((n_layer, b, h, 1, 1), torch.float32))
+
+
 def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
-                        int8: bool = False, int4: bool = False) -> CrossKV:
+                        int8: bool = False, int4: bool = False,
+                        out: Optional[CrossKV] = None) -> CrossKV:
     """Project encoder states once per segment into the (L, B, H, hd, T)
     cross-attention K/V, as the JAX package's ``precompute_cross_kv``.
 
@@ -245,36 +264,36 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
     rounding half to even as ``jnp.round``, to int8 (the decode kernel's
     operand); with ``int4`` (which wins over int8) to +-7 levels packed
     two to a byte along T (:func:`pack_nibbles`). With neither, K/V stay
-    in xa's dtype with scales of one."""
-    cfg = model.config
+    in xa's dtype with scales of one. Written into ``out`` when given
+    (buffers of :func:`cross_kv_layout`'s shapes: those a captured decode
+    step reads), else into new buffers."""
     blocks = model.decoder.blocks
     n_layer = blocks["cwk"].shape[0]
-    b, t, _ = xa.shape
-    h, hd = cfg.n_text_head, cfg.n_text_state // cfg.n_text_head
+    h = model.config.n_text_head
     quant = int8 or int4
     qmax = 7.0 if int4 else 127.0
-    if int4 and t % 2:
-        raise ValueError(f"int4 cross-KV needs an even T axis, got {t} — "
-                         "cross-KV buckets (448/960/1500) are all even")
-    ck = torch.empty((n_layer, b, h, hd, t // 2 if int4 else t),
-                     dtype=(torch.uint8 if int4 else torch.int8) if quant
-                     else xa.dtype, device=xa.device)
-    cv = torch.empty_like(ck)
-    ks = torch.ones((n_layer, b, h, 1, 1), dtype=torch.float32,
-                    device=xa.device)
-    vs = torch.ones_like(ks)
+    if out is None:
+        (kv_shape, kv_dtype), (s_shape, s_dtype) = cross_kv_layout(
+            model, xa, int8, int4)
+        ck = torch.empty(kv_shape, dtype=kv_dtype, device=xa.device)
+        ks = torch.ones(s_shape, dtype=s_dtype, device=xa.device)
+        out = CrossKV(ck, torch.empty_like(ck), ks, torch.ones_like(ks))
+    elif not quant:
+        out.k_scale.fill_(1.0)
+        out.v_scale.fill_(1.0)
+    ck, cv, ks, vs = out
     for i in range(n_layer):
-        for out, scale, proj in (
+        for buf, scale, proj in (
                 (ck, ks, dense(xa, blocks["cwk"][i])),
                 (cv, vs, dense(xa, blocks["cwv"][i], blocks["cbv"][i]))):
             x = _split_heads(proj, h).permute(0, 2, 3, 1)       # (B,H,hd,T)
             if not quant:
-                out[i] = x
+                buf[i] = x
                 continue
             x = x.float()
             s = x.abs().amax(dim=(2, 3), keepdim=True) / qmax + 1e-9
             codes = torch.clamp(torch.round(x / s), -qmax, qmax)
-            out[i] = pack_nibbles(codes) if int4 else codes.to(torch.int8)
+            buf[i] = pack_nibbles(codes) if int4 else codes.to(torch.int8)
             scale[i] = s
     return CrossKV(ck, cv, ks, vs)
 
@@ -465,12 +484,23 @@ def _decoder_block(x, p, i, cross: CrossKV, cache: "KVCache", pos: int,
 _FUSED_WEIGHTS = ("wqkv", "wo", "cwq", "cwo", "w1", "w2")
 
 
+def fused_step(model: Whisper, cross_dtype: torch.dtype) -> bool:
+    """Whether a single decode step (q_len == 1) runs the fused blocks:
+    int8 decoder weights with q/k/v fused, over int8 cross K/V (the
+    dtype of ``CrossKV.k``)."""
+    blocks = model.decoder.blocks
+    return cross_dtype == torch.int8 and all(
+        isinstance(blocks.get(n), Int8Weight) for n in _FUSED_WEIGHTS)
+
+
 def _fused_layers(x: torch.Tensor, p: nn.ParameterDict, cross: CrossKV,
-                  cache: KVCache, pos: int, n_head: int) -> torch.Tensor:
+                  cache: KVCache, pos: torch.Tensor,
+                  n_head: int) -> torch.Tensor:
     """One decode step (x (R, d)) through every decoder layer as three
     fused blocks, then one store of every layer's new K/V column at
-    ``pos``. Cross K/V and scales go in the JAX kernels' flat layouts
-    ((L, B, d, T) and (L, B, H): views, no copies)."""
+    ``pos`` (one int32 on the device). Cross K/V and scales go in the
+    JAX kernels' flat layouts ((L, B, d, T) and (L, B, H): views, no
+    copies)."""
     n_layer, b, h, hd, t = cross.k.shape
     ck = cross.k.reshape(n_layer, b, h * hd, t)
     cv = cross.v.reshape(n_layer, b, h * hd, t)
@@ -487,32 +517,41 @@ def _fused_layers(x: torch.Tensor, p: nn.ParameterDict, cross: CrossKV,
                       p["b2"], i)
         k_cols.append(k_new)
         v_cols.append(v_new)
-    cache.k[:, :, pos] = torch.stack(k_cols)
-    cache.v[:, :, pos] = torch.stack(v_cols)
+    cache.k[:, :, pos] = torch.stack(k_cols)[:, :, None]
+    cache.v[:, :, pos] = torch.stack(v_cols)[:, :, None]
     return x
 
 
-def decode_hidden(model: Whisper, tokens: torch.Tensor, pos: int,
+def decode_hidden(model: Whisper, tokens: torch.Tensor, pos,
                   cache: KVCache, cross: CrossKV) -> torch.Tensor:
     """Decoder blocks and final LN for tokens (B, q_len) at positions
     [pos, pos + q_len), without the lm head. Writes the new K/V into
     ``cache`` in place; returns hidden states (B, q_len, d).
 
-    On int8 decoder weights a single step (q_len == 1) over int8 cross
-    K/V runs the fused blocks, beam fold included (B = g x the cross-K/V
-    rows); prefill and int4 cross K/V keep the unfused layers with int8
-    :func:`dense`, as in the JAX package (``model.py:597-611``)."""
+    A single step (q_len == 1) takes its position as one int32 on the
+    tokens' device (shape (1,); an int is copied there): the position
+    row, the visibility of the cache slots, the column store and the
+    fused self block all read it on the device, so one captured forward
+    serves every step (``step_graph.py``). On int8 decoder weights a
+    single step over int8 cross K/V runs the fused blocks, beam fold
+    included (B = g x the cross-K/V rows); prefill (an int position) and
+    int4 cross K/V keep the unfused layers with int8 :func:`dense`, as in
+    the JAX package (``model.py:597-611``)."""
     dec = model.decoder
     b, q_len = tokens.shape
     t_max = cache.k.shape[2]
     n_head = model.config.n_text_head
-    x = dec.tok_emb[tokens] + dec.pos_emb[pos:pos + q_len]
-    if q_len == 1 and cross.k.dtype == torch.int8 and all(
-            isinstance(dec.blocks.get(n), Int8Weight)
-            for n in _FUSED_WEIGHTS):
+    column_mode = q_len == 1
+    if column_mode:
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.tensor([pos], dtype=torch.int32,
+                               device=tokens.device)
+        x = dec.tok_emb[tokens] + dec.pos_emb.index_select(0, pos)
+    else:
+        x = dec.tok_emb[tokens] + dec.pos_emb[pos:pos + q_len]
+    if column_mode and fused_step(model, cross.k.dtype):
         x = _fused_layers(x[:, 0], dec.blocks, cross, cache, pos, n_head)
         return layer_norm(x[:, None], dec.ln_s, dec.ln_b)
-    column_mode = q_len == 1
     k_idx = torch.arange(t_max, device=tokens.device)
     if column_mode:
         # cache slots j < pos are visible; the new key comes separately
@@ -529,19 +568,26 @@ def decode_hidden(model: Whisper, tokens: torch.Tensor, pos: int,
         k_cols.append(k_new)
         v_cols.append(v_new)
     if column_mode:
-        cache.k[:, :, pos] = torch.stack(k_cols)[:, :, 0]
-        cache.v[:, :, pos] = torch.stack(v_cols)[:, :, 0]
+        cache.k[:, :, pos] = torch.stack(k_cols)
+        cache.v[:, :, pos] = torch.stack(v_cols)
     return layer_norm(x, dec.ln_s, dec.ln_b)
 
 
-def decode_step(model: Whisper, tokens: torch.Tensor, pos: int,
+def decode_step(model: Whisper, tokens: torch.Tensor, pos,
                 cache: KVCache, cross: CrossKV
                 ) -> Tuple[torch.Tensor, KVCache]:
     """Decoder on a chunk (prefill or one step) -> (logits (B, q_len,
     vocab) f32, cache). The lm head is the tied token embedding, or its
     int8 copy ``lm_head_q`` on int8 weights (the f32 product times the
     scale), applied in f32 so the logits keep f32 precision as in the JAX
-    package."""
+    package.
+
+    ``pos`` is an int, or at q_len == 1 one int32 on the device
+    (:func:`decode_hidden`). The decode loops' single steps on CUDA run
+    this function once to capture it, then replay the graph
+    (``step_graph.py``): a step of ~40 (turbo) to ~260 (large-v2 int8)
+    launches from Python is the host's work that held the card back.
+    Prefill, and every call on the CPU, run it eagerly."""
     x = decode_hidden(model, tokens, pos, cache, cross)
     lm = getattr(model.decoder, "lm_head_q", None)
     if lm is not None:

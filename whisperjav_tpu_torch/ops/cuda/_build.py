@@ -16,6 +16,7 @@ process and thread ids, so concurrent builds never share one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -113,7 +114,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 def open_library(path: Path) -> ctypes.CDLL:
     """Load a built library and declare every signature of the C
     interface (the same in every version of the kernels; an older
-    version may lack the scaled forms of Kernel B)."""
+    version may lack the scaled forms of Kernel B, and has the self
+    block's ``wjt_self_block``, which took the position by value, in
+    place of ``wjt_self_block_at``)."""
     lib = ctypes.CDLL(str(path))
     lib.wjt_encoder_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,
@@ -130,8 +133,9 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.wjt_decode_cross_attention_max_t.restype = _I
     lib.wjt_fused_workspace_bytes.argtypes = [_I, _I, _I, _I]
     lib.wjt_fused_workspace_bytes.restype = ctypes.c_longlong
-    lib.wjt_self_block.argtypes = [_P] * 15 + [_I] * 6 + [_P]
-    lib.wjt_self_block.restype = _I
+    if hasattr(lib, "wjt_self_block_at"):
+        lib.wjt_self_block_at.argtypes = [_P] * 16 + [_I] * 5 + [_P]
+        lib.wjt_self_block_at.restype = _I
     lib.wjt_cross_block.argtypes = [_P] * 15 + [_I] * 6 + [_P]
     lib.wjt_cross_block.restype = _I
     lib.wjt_mlp_block.argtypes = [_P] * 11 + [_I] * 4 + [_P]
@@ -157,14 +161,42 @@ def load_library() -> ctypes.CDLL:
 
 
 _COUNT_LOCK = threading.Lock()
+# the launches a CUDA graph capture in this thread holds (None: no capture)
+_CAPTURING = threading.local()
 
 
 def count(counter, n: int = 1) -> None:
     """Add ``n`` to ``counter.launches`` (a kernel wrapper's count of
     its launches) under one lock, so the counts stay exact when the
-    devices of a mesh launch from threads of their own."""
+    devices of a mesh launch from threads of their own. While this
+    thread captures a CUDA graph (:func:`capturing`) nothing runs: the
+    launch is noted for the graph's replays instead."""
+    held = getattr(_CAPTURING, "launches", None)
+    if held is not None:
+        held[id(counter)] = (counter, held.get(id(counter), (None, 0))[1] + n)
+        return
     with _COUNT_LOCK:
         counter.launches += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Collect this thread's launch counts inside the block, as
+    ``{id(counter): (counter, launches)}``, without adding them: the
+    block captures a CUDA graph, and :func:`count_replay` adds them at
+    each replay."""
+    _CAPTURING.launches = held = {}
+    try:
+        yield held
+    finally:
+        _CAPTURING.launches = None
+
+
+def count_replay(held: dict) -> None:
+    """Count one replay of a graph as the launches it holds."""
+    with _COUNT_LOCK:
+        for counter, n in held.values():
+            counter.launches += n
 
 
 def check(err: int, what: str) -> None:

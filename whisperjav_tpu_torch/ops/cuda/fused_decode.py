@@ -18,7 +18,10 @@ row r reading cross-K/V row r // g.
 On CPU tensors each block runs its plain version; on CUDA tensors it
 launches ``csrc/fused_decode.cu`` (hd = 64, bf16 activations, widths a
 multiple of 128) or raises. Each wrapper counts its launches in
-``<function>.launches``. The kernels inside the blocks have no entry
+``<function>.launches`` (a launch captured into a CUDA graph counts at
+each replay: ``_build.capturing``). The self block reads its position
+from the device, so the decode loops' captured step serves every
+position. The kernels inside the blocks have no entry
 point of their own; ``inner`` counts their launches by name: every
 entry launches the int8 GEMV once in LN mode (``qgemv_ln``: LayerNorm of
 x taken inside it, for wqkv, cwq and w1) and once on precomputed terms
@@ -43,6 +46,9 @@ from whisperjav_tpu_torch.ops.cuda.decode_attention import (
 )
 
 _SELF, _CROSS, _MLP = 0, 1, 2
+# the self-attention kernel keeps a logit a cache slot in the 48 KB of
+# shared memory a block has without opting in
+_MAX_SELF_T = 8192
 
 
 def _ln(x32: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,11 +68,13 @@ def _qdense(h32: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def self_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
-                     layer: int, pos: int, n_head: int
+                     layer: int, pos, n_head: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (R, d) -> (x_out (R, d), k_new, v_new (R, d) in the cache dtype).
-    Attends the cache slots t < pos of (L, R, T, d) and the new key."""
+    Attends the cache slots t < pos of (L, R, T, d) and the new key;
+    ``pos`` is an int or a one-element tensor (read on the host)."""
     r, d = x.shape
+    pos = int(pos)
     hd = d // n_head
     x32 = x.float()
     qkv = _qdense(_ln(x32, ln_s[layer], ln_b[layer]), wqkv.q[layer],
@@ -181,13 +189,23 @@ def _stream(device: torch.device) -> int:
 
 
 def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
-               layer: int, pos: int, n_head: int
+               layer: int, pos, n_head: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Column-mode self-attention block of layer ``layer`` at position
-    ``pos``: (x_out, k_new, v_new); the cache is read, not written."""
+    ``pos``: (x_out, k_new, v_new); the cache is read, not written.
+
+    ``pos`` is one int32 on x's device (shape (1,)), which the kernel
+    reads when it runs, so a captured launch serves every step; an int
+    is checked against the cache's T and copied there first. A tensor's
+    range is the caller's to keep: the kernel clamps it to [0, T)."""
     what = "self_block"
+    if not isinstance(pos, torch.Tensor):
+        t_max = cache_k.shape[2] if cache_k.dim() == 4 else 0
+        if not 0 <= int(pos) < t_max:
+            raise ValueError(f"{what}: pos {pos} outside [0, {t_max})")
+        pos = torch.tensor([int(pos)], dtype=torch.int32, device=x.device)
     tensors = (x, ln_s, ln_b, wqkv.q, wqkv.s, bqkv, wo.q, wo.s, bo, cache_k,
-               cache_v)
+               cache_v, pos)
     if _on_cpu(what, *tensors):
         return self_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k,
                                 cache_v, layer, pos, n_head)
@@ -203,21 +221,23 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
     t_cache = cache_k.shape[2] if cache_k.dim() == 4 else -1
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         _expect(what, name, t, (n_layer, r, t_cache, d), dt)
-    if not 0 <= pos < t_cache:
-        raise ValueError(f"{what}: pos {pos} outside [0, {t_cache})")
+    if not 0 < t_cache <= _MAX_SELF_T:
+        raise ValueError(f"{what}: T = {t_cache} outside (0, {_MAX_SELF_T}]")
+    _expect(what, "pos", pos, (1,), torch.int32)
     x_out = torch.empty_like(x)
     k_new, v_new = torch.empty_like(x), torch.empty_like(x)
     if r == 0:
         return x_out, k_new, v_new
     work = _workspace(_SELF, r, d, 0, x.device)
     with torch.cuda.device(x.device):
-        err = _build.load_library().wjt_self_block(
+        err = _build.load_library().wjt_self_block_at(
             x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
             wqkv.q.data_ptr(), wqkv.s.data_ptr(), bqkv.data_ptr(),
             wo.q.data_ptr(), wo.s.data_ptr(), bo.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), x_out.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
-            int(layer), int(pos), r, d, n_head, t_cache, _stream(x.device))
+            pos.data_ptr(), int(layer), r, d, n_head, t_cache,
+            _stream(x.device))
     _build.check(err, "self_block kernels")
     _build.count(self_block)
     _count(qgemv_ln=1, self_attention=1, qgemv=1)
