@@ -1,8 +1,8 @@
 """Readings that the check's limits are set from, in one process.
 
     python benchmark/calibrate.py --workload <cell> --seeds 1 2 ... \
-        [--reference-control fp8|int4_weights] \
-        [--program-controls int8_weights int4_cross_kv --control-seeds 7 8]
+        [--reference-control <control>] \
+        [--program-controls <path> ... --control-seeds 7 8]
 
 For each ``--seeds`` seed, one file of the cell's traffic as the window
 runs it, judged as a run judges it: the lower readings. With
@@ -10,47 +10,29 @@ runs it, judged as a run judges it: the lower readings. With
 reference one precision below, in the program's place, and judged by
 the cell's limits. For each ``--program-controls`` path and each
 ``--control-seeds`` seed, one file of the program with its own
-lower-precision path switched on (int8 decoder weights, or int4
-cross-K/V), judged as a run judges it against the
-configuration as stated. Prints a JSON line a run and one summary line
-last: each number's largest sound reading, each control's smallest.
-Runs on the card; the benchmark's own runs never run this.
+lower-precision path switched on, judged as a run judges it against the
+configuration as stated. The controls are the cell's driver's
+(``drivers/<driver>.py``: ``CONTROLS``, ``PROGRAM_CONTROLS``; Whisper's
+``fp8`` and ``int4_weights``, and ``int8_weights`` and
+``int4_cross_kv``). Prints a JSON line a run and one summary line last:
+each number's largest sound reading, each control's smallest. Runs on
+the card; the benchmark's own runs never run this.
 """
 
 import argparse
-import copy
 import json
 import sys
 import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-PROGRAM_CONTROLS = ("int8_weights", "int4_cross_kv")
 
 
-def program_path(harness, path: str) -> None:
-    """Build the engine with ``path`` switched on; the check still
-    reads the configuration as stated."""
-    if path not in PROGRAM_CONTROLS:
-        raise ValueError(f"unknown program control {path!r}")
-    inner = harness.build_engine.__dict__.get("inner", harness.build_engine)
-
-    def build(cfg, *args, **kw):
-        cfg = copy.deepcopy(cfg)
-        if path == "int8_weights":
-            cfg["serve"]["int8_weights"] = True
-        else:
-            cfg["decode_options"]["cross_kv_int4"] = True
-        return inner(cfg, *args, **kw)
-    build.inner = inner
-    harness.build_engine = build
-
-
-def widest(into: dict, readings: dict) -> None:
-    """Append a run's widest reading of each number compared."""
-    from h100bench.check import NUMBERS
-    for name in NUMBERS:
-        into.setdefault(name, []).append(max(readings[name]))
+def widest(into: dict, readings: dict, numbers) -> None:
+    """Append a run's widest reading of each number ``numbers`` names."""
+    for name in numbers:
+        if readings.get(name):
+            into.setdefault(name, []).append(max(readings[name]))
 
 
 def main(argv=None) -> int:
@@ -65,6 +47,7 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(HERE), str(HERE.parent)]
     from h100bench import harness, spec
     cell = spec.workload(args.workload)
+    numbers = spec.driver(cell["config"]["driver"]).NUMBERS
     lower, upper = {}, {}
 
     def report(seed, path, out, t0):
@@ -79,18 +62,17 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         out = harness.run_cell(cell, seed, 0.0, False, device=args.device,
                                reference_control=args.reference_control)
-        widest(lower, out["readings"])
+        widest(lower, out["readings"], numbers)
         if "control" in out:
             widest(upper.setdefault(args.reference_control, {}),
-                   out["control"]["readings"])
+                   out["control"]["readings"], numbers)
         report(seed, None, out, t0)
     for path in args.program_controls:
-        program_path(harness, path)
         for seed in args.control_seeds:
             t0 = time.perf_counter()
             out = harness.run_cell(cell, seed, 0.0, False,
-                                   device=args.device)
-            widest(upper.setdefault(path, {}), out["readings"])
+                                   device=args.device, program_control=path)
+            widest(upper.setdefault(path, {}), out["readings"], numbers)
             report(seed, path, out, t0)
     print(json.dumps({
         "workload": args.workload,

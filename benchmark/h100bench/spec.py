@@ -4,7 +4,10 @@ the names ``BENCHMARK.json`` gives them.
 - ``benchmark/workloads/<cell>.json``: the configuration and traffic a
   cell runs, its chips, why it exists and the limits of its check;
 - ``benchmark/configs/<config>.json``: the model's sizes, as published,
-  and how the port serves it;
+  how the port serves it, and the ``driver`` that serves it;
+- ``benchmark/drivers/<driver>.py``: what builds, warms up, serves and
+  judges the program a configuration names (the harness's loop calls
+  it);
 - ``benchmark/traffic/<traffic>.json``: the parameters the one traffic
   generator (``h100bench/traffic.py``) reads;
 - ``benchmark/metrics/<metric>.py``: one per-layer metric, its
@@ -49,8 +52,8 @@ def workload(name: str) -> dict:
 
 def names(kind: str) -> List[str]:
     """The names of every file of ``kind`` (workloads, configs, traffic,
-    metrics)."""
-    suffix = ".py" if kind == "metrics" else ".json"
+    metrics, drivers)."""
+    suffix = ".py" if kind in ("metrics", "drivers") else ".json"
     return sorted(p.name[:-len(suffix)] for p in (ROOT / kind).glob(
         f"*{suffix}") if not p.name.startswith("_"))
 
@@ -70,3 +73,13 @@ def metric(name: str) -> ModuleType:
 
 def metrics() -> Dict[str, ModuleType]:
     return {name: metric(name) for name in names("metrics")}
+
+
+def driver(name: str) -> ModuleType:
+    """The driver ``drivers/<name>.py``, imported as ``drivers.<name>``
+    (one module however often it is asked for; the benchmark's root on
+    ``sys.path``)."""
+    path = ROOT / "drivers" / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise KeyError(f"no driver named {name!r} ({path} is missing)")
+    return importlib.import_module(f"drivers.{name}")

@@ -47,17 +47,22 @@ class Span:
 
 @dataclass
 class Stretch:
-    """One profiled stretch: the device spans, the host wall (seconds),
-    the batches it ran as (bucket, rows, steps) and the configuration's
-    and traffic's numbers (``model``, ``decode``), and each
-    ``decode_encoded`` call's span on the decoding stream (seconds,
-    steps)."""
+    """One profiled stretch: the device spans and the host wall
+    (seconds), which the harness takes, and what the driver counted of
+    the stretch's work: the model's operations for it (``model_flops``)
+    and the rows it served (``rows``, windows for Whisper), and the
+    driver's own numbers (Whisper's: the batches it ran as (bucket,
+    rows, steps), the configuration's and traffic's numbers (``model``,
+    ``decode``), and each ``decode_encoded`` call's span on the decoding
+    stream (seconds, steps))."""
     spans: List[Span]
     wall_s: float
-    batches: List[dict]
-    model: dict
-    decode: dict
+    batches: List[dict] = field(default_factory=list)
+    model: dict = field(default_factory=dict)
+    decode: dict = field(default_factory=dict)
     decode_spans: List[Tuple[float, int]] = field(default_factory=list)
+    model_flops: float = 0.0
+    rows: int = 0
 
     # -- device time -----------------------------------------------------
     def kernel_s(self, patterns: Iterable[str]) -> float:

@@ -1,5 +1,6 @@
 """Device milliseconds a window: the union of the device's activity
-intervals over the windows the stretch decoded. The device's share of
+intervals over the rows the stretch served (``Stretch.rows``, as the
+driver counts them: Whisper's windows). The device's share of
 ``audio_rtf``, without the host's time: steadier from run to run than
 the walls the host sets."""
 
@@ -11,7 +12,6 @@ MOVES = "audio_rtf"
 
 
 def read(stretch):
-    rows = sum(b["rows"] for b in stretch.batches)
-    if not stretch.spans or not rows:
+    if not stretch.spans or not stretch.rows:
         return None
-    return 1e3 * stretch.busy_s() / rows
+    return 1e3 * stretch.busy_s() / stretch.rows

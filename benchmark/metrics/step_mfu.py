@@ -1,10 +1,10 @@
 """The whole step's share of the card's bf16 peak: the model's
-operations for the stretch's work (the encoder a window, the cross-K/V
+operations for the stretch's work, as the driver counts them
+(``Stretch.model_flops``; Whisper's: the encoder a window, the cross-K/V
 projections a window, the decoder a decode row a step, prefill and head
-included; ``roofline/model_flops.py``) over the stretch's host wall and
+included, ``roofline/model_flops.py``), over the stretch's host wall and
 989 TFLOP/s. Int8 products count at the bf16 peak."""
 
-from roofline import model_flops
 from roofline.counts import PEAK_BF16
 
 LAYER = "whole step (pipelines/engine.py transcribe_windows)"
@@ -15,11 +15,6 @@ MOVES = "audio_rtf"
 
 
 def read(stretch):
-    if not stretch.batches or stretch.wall_s <= 0:
+    if not stretch.model_flops or stretch.wall_s <= 0:
         return None
-    dec = stretch.decode
-    flop = sum(model_flops.batch(stretch.model, b["bucket"], b["rows"],
-                                 dec["beams"], b["steps"],
-                                 dec["prompt_len"])
-               for b in stretch.batches)
-    return 100.0 * flop / (stretch.wall_s * PEAK_BF16)
+    return 100.0 * stretch.model_flops / (stretch.wall_s * PEAK_BF16)

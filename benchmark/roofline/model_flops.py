@@ -1,4 +1,4 @@
-"""The model's operations for the work of a stretch, for ``model.mfu_pct``.
+"""Whisper's operations for the work of a stretch, for ``step_mfu``.
 
 Two operations a multiply-add, at the shapes run: the encoder forward a
 window (the two convolutions and every layer at 1500 frames), the

@@ -8,7 +8,10 @@ output: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics with ``--trace 0``, its per-layer metrics with
 ``--trace 1``), ``device``, with ``--trace 1`` ``breakdown``, and last
 ``checks``: each number the check compared, with its limit (also the
-last lines on standard error). Exits non-zero, printing no result,
+last lines on standard error, after any number read and not judged).
+The configuration's driver (``drivers/<driver>.py``) runs the program;
+this file and the harness know none of it. Exits non-zero, printing no
+result,
 without enough CUDA cards, without the port beside the benchmark, or
 when JAX or the JAX package was loaded.
 """
@@ -84,14 +87,19 @@ def main(argv=None, device: str = "cuda") -> int:
               file=sys.stderr)
         return 4
     checks = out.pop("checks")
+    unjudged = out.pop("unjudged")
     out.pop("readings")
     out["device"] = {"platform": "gpu" if cuda else "cpu",
                      "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
                      "count": cell["chips"], **out["device"],
                      "power_limit": power_limit() if cuda else "none"}
     out["checks"] = checks
+    for name, value in unjudged.items():
+        print(f"reading {name}: {value!r} (no limit: not judged)",
+              file=sys.stderr)
     for name, c in checks.items():
-        print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
+        value = "not read" if c["value"] is None else repr(c["value"])
+        print(f"check {name}: {value} (limit {c['limit']!r})",
               file=sys.stderr)
     print(json.dumps(out), flush=True)
     return 0

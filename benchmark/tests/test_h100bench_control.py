@@ -5,15 +5,14 @@ program's place on the rows a sound run served, and the program with
 its own lower-precision paths switched on (``program_controls``), while
 the sound run comes out correct. On the CPU at tiny widths; on the card
 at each cell's own widths and batch (``calibrate.py`` reads the same
-over a dozen seeds)."""
+over a dozen seeds). The controls are the cell's driver's."""
 
 import pytest
 
 from h100bench import harness, spec
 from tiny import tiny_cell
 
-import calibrate
-
+WHISPER = spec.driver("whisper")
 SEED = 2 ** 31 + 41
 
 
@@ -25,10 +24,9 @@ def _reference_control_fails(cell, device):
     return out
 
 
-def _program_control_fails(cell, path, device, monkeypatch):
-    monkeypatch.setattr(harness, "build_engine", harness.build_engine)
-    calibrate.program_path(harness, path)
-    out = harness.run_cell(cell, SEED, 0.0, False, device=device)
+def _program_control_fails(cell, path, device):
+    out = harness.run_cell(cell, SEED, 0.0, False, device=device,
+                           program_control=path)
     assert out["correct"] is False, out["checks"]
     return out
 
@@ -41,9 +39,9 @@ def test_control_fails_tiny(int8_weights):
     _reference_control_fails(cell, "cpu")
 
 
-@pytest.mark.parametrize("path", calibrate.PROGRAM_CONTROLS)
-def test_program_control_fails_tiny(path, monkeypatch):
-    _program_control_fails(tiny_cell(), path, "cpu", monkeypatch)
+@pytest.mark.parametrize("path", WHISPER.PROGRAM_CONTROLS)
+def test_program_control_fails_tiny(path):
+    _program_control_fails(tiny_cell(), path, "cpu")
 
 
 @pytest.fixture
@@ -64,5 +62,5 @@ def test_control_fails_on_the_card(name, card):
 @pytest.mark.parametrize("name,path", [
     (name, path) for name in spec.names("workloads")
     for path in spec.workload(name)["program_controls"]])
-def test_program_control_fails_on_the_card(name, path, card, monkeypatch):
-    _program_control_fails(spec.workload(name), path, card, monkeypatch)
+def test_program_control_fails_on_the_card(name, path, card):
+    _program_control_fails(spec.workload(name), path, card)
