@@ -24,6 +24,18 @@ products are taken in f32 and scaled, as the JAX package's ``_dense``.
 The forward passes run in full f32 where the parameters are f32 (no
 TF32, whatever the process-wide flags say). No Pallas kernel lies on
 this path: the products are PyTorch matmuls.
+
+Under a span the caller entered (``WJAV_TRACE_BATCHES=1``, see
+``utils/tracer.py``; ``QwenGenerator.generate_batch`` enters its
+``qwen.batch``), :func:`generate` records ``qwen.encode`` and
+``qwen.prefill``, and :func:`_decode` records ``decode.loop`` (counters
+``steps``, the forwards run, and ``rows``) with one ``decode.step`` a
+step and its children ``decode.stop_check`` (the every-8-steps wait for
+the flag), ``decode.select`` (penalty, token choice, log-softmax and
+bookkeeping) and ``decode.forward`` (the :func:`lm_step` enqueue). Each
+of the three stages closes its span once the device has run it
+(``Span.close_synced``), so the device trace puts each stage's device
+work inside its span. Untraced, a phase costs one ``is None`` check.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from whisperjav_tpu_torch.models.whisper.model import (
     Int8, Int8Weight, sinusoid_positions,
 )
 from whisperjav_tpu_torch.models.whisper.quant import _quantize
+from whisperjav_tpu_torch.utils import tracer
 from whisperjav_tpu_torch.utils.precision import full_f32
 
 
@@ -499,10 +512,18 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
     # emitted-id membership, EOS never set
     seen = (torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
             if penalize else None)
+    loop = tracer.child(tracer.current(), "decode.loop")
+    steps = 0
     for step in range(max_new):
-        if step and step % FINISHED_CHECK_EVERY == 0 \
-                and bool(finished.all()):
-            break
+        span = None if loop is None else loop.child("decode.step")
+        if step and step % FINISHED_CHECK_EVERY == 0:
+            done = bool(finished.all())
+            if span is not None:
+                span.lap("decode.stop_check")
+                if done:
+                    span.close()
+            if done:
+                break
         lg = cur
         if penalize:
             pen = torch.where(lg > 0, lg / rp, lg * rp)
@@ -523,10 +544,19 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
         if penalize:
             seen.scatter_(1, tok[:, None], True)
             seen[:, eos] = False
+        if span is not None:
+            span.lap("decode.select")
         nxt, cache = lm_step(model, tok_emb[tok[:, None]], start + step,
                              cache)
+        if span is not None:
+            span.lap("decode.forward")
         cur = nxt[:, 0]
         finished = finished | is_eos
+        steps += 1
+        if span is not None:
+            span.close()
+    if loop is not None:
+        loop.close_synced(dev, steps=steps, rows=b)
     avg_lp = sum_lp / (length.float() + 1.0)
     return QwenGenResult(tokens, length, avg_lp)
 
@@ -547,7 +577,12 @@ def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
     cfg = model.config
     b = mel.shape[0]
     dev = mel.device
+    under = tracer.current()
+    span = tracer.child(under, "qwen.encode")
     audio_emb = encode_audio(model, mel)[:, :audio_len]
+    if span is not None:
+        span.close_synced(dev)
+        span = under.child("qwen.prefill")
     ctx_len = 0 if ctx_ids is None else ctx_ids.shape[-1]
     t_max = audio_len + ctx_len + 1 + max_new
     tok_emb = model.tok_emb
@@ -559,6 +594,8 @@ def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
     bos = torch.full((b, 1), cfg.bos_id, dtype=torch.long, device=dev)
     parts.append(tok_emb[bos].to(audio_emb.dtype))
     logits, cache = lm_step(model, torch.cat(parts, dim=1), 0, cache)
+    if span is not None:
+        span.close_synced(dev)
     return _decode(model, logits[:, -1], cache, audio_len + ctx_len + 1,
                    max_new, repetition_penalty, temperature, generator,
                    gumbel)

@@ -29,6 +29,7 @@ from whisperjav_tpu_torch.modules.subtitle_pipeline.types import (
     AlignmentResult, FramingResult, TemporalFrame, TranscriptionResult,
     WordTimestamp,
 )
+from whisperjav_tpu_torch.utils import tracer
 from whisperjav_tpu_torch.utils.logger import logger
 
 
@@ -124,12 +125,29 @@ def create_framer(backend: str = "vad-grouped", **kwargs):
 # generators
 # ---------------------------------------------------------------------------
 
+def prepare_params(params):
+    """The generator's post-load step on a :class:`QwenASR`, in place, as
+    the JAX generator's ``load``: one fused q/k/v matmul per LM layer per
+    step (``WJAV_FUSE_QKV=0``: three), then int8 LM matmuls and head,
+    which halve the weights every step reads (``WJAV_QWEN_INT8=0``: the
+    LM stays as loaded). Each switch is read when this runs; a tree
+    already fused and quantised comes back as it is."""
+    from whisperjav_tpu_torch.models.qwen.model import (
+        fuse_lm_qkv, quantize_lm_weights,
+    )
+    if os.environ.get("WJAV_FUSE_QKV", "1") != "0":
+        params = fuse_lm_qkv(params)
+    if os.environ.get("WJAV_QWEN_INT8", "1") != "0":
+        params = quantize_lm_weights(params)
+    return params
+
+
 class QwenGenerator:
     """Qwen3-ASR text-only generation (reference: generators/qwen3) on
-    ``device``. ``params`` (a :class:`QwenASR`) are used as given; else a
-    checkpoint is loaded, or the named size is drawn at random from a
-    generator seeded 0 on the device; then the LM's q/k/v are fused and
-    its matmuls and head quantised to int8, as the JAX generator does."""
+    ``device``. ``params`` (a :class:`QwenASR`) are used as given, as the
+    JAX generator uses them; else a checkpoint is loaded, or the named
+    size is drawn at random from a generator seeded 0 on the device, and
+    put through :func:`prepare_params`."""
 
     name = "qwen3"
 
@@ -163,6 +181,7 @@ class QwenGenerator:
         self.context = context
         self.max_tokens = max_tokens
         self.max_tokens_per_second = max_tokens_per_second
+        self.recorder: Optional[tracer.SpanRecorder] = None
         self._ctx_ids: Optional[np.ndarray] = None
         if context and self.tokenizer is not None:
             ids = self.tokenizer.encode(context)
@@ -173,9 +192,6 @@ class QwenGenerator:
                            "tokenizer available; context ignored")
 
     def load(self) -> None:
-        from whisperjav_tpu_torch.models.qwen.model import (
-            fuse_lm_qkv, quantize_lm_weights,
-        )
         if self._params is not None:
             self._params = self._params.to(self.device)
             return
@@ -197,14 +213,7 @@ class QwenGenerator:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
             params = init_params(self.cfg, gen, device=self.device)
-        # one fused q/k/v matmul per LM layer per step (WJAV_FUSE_QKV=0:
-        # three), then int8 LM matmuls and head, which halve the weights
-        # every step reads (WJAV_QWEN_INT8=0: the LM stays as loaded)
-        if os.environ.get("WJAV_FUSE_QKV", "1") != "0":
-            params = fuse_lm_qkv(params)
-        if os.environ.get("WJAV_QWEN_INT8", "1") != "0":
-            params = quantize_lm_weights(params)
-        self._params = params
+        self._params = prepare_params(params)
 
     def unload(self) -> None:
         self._params = None
@@ -243,7 +252,13 @@ class QwenGenerator:
         once). It keeps two batches' LM caches resident, so it turns off,
         with a warning, where the JAX package's estimate of the pair
         exceeds ``WJAV_GENERATE_AHEAD_GB`` (default 6, the JAX package's
-        value)."""
+        value).
+
+        ``WJAV_TRACE_BATCHES=1``: each call records its spans
+        (``self.recorder``, ``tracer.latest()``): one ``qwen.batch`` a
+        batch (counters ``rows``, the clips in it, ``audio_tokens``, the
+        prefix positions a row, and ``budget``) over ``qwen.mel``,
+        :func:`generate`'s stages and ``qwen.drain``."""
         from whisperjav_tpu_torch.models.qwen.model import generate
         from whisperjav_tpu_torch.ops.mel import log_mel_spectrogram
         assert self._params is not None, "call load() first"
@@ -271,35 +286,50 @@ class QwenGenerator:
                 pair_cache_gb, limit_gb, self.batch_size, t_max)
             ahead_on = False
 
-        def drain(start: int, n: int, res) -> None:
-            toks = res.tokens.cpu().numpy()
-            lens = res.length.cpu().numpy()
-            lps = res.avg_logprob.cpu().numpy()
-            for r in range(n):
-                out.append(TranscriptionResult(
-                    frame_index=start + r,
-                    text=self._decode_text(toks[r], int(lens[r])),
-                    avg_logprob=float(lps[r])))
+        rec = self.recorder = (
+            tracer.SpanRecorder()
+            if os.environ.get("WJAV_TRACE_BATCHES", "0") != "0" else None)
+
+        def drain(start: int, n: int, res, root) -> None:
+            with tracer.span(root, "qwen.drain"):
+                toks = res.tokens.cpu().numpy()
+                lens = res.length.cpu().numpy()
+                lps = res.avg_logprob.cpu().numpy()
+                for r in range(n):
+                    out.append(TranscriptionResult(
+                        frame_index=start + r,
+                        text=self._decode_text(toks[r], int(lens[r])),
+                        avg_logprob=float(lps[r])))
+            if root is not None:
+                root.close()
 
         pending = None
         for i in range(0, len(clips), self.batch_size):
             chunk = clips[i:i + self.batch_size]
-            buf = np.zeros((self.batch_size, max_len), np.float32)
-            for r, c in enumerate(chunk):
-                buf[r, :len(c)] = c
-            mel = log_mel_spectrogram(torch.from_numpy(buf).to(self.device),
-                                      n_mels=self.cfg.n_mels)
-            res = generate(self._params, mel, max_new=budget,
-                           audio_len=self.cfg.audio_tokens_for(mel.shape[-1]),
-                           repetition_penalty=self.repetition_penalty,
-                           ctx_ids=ctx)
+            root = tracer.child(rec, "qwen.batch", i // self.batch_size)
+            with tracer.span(root, "qwen.mel"):
+                buf = np.zeros((self.batch_size, max_len), np.float32)
+                for r, c in enumerate(chunk):
+                    buf[r, :len(c)] = c
+                mel = log_mel_spectrogram(
+                    torch.from_numpy(buf).to(self.device),
+                    n_mels=self.cfg.n_mels)
+            audio_len = self.cfg.audio_tokens_for(mel.shape[-1])
+            if root is not None:
+                root.counters.update(rows=len(chunk), audio_tokens=audio_len,
+                                     budget=budget)
+            with tracer.within(root):
+                res = generate(self._params, mel, max_new=budget,
+                               audio_len=audio_len,
+                               repetition_penalty=self.repetition_penalty,
+                               ctx_ids=ctx)
             if pending is not None:
                 drain(*pending)
                 pending = None
             if ahead_on:
-                pending = (i, len(chunk), res)
+                pending = (i, len(chunk), res, root)
             else:
-                drain(i, len(chunk), res)
+                drain(i, len(chunk), res, root)
         if pending is not None:
             drain(*pending)
         return out

@@ -6,7 +6,8 @@ semantics as openai-whisper's ``log_mel_spectrogram``: n_fft=400,
 hop=160, periodic Hann window, centred reflect padding, the last STFT
 frame dropped, Slaney mel filterbank, log10 clamped at 1e-10, then
 ``max - 8`` and ``(x + 4) / 4``. The STFT is one strided conv1d with a
-windowed DFT basis, as in the JAX version.
+windowed DFT basis, as in the JAX version; it and the filterbank's
+matmul run in full f32 (no TF32, whatever the process-wide flags say).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from whisperjav_tpu_torch.utils.precision import full_f32
 
 SAMPLE_RATE = 16_000
 N_FFT = 400
@@ -104,12 +107,13 @@ def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = 80,
     flat = audio.reshape(-1, 1, n_samples)
     padded = F.pad(flat, (n_fft // 2, n_fft // 2), mode="reflect")
     kernel = torch.from_numpy(_dft_conv_kernel(n_fft)).to(audio.device)
-    stft = F.conv1d(padded, kernel, stride=hop)[..., :n_frames]
     n_freqs = n_fft // 2 + 1
-    real, imag = stft[:, :n_freqs], stft[:, n_freqs:]
-    power = real * real + imag * imag                      # (B, F, T)
     fbank = torch.from_numpy(mel_filterbank(n_mels, n_freqs)).to(audio.device)
-    mel = torch.matmul(fbank, power)                       # (B, n_mels, T)
+    with full_f32():
+        stft = F.conv1d(padded, kernel, stride=hop)[..., :n_frames]
+        real, imag = stft[:, :n_freqs], stft[:, n_freqs:]
+        power = real * real + imag * imag                  # (B, F, T)
+        mel = torch.matmul(fbank, power)                   # (B, n_mels, T)
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     max_val = log_spec.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, max_val - 8.0)

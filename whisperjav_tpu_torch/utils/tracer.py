@@ -15,7 +15,9 @@ batch id, shard and counters, on ``time.perf_counter_ns()``'s clock; its
 :func:`span` and :func:`child`, which do nothing without a recorder;
 code below the engine (the decode loops) opens its own under the
 innermost span the engine entered (:func:`current`), so with tracing
-off it reads one context variable a call and nothing more.
+off it reads one context variable a call and nothing more. A stage
+whose device work should lie inside its own span closes it with
+:meth:`Span.close_synced`, which waits for the device first.
 """
 
 from __future__ import annotations
@@ -154,6 +156,17 @@ class Span:
         if self.parent is not None:
             self.parent._mark = self.end_ns
 
+    def close_synced(self, device, **counters) -> None:
+        """:meth:`close` once ``device`` has run the work queued so far
+        (a CUDA device; elsewhere at once): on the device trace's clock
+        the stage's device work then lies inside the span, for readers
+        that take the device's busy time within it. Traced runs only:
+        the wait holds the host back from queueing the next stage."""
+        import torch
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        self.close(**counters)
+
 
 class SpanRecorder:
     """The spans of one traced call, in the order they opened, and the
@@ -229,6 +242,20 @@ def span(under: Under, name: str, batch=None):
 def child(under: Under, name: str, batch=None) -> Optional[Span]:
     """``under.child(name, batch)``, or None when ``under`` is None."""
     return None if under is None else under.child(name, batch)
+
+
+@contextlib.contextmanager
+def within(span: Optional[Span]) -> Iterator[None]:
+    """``span`` as the innermost span for the block, left open (code below
+    opens its spans under it); nothing when ``span`` is None."""
+    if span is None:
+        yield
+        return
+    token = _OPEN.set(span)
+    try:
+        yield
+    finally:
+        _OPEN.reset(token)
 
 
 def current() -> Optional[Span]:
