@@ -58,12 +58,19 @@ Phases, in order; any failure exits non-zero before the result line:
 7. the qwen phase: a narrow Qwen3-ASR (test widths, int8 LM) from one
    seed on the GPU (f32, no TF32) and the CPU: prefill logits and 8
    teacher-forced steps within QWEN_TOL_REL, identical int8 codes, and
-   identical forced-aligner spans (``align_spans``); then ``--mode qwen``
+   identical forced-aligner spans (``align_spans``); the decode step's
+   column attention kernel against its plain version at QCOL_CASES (the
+   qwen3-asr-balanced cell's shapes in f32 and bf16, the translator's
+   B=1 with two and four query heads a KV group (Qwen3-1.7B and 4B), the
+   test widths: the output within QCOL_TOL_REL or one bf16
+   step, the column written into the cache), with its byte bound, the
+   plain version's and SDPA's ms; then ``--mode qwen``
    on a ~60 s clip (Qwen3-ASR-1.7B at full width and depth from a seeded
    random init, int8 LM, B=32, semantic scenes, the whisperseg framer,
    the forced aligner; at least two scenes, every cue inside the clip,
    generate and align stages above 0, the generator's and aligner's
-   parameters on the card), the costs of the path (one timed B=32
+   parameters on the card, the column attention kernel launched), the
+   costs of the path (one timed B=32
    generate: ms per step and the device's busy share from the profiler,
    the AuT encode, ``align_spans`` per bucket), and the same clip with
    ``--generator anime-whisper --model small`` (Kernel A and Kernel B's
@@ -1290,6 +1297,7 @@ def kernel_counters():
     counted alike)."""
     from whisperjav_tpu_torch.ops.cuda import decode_attention as da
     from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
+    from whisperjav_tpu_torch.ops.cuda import qwen_attention as qa
     from whisperjav_tpu_torch.models.whisper.word_align import (
         cross_attention_maps,
     )
@@ -1303,7 +1311,8 @@ def kernel_counters():
                 "decode_cross_attention_terms":
                     da.decode_cross_attention_terms,
                 "self_block": fd.self_block, "cross_block": fd.cross_block,
-                "mlp_block": fd.mlp_block}
+                "mlp_block": fd.mlp_block,
+                "qwen_column_attention": qa.column_attention}
     counters.update({f"{k}_in_block": v for k, v in fd.inner.items()})
     return counters
 
@@ -1603,6 +1612,140 @@ def check_small_qwen_reference(dev):
     if not same_spans:
         raise RuntimeError(f"align_spans on the GPU differ from the CPU: "
                            f"{spans}")
+
+
+# the column attention's cases: (label, L, B, T_max, n_kv, rep, hd,
+# positions, types): Qwen3-ASR-1.7B in the qwen3-asr-balanced cell (a
+# 625-position prefix, 576 steps), the translator at B=1 (a 400-token
+# prompt, 128 new) with Qwen3-1.7B (two query heads a KV group) and
+# Qwen3-4B (four), and the small qwen reference's test widths
+QCOL_CASES = (
+    ("cell", 28, 32, 1201, 8, 2, 128, (625, 913, 1200),
+     (torch.float32, torch.bfloat16)),
+    ("translator", 28, 1, 528, 8, 2, 128, (400, 527), (torch.float32,)),
+    ("translator 4B", 36, 1, 528, 8, 4, 128, (400, 527),
+     (torch.float32, torch.bfloat16)),
+    ("test widths", 4, 2, 59, 4, 2, 32, (51, 58), (torch.float32,)))
+# f32 on both sides, sums in another order; bf16: the kernel against the
+# plain version in f32 on the same bf16 inputs, one bf16 step
+QCOL_TOL_REL = 2e-5
+QCOL_MAIN = ("cell", 913, torch.float32)
+
+
+def qwen_column_bytes(b, nh, n_kv, hd, pos, itemsize) -> int:
+    """One layer-step's least bytes: each row's filled K and V read once,
+    the new column read and written, q read and the output written."""
+    kvd = n_kv * hd
+    return itemsize * b * (2 * pos * kvd + 4 * kvd + 2 * nh * hd)
+
+
+def check_qwen_column_attention(dev, gen):
+    """The Qwen3 decode step's column attention
+    (``csrc/qwen_column_attention.cu``) against its plain version at
+    QCOL_CASES: the output within its tolerance and the cache after the
+    step equal (the column written at pos, nothing else); device ms of
+    the kernel and the plain version walking the layers (a layer's K and
+    V outgrow L2 at the cell's shapes, as in a step), SDPA on the filled
+    positions of the cache as the library yardstick (GQA, the cache's
+    strided view), and the byte bound."""
+    import itertools
+    from whisperjav_tpu_torch.ops.cuda import qwen_attention as qa
+    worst, cases = 0.0, []
+    for label, n_layer, b, t_max, n_kv, rep, hd, positions, dtypes \
+            in QCOL_CASES:
+        nh = rep * n_kv
+        for dtype in dtypes:
+            shape = (n_layer, b, t_max, n_kv * hd)
+            ck = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+            cv = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+            for pos in positions:
+                q = torch.randn(b, 1, nh, hd, generator=gen,
+                                device=dev).to(dtype)
+                kn, vn = (torch.randn(b, n_kv * hd, generator=gen,
+                                      device=dev).to(dtype)
+                          for _ in range(2))
+                layer = n_layer - 1
+                one = slice(layer, layer + 1)
+                want = qa.column_attention_plain(
+                    q.float(), ck[one].float().clone(),
+                    cv[one].float().clone(), 0, pos, kn.float(), vn.float())
+                low = (qa.column_attention_plain(
+                    q, ck[one].clone(), cv[one].clone(), 0, pos, kn,
+                    vn).float() if dtype != torch.float32 else None)
+                after_k, after_v = ck[layer].clone(), cv[layer].clone()
+                after_k[:, pos], after_v[:, pos] = kn, vn
+                out = qa.column_attention(q, ck, cv, layer, pos, kn, vn)
+                torch.cuda.synchronize()
+                err = (out.float() - want).abs().max().item()
+                tol = (QCOL_TOL_REL * want.abs().max().item()
+                       if dtype == torch.float32 else _bf16_step(want))
+                written = bool(torch.equal(ck[layer], after_k)
+                               and torch.equal(cv[layer], after_v))
+                del after_k, after_v
+                low_err = (None if low is None
+                           else (low - want).abs().max().item())
+                name = (f"{label} L={n_layer} B={b} T_max={t_max} "
+                        f"n_kv={n_kv} rep={rep} hd={hd} pos={pos} "
+                        f"{str(dtype).split('.')[-1]}")
+                if not torch.isfinite(out.float()).all() or err > tol \
+                        or not written:
+                    raise RuntimeError(
+                        f"qwen column attention {name}: max |err| {err:.3g} "
+                        f"(tol {tol:.3g}), column written {written}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+
+                def walk(fn):
+                    layers = itertools.cycle(range(n_layer))
+                    return lambda: fn(q, ck, cv, next(layers), pos, kn, vn)
+                ms = device_ms(walk(qa.column_attention), 40)
+                plain_ms = device_ms(walk(qa.column_attention_plain), 5)
+                qh = q.transpose(1, 2)
+                cyc = itertools.cycle(range(n_layer))
+
+                def library():
+                    i = next(cyc)
+                    kl, vl = (c[i, :, :pos + 1].unflatten(-1, (n_kv, hd))
+                              .transpose(1, 2) for c in (ck, cv))
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qh, kl, vl, scale=hd ** -0.5, enable_gqa=True)
+                try:
+                    sdpa_ms = device_ms(library, 40)
+                except TypeError:        # a torch without enable_gqa
+                    sdpa_ms = None
+                itemsize = torch.empty((), dtype=dtype).element_size()
+                nbytes = qwen_column_bytes(b, nh, n_kv, hd, pos, itemsize)
+                bnd = bound(nbytes, 4 * b * nh * hd * (pos + 1), PEAK_F32)
+                log(f"qwen column attention {name}: max |err| {err:.3g} (tol "
+                    f"{tol:.3g}"
+                    + (f"; the bf16 plain version's own {low_err:.3g}"
+                       if low is not None else "")
+                    + f"), column written; kernel {ms:.4f} ms "
+                    f"({nbytes / ms / 1e6:.0f} GB/s, {100 * bnd[0] / ms:.1f}% "
+                    f"of the {bnd[0]:.4f} ms {bnd[1]} bound), plain "
+                    f"{plain_ms:.4f} ms, SDPA (GQA, the cache's view) "
+                    f"{sdpa_ms} ms")
+                cases.append({"case": label, "b": b, "t_max": t_max,
+                              "n_kv": n_kv, "rep": rep, "hd": hd,
+                              "pos": pos,
+                              "dtype": str(dtype).split(".")[-1], "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                              "bound_ms": bnd[0], "max_abs_err": err,
+                              "tol": tol})
+                del q, kn, vn, want, out
+            del ck, cv
+            torch.cuda.empty_cache()
+    main = next(c for c in cases if (c["case"], c["pos"], c["dtype"])
+                == (QCOL_MAIN[0], QCOL_MAIN[1], "float32"))
+    rec = record("qwen_column_attention",
+                 "whisperjav_tpu_torch/csrc/qwen_column_attention.cu",
+                 "none (the JAX package's Qwen step has no Pallas kernel)",
+                 worst, main["ms"], main["plain_ms"],
+                 (main["bound_ms"], "bytes"),
+                 per="one layer-step, L=28, B=32, T_max=1201, pos 913, f32",
+                 cases=cases)
+    rec["library_ms"] = main["library_ms"]
+    return rec
 
 
 @contextlib.contextmanager
@@ -3873,7 +4016,8 @@ def run_tools_phase(tmp: Path) -> dict:
     return {k: profile[k] + fw[k] + det[k] for k in profile}
 
 
-QWEN_NEEDS = ()
+# Qwen3-ASR's decode steps take the column attention kernel
+QWEN_NEEDS = ("qwen_column_attention",)
 QWEN_WHISPER_NEEDS = TURBO_NEEDS
 # the WhisperSeg framer's network: its encoder takes Kernel A, its bf16
 # decoder prefill Kernel B's bf16 form
@@ -5423,6 +5567,7 @@ def main(argv=None) -> int:
         if "qwen" in only:
             with phase("qwen"):
                 check_small_qwen_reference(dev)
+                kernels.append(check_qwen_column_attention(dev, gen))
                 launches["qwen"] = run_qwen_cli_path(
                     Path(tmp), "qwen", ["--no-signature"], QWEN_NEEDS)
                 torch.cuda.empty_cache()

@@ -23,13 +23,19 @@ Int8 LM weights (:func:`quantize_lm_weights`) are the JAX tree's
 products are taken in f32 and scaled, as the JAX package's ``_dense``.
 The forward passes run in full f32 where the parameters are f32 (no
 TF32, whatever the process-wide flags say). No Pallas kernel lies on
-this path: the products are PyTorch matmuls.
+this path: the products are PyTorch matmuls. A decode step's attention
+runs ``csrc/qwen_column_attention.cu`` on CUDA tensors
+(``ops/cuda/qwen_attention.py``), a kernel the JAX package does not
+need: XLA fuses the einsums that eager PyTorch would run as copies of
+the whole cache.
 
 Under a span the caller entered (``WJAV_TRACE_BATCHES=1``, see
 ``utils/tracer.py``; ``QwenGenerator.generate_batch`` enters its
 ``qwen.batch``), :func:`generate` records ``qwen.encode`` and
 ``qwen.prefill``, and :func:`_decode` records ``decode.loop`` (counters
-``steps``, the forwards run, and ``rows``) with one ``decode.step`` a
+``steps``, the forwards run, ``rows``, ``start``, the position of the
+first generated token, and ``kernel_layers``, the layer-steps whose
+attention ran the hand-written kernel) with one ``decode.step`` a
 step and its children ``decode.stop_check`` (the every-8-steps wait for
 the flag), ``decode.select`` (penalty, token choice, log-softmax and
 bookkeeping) and ``decode.forward`` (the :func:`lm_step` enqueue). Each
@@ -52,6 +58,7 @@ from whisperjav_tpu_torch.models.whisper.model import (
     Int8, Int8Weight, sinusoid_positions,
 )
 from whisperjav_tpu_torch.models.whisper.quant import _quantize
+from whisperjav_tpu_torch.ops.cuda import qwen_attention
 from whisperjav_tpu_torch.utils import tracer
 from whisperjav_tpu_torch.utils.precision import full_f32
 
@@ -367,16 +374,15 @@ class LMCache(NamedTuple):
 
 
 def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
-              cfg: QwenASRConfig, bias: torch.Tensor, cos, sin,
-              column_mode: bool):
+              cfg: QwenASRConfig, bias: Optional[torch.Tensor], cos, sin):
     """LM layer ``i`` at positions [pos, pos + q_len).
 
-    Column mode (q_len == 1) leaves the cache as it is and returns this
-    layer's new K/V column: the logits over the cache (``bias`` masks the
-    slots at and after ``pos``) and the new key's logit go through one
-    softmax. Otherwise the new K/V are written into the cache in place,
-    then attended under the causal ``bias``. Query head h reads KV group
-    h // rep in both forms."""
+    A single position (q_len == 1) goes through
+    :func:`~whisperjav_tpu_torch.ops.cuda.qwen_attention.column_attention`,
+    which attends over the cache's [0, pos) and the new key and writes
+    the new K/V column at ``pos``. Otherwise the new K/V are written into
+    the cache in place, then attended under the causal ``bias``. Query
+    head h reads KV group h // rep in both forms."""
     b, q_len, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = nh // nkv
@@ -391,23 +397,13 @@ def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
                       cfg.rms_eps), cos, sin)
     k = rope(rms_norm(k.reshape(b, q_len, nkv, hd), p["k_norm"][i],
                       cfg.rms_eps), cos, sin)
-    t_max = cache.k.shape[2]
-    qg = (q * hd ** -0.5).reshape(b, q_len, nkv, rep, hd)
-    if column_mode:
-        kk = cache.k[i].to(q.dtype).reshape(b, t_max, nkv, hd)
-        vv = cache.v[i].to(q.dtype).reshape(b, t_max, nkv, hd)
-        k_new = k.reshape(b, 1, nkv, hd)
-        v_new = v.reshape(b, 1, nkv, hd)
-        lg_c = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).float() + bias
-        lg_n = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_new).float()
-        a = torch.softmax(torch.cat([lg_c, lg_n], dim=-1),
-                          dim=-1).to(q.dtype)
-        o = (torch.einsum("bgrqk,bkgd->bqgrd", a[..., :t_max], vv).float()
-             + torch.einsum("bgrqk,bkgd->bqgrd", a[..., t_max:],
-                            v_new).float()).to(x.dtype)
-        k_col = k.reshape(b, nkv * hd).to(cache.k.dtype)
-        v_col = v.reshape(b, nkv * hd).to(cache.v.dtype)
+    if q_len == 1:
+        o = qwen_attention.column_attention(
+            q, cache.k, cache.v, i, pos, k.reshape(b, nkv * hd),
+            v.reshape(b, nkv * hd))
     else:
+        t_max = cache.k.shape[2]
+        qg = (q * hd ** -0.5).reshape(b, q_len, nkv, rep, hd)
         cache.k[i, :, pos:pos + q_len] = k.reshape(b, q_len, nkv * hd)
         cache.v[i, :, pos:pos + q_len] = v
         kk = cache.k[i].to(q.dtype).reshape(b, t_max, nkv, hd)
@@ -415,45 +411,34 @@ def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
         lg = torch.einsum("bqgrd,bkgd->bgrqk", qg, kk).float() + bias
         a = torch.softmax(lg, dim=-1).to(q.dtype)
         o = torch.einsum("bgrqk,bkgd->bqgrd", a, vv).to(x.dtype)
-        k_col = v_col = None
     x = x + dense(o.reshape(b, q_len, nh * hd), p["wo"][i])
     h = rms_norm(x, p["ln2"][i], cfg.rms_eps)
     gate = F.silu(dense(h, p["w_gate"][i]))
-    x = x + dense(gate * dense(h, p["w_up"][i]), p["w_down"][i])
-    return x, k_col, v_col
+    return x + dense(gate * dense(h, p["w_up"][i]), p["w_down"][i])
 
 
 def lm_step(model: QwenASR, x_emb: torch.Tensor, pos: int,
             cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
     """Embedded inputs (B, q_len, d) at [pos, pos + q_len) -> f32 logits
-    (B, q_len, vocab); the cache is updated in place (a single step
-    writes every layer's new column at ``pos`` after the layers)."""
+    (B, q_len, vocab); each layer writes its new K/V into the cache in
+    place."""
     cfg = model.config
     b, q_len, _ = x_emb.shape
     t_max = cache.k.shape[2]
     dev = x_emb.device
-    column_mode = q_len == 1
-    k_idx = torch.arange(t_max, device=dev)
-    if column_mode:
-        visible = (k_idx < pos)[None, :]
-    else:
+    bias = None
+    if q_len > 1:
+        k_idx = torch.arange(t_max, device=dev)
         q_idx = pos + torch.arange(q_len, device=dev)
-        visible = k_idx[None, :] <= q_idx[:, None]
-    bias = torch.where(visible, 0.0, float("-inf"))
+        bias = torch.where(k_idx[None, :] <= q_idx[:, None], 0.0,
+                           float("-inf"))
     cos, sin = rope_angles(pos + torch.arange(q_len, device=dev),
                            cfg.head_dim, cfg.rope_theta)
     blocks = model.blocks
     x = x_emb
-    k_cols, v_cols = [], []
     with full_f32():
         for i in range(cfg.n_layers):
-            x, kc, vc = _lm_block(x, blocks, i, cache, pos, cfg, bias, cos,
-                                  sin, column_mode)
-            k_cols.append(kc)
-            v_cols.append(vc)
-        if column_mode:
-            cache.k[:, :, pos] = torch.stack(k_cols)
-            cache.v[:, :, pos] = torch.stack(v_cols)
+            x = _lm_block(x, blocks, i, cache, pos, cfg, bias, cos, sin)
         x = rms_norm(x, model.ln_f, cfg.rms_eps)
         if "lm_head_q" in model:
             lm = model.lm_head_q
@@ -513,6 +498,7 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
     seen = (torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
             if penalize else None)
     loop = tracer.child(tracer.current(), "decode.loop")
+    launched = qwen_attention.column_attention.launches
     steps = 0
     for step in range(max_new):
         span = None if loop is None else loop.child("decode.step")
@@ -556,7 +542,9 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
         if span is not None:
             span.close()
     if loop is not None:
-        loop.close_synced(dev, steps=steps, rows=b)
+        loop.close_synced(dev, steps=steps, rows=b, start=start,
+                          kernel_layers=qwen_attention.column_attention
+                          .launches - launched)
     avg_lp = sum_lp / (length.float() + 1.0)
     return QwenGenResult(tokens, length, avg_lp)
 

@@ -116,7 +116,7 @@ def open_library(path: Path) -> ctypes.CDLL:
     interface (the same in every version of the kernels; an older
     version may lack the scaled forms of Kernel B, and has the self
     block's ``wjt_self_block``, which took the position by value, in
-    place of ``wjt_self_block_at``)."""
+    place of ``wjt_self_block_at``, and no ``wjt_qwen_column_attention``)."""
     lib = ctypes.CDLL(str(path))
     lib.wjt_encoder_attention.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,
@@ -140,6 +140,10 @@ def open_library(path: Path) -> ctypes.CDLL:
     lib.wjt_cross_block.restype = _I
     lib.wjt_mlp_block.argtypes = [_P] * 11 + [_I] * 4 + [_P]
     lib.wjt_mlp_block.restype = _I
+    if hasattr(lib, "wjt_qwen_column_attention"):
+        lib.wjt_qwen_column_attention.argtypes = [_P] * 6 + [_I64] * 2 \
+            + [_I] * 8 + [ctypes.c_float, _P]
+        lib.wjt_qwen_column_attention.restype = _I
     lib.wjt_error_string.argtypes = [_I]
     lib.wjt_error_string.restype = ctypes.c_char_p
     return lib
