@@ -263,16 +263,14 @@ beside Kernel A and beside the self attention inside the self block;
 null elsewhere), and the launches on the large-v2 int8 path
 (``launches_by_path`` holds every CLI path's, the ensemble's, the
 async run's, the ahead phase's and the switches phase's included). The kernels inside the fused blocks are timed by the profiler at
-the blocks' main shapes. Where ``build/v1/whisperjav_tpu_torch/csrc``
-holds an older version of the kernels (an unpacked earlier commit), it
-is built too, and Kernel A and Kernel B (f32 form, every case) of both
-versions are timed in turns in this run (``v1_ms``).
+the blocks' main shapes. To time an older version of the kernels beside
+these, run that tree's own ``chip_smoke.py --only kernels`` from its
+``git archive`` copy in the same call.
 """
 
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import contextlib
 import io
 import json
@@ -343,9 +341,6 @@ ENHANCE_CHUNK_S = 8.0
 BSR_COMPARE_S = 2.0
 # what the autostarted daemon's /health must report as its device
 DAEMON_DEVICE = "cuda:NVIDIA"
-# an older version of the kernels, when present, is timed beside these
-V1_CSRC = Path(__file__).resolve().parent / "build" / "v1" / \
-    "whisperjav_tpu_torch" / "csrc"
 
 
 def log(msg: str) -> None:
@@ -425,28 +420,6 @@ def record(name, source, replaces, max_err, ms, plain_ms, bound_, **extra):
             "bound_by": bound_[1], "library_ms": None, **extra}
 
 
-@contextlib.contextmanager
-def kernels_from(lib):
-    """Route every wrapper's launches to ``lib`` (another build of the
-    same C interface) inside the block."""
-    from whisperjav_tpu_torch.ops.cuda import _build
-    from whisperjav_tpu_torch.ops.cuda import fused_decode as fd
-    saved = _build.load_library
-    _build.load_library = lambda: lib
-    fd._workspace_bytes.cache_clear()
-    try:
-        yield
-    finally:
-        _build.load_library = saved
-        fd._workspace_bytes.cache_clear()
-
-
-def turn_kernels(turn: str, v1_lib):
-    """The kernels of a timing turn: the older version's for "v1", this
-    tree's otherwise."""
-    return kernels_from(v1_lib) if turn == "v1" else contextlib.nullcontext()
-
-
 def kernel_device_ms(fn, reps: int = 10) -> tuple:
     """Device ms per call of ``fn`` of each CUDA kernel it launches, and
     its launches per call, by short name (``qgemv_kernel<2, 4>``), from
@@ -471,7 +444,7 @@ def kernel_device_ms(fn, reps: int = 10) -> tuple:
     return out, {k: round(v) for k, v in counts.items()}
 
 
-def check_encoder_attention(dev, gen, v1_lib):
+def check_encoder_attention(dev, gen):
     from whisperjav_tpu_torch.ops.cuda.encoder_attention import (
         attention, encoder_attention,
     )
@@ -496,19 +469,15 @@ def check_encoder_attention(dev, gen, v1_lib):
     # the library yardstick on the same tensors, as (B, H, T, hd) views
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    times = {"kernel": [], "library": [], "v1": []}
-    for turn in ("kernel", "library", "v1", "v1", "library", "kernel"):
-        if turn == "v1" and v1_lib is None:
-            continue
+    times = {"kernel": [], "library": []}
+    for turn in ("kernel", "library", "library", "kernel"):
         if turn == "library":
             times[turn].append(device_ms(lambda: sdpa(qh, kh, vh), iters=20))
             continue
-        with turn_kernels(turn, v1_lib):
-            times[turn].append(device_ms(lambda: encoder_attention(q, k, v),
-                                         iters=20))
+        times[turn].append(device_ms(lambda: encoder_attention(q, k, v),
+                                     iters=20))
     ms = statistics.median(times["kernel"])
     library_ms = statistics.median(times["library"])
-    v1_ms = statistics.median(times["v1"]) if times["v1"] else None
     plain_ms = device_ms(lambda: attention(q, k, v), iters=5)
     b, t, h, hd = shape
     flop = 4 * b * h * t * t * hd
@@ -516,12 +485,11 @@ def check_encoder_attention(dev, gen, v1_lib):
     log(f"kernel A per layer: {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, "
         f"{100 * bnd[0] / ms:.1f}% of the {bnd[0]:.4f} ms bound), "
         f"scaled_dot_product_attention {library_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms; turns {json.dumps(times)}"
-        + (f"; older version {v1_ms:.4f} ms" if v1_ms else ""))
+        f"{plain_ms:.4f} ms; turns {json.dumps(times)}")
     rec = record("encoder_attention",
                  "whisperjav_tpu_torch/csrc/encoder_attention.cu",
                  "whisperjav_tpu/ops/pallas/attention.py:52", max_err, ms,
-                 plain_ms, bnd, v1_ms=v1_ms)
+                 plain_ms, bnd)
     rec["library_ms"] = library_ms
     return rec
 
@@ -539,11 +507,11 @@ B_TS = (448, 960, 1500, 37)
 B_SDPA_LAYERS = 4
 
 
-def check_decode_attention(dev, gen, v1_lib):
+def check_decode_attention(dev, gen):
     """Kernel B against its plain versions in all three output forms (f32;
     bf16 of out * v_scale; its hi/lo terms) at large-v2 widths (L=32, H=20),
-    every case of B_CASES x B_TS; device times of each form, of the plain
-    version and, in turns, of the older version (f32 form). Timed calls
+    every case of B_CASES x B_TS; device times of each form and of the
+    plain version. Timed calls
     walk the 32 layers, so K/V arrive from device memory as in a decode
     step, not from L2."""
     import itertools
@@ -601,16 +569,9 @@ def check_decode_attention(dev, gen, v1_lib):
                 def walk(fn, *extra):
                     layers = itertools.cycle(range(n_layer))
                     return lambda: fn(q, k8, v8, next(layers), *extra)
-                times = {"kernel": [], "v1": []}
-                for turn in ("kernel", "v1", "v1", "kernel"):
-                    if turn == "v1" and v1_lib is None:
-                        continue
-                    with turn_kernels(turn, v1_lib):
-                        times[turn].append(device_ms(
-                            walk(da.decode_cross_attention), 40))
+                times = {"kernel": [device_ms(
+                    walk(da.decode_cross_attention), 40) for _ in range(2)]}
                 ms = statistics.median(times["kernel"])
-                v1_ms = statistics.median(times["v1"]) if times["v1"] \
-                    else None
                 bf16_ms = device_ms(walk(da.decode_cross_attention_bf16,
                                          vs), 40)
                 terms_ms = device_ms(walk(da.decode_cross_attention_terms,
@@ -641,12 +602,11 @@ def check_decode_attention(dev, gen, v1_lib):
                     f"{100 * bnd[0] / ms:.1f}% of the {bnd[0]:.4f} ms "
                     f"bound), bf16 {bf16_ms:.4f} ms, terms {terms_ms:.4f} "
                     f"ms, plain {plain_ms:.4f} ms"
-                    + (f", older version {v1_ms:.4f} ms" if v1_ms else "")
                     + (f", SDPA on dequantised f32 K/V {sdpa_ms:.4f} ms"
                        if sdpa_ms is not None else "")
                     + f"; turns {json.dumps(times)}")
                 cases.append({"b": b, "t": t, "r": rows, "ms": ms,
-                              "v1_ms": v1_ms, "bf16_ms": bf16_ms,
+                              "bf16_ms": bf16_ms,
                               "terms_ms": terms_ms, "plain_ms": plain_ms,
                               "bound_ms": bnd[0],
                               "sdpa_dequantised_ms": sdpa_ms,
@@ -660,14 +620,14 @@ def check_decode_attention(dev, gen, v1_lib):
     return record("decode_cross_attention",
                   "whisperjav_tpu_torch/csrc/decode_cross_attention.cu",
                   "whisperjav_tpu/ops/pallas/decode_attention.py:57", worst,
-                  main["ms"], main["plain_ms"], bnd, v1_ms=main["v1_ms"],
+                  main["ms"], main["plain_ms"], bnd,
                   per="one layer, L=32, B=32, R=2, T=1500, f32 form",
                   cases=cases)
 
 
 def _int8_stack(gen, dev, k: int, n: int):
-    """(L, k, n) random weights quantised as quant._quantize does."""
-    from whisperjav_tpu_torch.models.whisper.model import Int8
+    """(L, k, n) random weights quantised as ``layers.quantize`` does."""
+    from whisperjav_tpu_torch.models.layers import Int8
     w = torch.randn(LV2_L, k, n, generator=gen, device=dev) * k ** -0.5
     s = w.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
     return Int8(torch.round(w / s).clamp(-127, 127).to(torch.int8), s)
@@ -1548,13 +1508,13 @@ def check_small_qwen_reference(dev):
     from whisperjav_tpu_torch.models.qwen import aligner as qa
     from whisperjav_tpu_torch.models.qwen import model as qm
     from whisperjav_tpu_torch.models.qwen.weights import init_params
-    from whisperjav_tpu_torch.models.whisper.quant import _quantize
+    from whisperjav_tpu_torch.models.layers import quantize
     cfg = qm.QWEN_SIZES["qwen3-asr-test"]
     cpu = qm.quantize_lm_weights(qm.fuse_lm_qkv(init_params(
         cfg, torch.Generator().manual_seed(0))))
     gpu = copy.deepcopy(cpu).to(dev)
     raw = qm.fuse_lm_qkv(init_params(cfg, torch.Generator().manual_seed(0)))
-    q_gpu, s_gpu = _quantize(raw.blocks["wqkv"].to(dev))
+    q_gpu, s_gpu = quantize(raw.blocks["wqkv"].to(dev))
     same_codes = bool((q_gpu.cpu() == cpu.blocks["wqkv"].q).all()
                       and (s_gpu.cpu() == cpu.blocks["wqkv"].s).all())
     g = torch.Generator().manual_seed(1)
@@ -2100,7 +2060,7 @@ def whisperseg_weights(seed: int):
     bias is minus the median logit over a synthetic 30 s window, so
     about half of that window's frames cross 0.5."""
     from whisperjav_tpu_torch.models.vad import whisperseg as ws
-    from whisperjav_tpu_torch.models.whisper.model import sinusoid_positions
+    from whisperjav_tpu_torch.models.layers import sinusoid_positions
     model = ws.init_params(torch.Generator().manual_seed(seed))
     cfg = model.config
     model.decoder.pos_emb.data = torch.from_numpy(
@@ -5508,15 +5468,8 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
         f"device(s); {card}")
-    # this tree's kernels and, where present, the older version's, each
-    # file in its own nvcc process, all started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        new_build = pool.submit(_build.build)
-        old_build = (pool.submit(_build.build, V1_CSRC,
-                                 _build.BUILD_DIR / "v1")
-                     if V1_CSRC.is_dir() else None)
-        path, build_s, report = new_build.result()
-        v1_path = old_build.result()[0] if old_build else None
+    # each kernel file in its own nvcc process, all started together
+    path, build_s, report = _build.build()
     log(f"built {path.name} in {build_s:.3f} s from "
         f"{[p.name for p in _build.sources()]}")
     for line in report.splitlines():
@@ -5524,16 +5477,13 @@ def main(argv=None) -> int:
                 or "spill" in line:
             log(f"  {line.strip()}")
     _build.load_library()
-    v1_lib = _build.open_library(v1_path) if v1_path else None
-    if v1_lib is not None:
-        log(f"older version of the kernels from {V1_CSRC}: {v1_path.name}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
     if "kernels" in only:
         with phase("kernels"):
-            kernels = [check_encoder_attention(dev, gen, v1_lib),
-                       check_decode_attention(dev, gen, v1_lib),
+            kernels = [check_encoder_attention(dev, gen),
+                       check_decode_attention(dev, gen),
                        *check_fused_blocks(dev, gen)]
             torch.cuda.empty_cache()
     if "reference" in only:

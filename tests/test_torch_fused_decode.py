@@ -10,7 +10,7 @@ import jax.numpy as jnp
 
 from whisperjav_tpu.models.whisper.quant import _quantize
 from whisperjav_tpu.ops.pallas import fused_decode as jfd
-from whisperjav_tpu_torch.models.whisper.model import Int8
+from whisperjav_tpu_torch.models.layers import Int8
 from whisperjav_tpu_torch.ops.cuda import fused_decode as tfd
 from whisperjav_tpu_torch.ops.cuda.decode_attention import (
     decode_cross_attention_terms_plain,

@@ -17,6 +17,7 @@ from whisperjav_tpu.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.models.whisper.config import (
     WhisperConfig as TorchWhisperConfig,
 )
+from whisperjav_tpu_torch.models import layers
 from whisperjav_tpu_torch.models.whisper import decode as td
 from whisperjav_tpu_torch.models.whisper import model as tm
 from whisperjav_tpu_torch.models.whisper import quant as tq
@@ -107,13 +108,13 @@ def test_params_from_jax_takes_the_quantised_tree(setup):
     _, _, tree_q, _ = setup
     model = params_from_jax(tree_q, TCFG, dtype=torch.bfloat16)
     dec = model.decoder
-    assert isinstance(dec.lm_head_q, tm.Int8Weight)
+    assert isinstance(dec.lm_head_q, layers.Int8Weight)
     assert dec.lm_head_q.q.dtype == torch.int8
     assert dec.lm_head_q.s.dtype == torch.float32
     assert dec.blocks["w1"].q.shape == (2, 64, 256)
     assert dec.blocks["ln1_s"].dtype == torch.bfloat16
     layer = dec.blocks["wqkv"][1]
-    assert isinstance(layer, tm.Int8)
+    assert isinstance(layer, layers.Int8)
     np.testing.assert_array_equal(layer.q.numpy(),
                                   tree_q["decoder"]["blocks"]["wqkv"]["q"][1])
 
@@ -126,8 +127,8 @@ def test_int8_dense_matches_jax(setup):
         np.float32)
     ref = jm.dense(jnp.asarray(x), jax.tree.map(lambda a: a[0], w), b[0])
     out = tm.dense(torch.from_numpy(x),
-                   tm.Int8(torch.from_numpy(np.array(w["q"][0])),
-                           torch.from_numpy(np.array(w["s"][0]))),
+                   layers.Int8(torch.from_numpy(np.array(w["q"][0])),
+                               torch.from_numpy(np.array(w["s"][0]))),
                    torch.from_numpy(np.array(b[0])))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-5)

@@ -20,7 +20,8 @@ import jax.numpy as jnp
 from whisperjav_tpu.models.qwen import model as jm
 from whisperjav_tpu_torch.models.qwen import model as tm
 from whisperjav_tpu_torch.models.qwen import weights as tw
-from whisperjav_tpu_torch.models.whisper.model import Int8Weight
+from whisperjav_tpu_torch.models import layers
+from whisperjav_tpu_torch.models.layers import Int8Weight
 
 CFG = jm.QWEN_SIZES["qwen3-asr-test"]
 TCFG = tm.QWEN_SIZES["qwen3-asr-test"]
@@ -89,8 +90,8 @@ def test_primitives(params):
     _close(tm.rope(torch.from_numpy(x), cos, sin),
            jm.rope(jnp.asarray(x), jnp.asarray(pos), 1_000_000.0))
     b = rng.standard_normal(32).astype(np.float32)
-    _close(tm.layer_norm(torch.from_numpy(x), torch.from_numpy(scale),
-                         torch.from_numpy(b)),
+    _close(layers.layer_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                             torch.from_numpy(b)),
            jm.layer_norm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(b)))
 
 

@@ -15,7 +15,7 @@ import torch
 
 from whisperjav_tpu_torch.models.qwen import model as qm
 from whisperjav_tpu_torch.models.qwen.weights import init_params
-from whisperjav_tpu_torch.models.whisper.model import Int8Weight
+from whisperjav_tpu_torch.models.layers import Int8Weight
 from whisperjav_tpu_torch.modules.subtitle_pipeline import components as tc
 from whisperjav_tpu_torch.utils import tracer
 

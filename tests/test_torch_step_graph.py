@@ -24,7 +24,7 @@ from whisperjav_tpu_torch.models.whisper import decode as td
 from whisperjav_tpu_torch.models.whisper import model as tm
 from whisperjav_tpu_torch.models.whisper import step_graph as sg
 from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
-from whisperjav_tpu_torch.models.whisper.model import Int8
+from whisperjav_tpu_torch.models.layers import Int8
 from whisperjav_tpu_torch.models.whisper.quant import (
     fuse_qkv_weights, quantize_decoder_weights,
 )

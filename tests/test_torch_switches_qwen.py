@@ -25,7 +25,8 @@ from whisperjav_tpu.models.qwen.aligner import ForcedAligner as JaxAligner
 from whisperjav_tpu.modules.subtitle_pipeline import components as jc
 from whisperjav_tpu_torch.models.qwen import aligner as ta
 from whisperjav_tpu_torch.models.qwen import weights as tw
-from whisperjav_tpu_torch.models.qwen.model import Int8Weight, QWEN_SIZES
+from whisperjav_tpu_torch.models.layers import Int8Weight
+from whisperjav_tpu_torch.models.qwen.model import QWEN_SIZES
 from whisperjav_tpu_torch.modules.subtitle_pipeline import components as tc
 
 SR = 16000

@@ -27,10 +27,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisperjav_tpu_torch.models.layers import ParamTree, tree_to_torch
 from whisperjav_tpu_torch.models.qwen.model import (
-    ParamTree, dense, rms_norm, rope, rope_angles,
+    dense, rms_norm, rope, rope_angles,
 )
-from whisperjav_tpu_torch.models.qwen.weights import tree_to_torch
 from whisperjav_tpu_torch.ops.mel import log_mel_spectrogram
 from whisperjav_tpu_torch.utils.precision import full_f32
 

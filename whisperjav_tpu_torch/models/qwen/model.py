@@ -53,11 +53,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisperjav_tpu_torch.models.whisper.decode import draw_gumbel
-from whisperjav_tpu_torch.models.whisper.model import (
-    Int8, Int8Weight, sinusoid_positions,
+from whisperjav_tpu_torch.models.layers import (
+    Int8, Int8Weight, ParamTree, draw_gumbel, int8_matmul, layer_norm,
+    quantize, sinusoid_positions,
 )
-from whisperjav_tpu_torch.models.whisper.quant import _quantize
 from whisperjav_tpu_torch.ops.cuda import qwen_attention
 from whisperjav_tpu_torch.utils import tracer
 from whisperjav_tpu_torch.utils.precision import full_f32
@@ -157,13 +156,6 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(),
-                       bias.float(), eps)
-    return out.to(x.dtype)
-
-
 def rope_angles(positions: torch.Tensor, hd: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos and sin (T, 1, hd/2) of ``positions`` (T,): frequencies
@@ -189,10 +181,10 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
     """x (..., in) @ w (in, out) [+ b], accumulated in f32 and rounded
-    once to x's dtype. An :class:`Int8` weight's product is taken in f32
-    and multiplied by its per-output-channel f32 scale."""
+    once to x's dtype. An :class:`Int8` weight's product is
+    :func:`int8_matmul`."""
     if isinstance(w, Int8):
-        out = torch.matmul(x.float(), w.q.float()) * w.s.float()
+        out = int8_matmul(x, w)
     else:
         out = torch.matmul(x, w.to(x.dtype)).float()
     if b is not None:
@@ -203,43 +195,6 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
-
-def _is_int8(tree) -> bool:
-    return isinstance(tree, dict) and set(tree) == {"q", "s"}
-
-
-class ParamTree(nn.Module):
-    """One level of a JAX parameter tree: tensors as parameters, nested
-    dicts as child trees, ``{"q", "s"}`` leaves as :class:`Int8Weight`.
-    Indexed by name like the dict it came from."""
-
-    def __init__(self, tree: Dict[str, object]):
-        super().__init__()
-        for name, value in tree.items():
-            self[name] = value
-
-    def __setitem__(self, name: str, value) -> None:
-        if isinstance(value, (nn.Module, nn.Parameter)):
-            setattr(self, name, value)
-        elif _is_int8(value):
-            setattr(self, name, Int8Weight(value["q"], value["s"]))
-        elif isinstance(value, dict):
-            setattr(self, name, ParamTree(value))
-        else:
-            setattr(self, name, nn.Parameter(torch.as_tensor(value),
-                                             requires_grad=False))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
-
-    def pop(self, name: str):
-        value = getattr(self, name)
-        delattr(self, name)
-        return value
-
 
 class QwenASR(ParamTree):
     """Qwen3-ASR weights: ``audio`` (the AuT tower), ``tok_emb``,
@@ -277,9 +232,9 @@ def quantize_lm_weights(model: QwenASR) -> QwenASR:
     blocks = model.blocks
     for name in _LM_HOT:
         if name in blocks and not isinstance(blocks[name], Int8Weight):
-            blocks[name] = Int8Weight(*_quantize(blocks.pop(name)))
+            blocks[name] = Int8Weight(*quantize(blocks.pop(name)))
     if "lm_head" in model and "lm_head_q" not in model:
-        model["lm_head_q"] = Int8Weight(*_quantize(model.pop("lm_head")))
+        model["lm_head_q"] = Int8Weight(*quantize(model.pop("lm_head")))
     return model
 
 
@@ -441,8 +396,7 @@ def lm_step(model: QwenASR, x_emb: torch.Tensor, pos: int,
             x = _lm_block(x, blocks, i, cache, pos, cfg, bias, cos, sin)
         x = rms_norm(x, model.ln_f, cfg.rms_eps)
         if "lm_head_q" in model:
-            lm = model.lm_head_q
-            logits = torch.matmul(x.float(), lm.q.float()) * lm.s.float()
+            logits = int8_matmul(x, model.lm_head_q)
         else:
             logits = torch.matmul(x, model.lm_head.to(x.dtype)).float()
     return logits, cache

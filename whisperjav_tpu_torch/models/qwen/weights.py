@@ -14,33 +14,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
-from whisperjav_tpu_torch.models.qwen.model import (
-    QwenASR, QwenASRConfig, _is_int8,
-)
-
-
-def tree_to_torch(tree, dtype: Optional[torch.dtype] = None, device="cpu"):
-    """A JAX parameter tree (array or numpy leaves) -> the same tree of
-    tensors on ``device``; ``dtype`` casts floating leaves (None keeps
-    each leaf's own); int8 leaves keep int8 codes and f32 scales."""
-    def tensor(x):
-        x = np.array(x, copy=True)
-        if x.dtype.name == "bfloat16":       # ml_dtypes' bf16: its bits
-            return torch.from_numpy(x.view(np.int16)).view(
-                torch.bfloat16).to(device)
-        return torch.from_numpy(x).to(device)
-
-    if _is_int8(tree):
-        return {"q": tensor(tree["q"]), "s": tensor(tree["s"])}
-    if isinstance(tree, dict):
-        return {k: tree_to_torch(v, dtype, device) for k, v in tree.items()}
-    t = tensor(tree)
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t
+from whisperjav_tpu_torch.models.layers import tree_to_torch
+from whisperjav_tpu_torch.models.qwen.model import QwenASR, QwenASRConfig
 
 
 def params_from_jax(tree: Dict, cfg: QwenASRConfig,

@@ -45,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from whisperjav_tpu_torch.models.layers import draw_gumbel
 from whisperjav_tpu_torch.models.whisper.config import (
     WhisperConfig, language_token,
 )
@@ -210,14 +211,6 @@ def _apply_logit_rules(logits: torch.Tensor, s: _Rules,
         logits = logits.masked_fill(force_ts[:, None] & ~is_ts, _NEG)
 
     return logits
-
-
-def draw_gumbel(generator: torch.Generator, shape,
-                 device) -> torch.Tensor:
-    """-log(-log(u)), u uniform on [tiny, 1), as ``jax.random.gumbel``."""
-    u = torch.rand(shape, generator=generator, device=device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
 
 
 def _read_later(flag: torch.Tensor) -> Callable[[], bool]:

@@ -32,11 +32,13 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from whisperjav_tpu_torch.models.layers import (
+    Int8Weight, ParamTree, int8_matmul, layer_norm,
+)
 from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
 from whisperjav_tpu_torch.ops.cuda.decode_attention import (
     decode_cross_attention, decode_cross_attention_bf16,
@@ -53,98 +55,40 @@ from whisperjav_tpu_torch.ops.cuda.fused_decode import (
 # primitives
 # ---------------------------------------------------------------------------
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm in f32, result in x's dtype."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(),
-                       bias.float(), eps)
-    return out.to(x.dtype)
-
-
-class Int8(NamedTuple):
-    """One int8 weight: codes (in, out) and f32 scales (1, out)."""
-    q: torch.Tensor
-    s: torch.Tensor
-
-
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
     """x (..., in) @ w (in, out) [+ b], rounded once to x's dtype.
 
     ``w`` is a tensor, whose product the bias joins in the f32
-    accumulation, or an :class:`Int8`: then the product of x and the int8
-    codes is taken in f32 (a bf16 product would round first), times the
-    f32 scale, plus the bias, as the JAX package's ``dense``.
+    accumulation, or an :class:`Int8`: then :func:`int8_matmul`, plus the
+    bias in f32, as the JAX package's ``dense``.
     """
     if isinstance(w, torch.Tensor):
         x2 = x.reshape(-1, x.shape[-1])
         out = torch.mm(x2, w) if b is None else torch.addmm(b, x2, w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
-    out = torch.matmul(x.float(), w.q.float()) * w.s.float()
+    out = int8_matmul(x, w)
     if b is not None:
         out = out + b.float()
     return out.to(x.dtype)
 
 
-def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
-    b, t, d = x.shape
-    return x.reshape(b, t, n_head, d // n_head)
-
-
-def sinusoid_positions(length: int, channels: int) -> np.ndarray:
-    """Whisper's fixed sinusoidal encoder positions."""
-    if channels % 2:
-        raise ValueError(f"channels must be even, got {channels}")
-    log_timescale = np.log(10000.0) / (channels // 2 - 1)
-    inv = np.exp(-log_timescale * np.arange(channels // 2))
-    scaled = np.arange(length)[:, None] * inv[None, :]
-    return np.concatenate([np.sin(scaled), np.cos(scaled)],
-                          axis=1).astype(np.float32)
+def split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(..., d) -> (..., d / hd, hd): heads of width ``hd`` (a
+    tensor-parallel rank's weights give it its share of the heads)."""
+    return x.reshape(*x.shape[:-1], x.shape[-1] // hd, hd)
 
 
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
-def _param(x) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(x), requires_grad=False)
-
-
-class Int8Weight(nn.Module):
-    """A ``{"q": int8 (..., in, out), "s": f32 (..., 1, out)}`` leaf of the
-    JAX tree: symmetric int8 codes with per-output-channel scales, as
-    parameters ``q`` and ``s`` (state-dict names ``<leaf>.q``,
-    ``<leaf>.s``). ``w[i]`` is layer i of a stacked one, as an
-    :class:`Int8` of views. Casting the module casts ``s``: quantise
-    after the cast to the compute dtype, as the engine does."""
-
-    def __init__(self, q, s):
-        super().__init__()
-        self.q = _param(q)
-        self.s = _param(s)
-
-    def __getitem__(self, i: int) -> Int8:
-        return Int8(self.q[i], self.s[i])
-
-
-def _leaf(value):
-    if isinstance(value, dict):
-        return Int8Weight(value["q"], value["s"])
-    return _param(value)
-
-
-class _Part(nn.Module):
-    """One of encoder/decoder: named tensors plus a ``blocks`` dict of
-    layer-stacked tensors, as in the JAX parameter tree; int8 leaves are
-    :class:`Int8Weight` submodules."""
-
-    def __init__(self, tree: Dict[str, object]):
-        super().__init__()
-        for name, value in tree.items():
-            if name != "blocks":
-                setattr(self, name, _leaf(value))
-        self.blocks = nn.ParameterDict(
-            {name: _leaf(value) for name, value in tree["blocks"].items()})
+def _part(tree: Dict[str, object]) -> ParamTree:
+    """One of encoder/decoder: named tensors, int8 leaves as
+    :class:`Int8Weight`, and a ``blocks`` tree of layer-stacked tensors,
+    kept last (its state-dict names follow every other leaf's)."""
+    rest = {name: value for name, value in tree.items() if name != "blocks"}
+    return ParamTree({**rest, "blocks": tree["blocks"]})
 
 
 class Whisper(nn.Module):
@@ -158,8 +102,8 @@ class Whisper(nn.Module):
     def __init__(self, config: WhisperConfig, tree: Dict[str, Dict]):
         super().__init__()
         self.config = config
-        self.encoder = _Part(tree["encoder"])
-        self.decoder = _Part(tree["decoder"])
+        self.encoder = _part(tree["encoder"])
+        self.decoder = _part(tree["decoder"])
 
     def trainable(self) -> "Whisper":
         """This model, in place, in f32 with every parameter requiring
@@ -177,12 +121,13 @@ class Whisper(nn.Module):
 # encoder
 # ---------------------------------------------------------------------------
 
-def _encoder_block(x: torch.Tensor, p: nn.ParameterDict, i: int,
+def _encoder_block(x: torch.Tensor, p: ParamTree, i: int,
                    n_head: int) -> torch.Tensor:
+    hd = x.shape[-1] // n_head
     h = layer_norm(x, p["ln1_s"][i], p["ln1_b"][i])
-    q = _split_heads(dense(h, p["wq"][i], p["bq"][i]), n_head)
-    k = _split_heads(dense(h, p["wk"][i]), n_head)
-    v = _split_heads(dense(h, p["wv"][i], p["bv"][i]), n_head)
+    q = split_heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+    k = split_heads(dense(h, p["wk"][i]), hd)
+    v = split_heads(dense(h, p["wv"][i], p["bv"][i]), hd)
     a = encoder_attention(q, k, v)
     b_, t, _, _ = a.shape
     x = x + dense(a.reshape(b_, t, -1), p["wo"][i], p["bo"][i])
@@ -191,7 +136,7 @@ def _encoder_block(x: torch.Tensor, p: nn.ParameterDict, i: int,
                      p["w2"][i], p["b2"][i])
 
 
-def _encoder_stem(enc: _Part, mel: torch.Tensor) -> torch.Tensor:
+def _encoder_stem(enc: ParamTree, mel: torch.Tensor) -> torch.Tensor:
     """The two convolutions and the positions: mel (B, n_mels, 3000) ->
     (B, 1500, d)."""
     x = F.gelu(F.conv1d(mel, enc.conv1_w, enc.conv1_b, padding=1))
@@ -269,7 +214,7 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
     step reads), else into new buffers."""
     blocks = model.decoder.blocks
     n_layer = blocks["cwk"].shape[0]
-    h = model.config.n_text_head
+    hd = model.config.n_text_state // model.config.n_text_head
     quant = int8 or int4
     qmax = 7.0 if int4 else 127.0
     if out is None:
@@ -286,7 +231,7 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
         for buf, scale, proj in (
                 (ck, ks, dense(xa, blocks["cwk"][i])),
                 (cv, vs, dense(xa, blocks["cwv"][i], blocks["cbv"][i]))):
-            x = _split_heads(proj, h).permute(0, 2, 3, 1)       # (B,H,hd,T)
+            x = split_heads(proj, hd).permute(0, 2, 3, 1)       # (B,H,hd,T)
             if not quant:
                 buf[i] = x
                 continue
@@ -428,16 +373,16 @@ def _self_attention_column(q, k_new, v_new, cache_k, cache_v, col_bias,
     hd = d // n_head
     scale = hd ** -0.25
     qs = (q * scale).float()                                # (B, 1, H, hd)
-    kc = (_split_heads(cache_k, n_head) * scale).float()    # (B, T, H, hd)
-    kn = (_split_heads(k_new, n_head) * scale).float()      # (B, 1, H, hd)
+    kc = (split_heads(cache_k, hd) * scale).float()         # (B, T, H, hd)
+    kn = (split_heads(k_new, hd) * scale).float()           # (B, 1, H, hd)
     logits_c = torch.einsum("bqhd,bkhd->bhqk", qs, kc) + col_bias
     logit_n = torch.einsum("bqhd,bqhd->bhq", qs, kn)[..., None]
     w = torch.softmax(torch.cat([logits_c, logit_n], dim=-1), dim=-1)
     w_c = w[..., :-1].to(q.dtype)                           # (B, H, 1, T)
     w_n = w[..., -1:].to(q.dtype)                           # (B, H, 1, 1)
-    vc = _split_heads(cache_v, n_head).transpose(1, 2)      # (B, H, T, hd)
+    vc = split_heads(cache_v, hd).transpose(1, 2)           # (B, H, T, hd)
     a = torch.matmul(w_c, vc).transpose(1, 2)               # (B, 1, H, hd)
-    return a + w_n.transpose(1, 2) * _split_heads(v_new, n_head)
+    return a + w_n.transpose(1, 2) * split_heads(v_new, hd)
 
 
 def _decoder_block(x, p, i, cross: CrossKV, cache: "KVCache", pos: int,
@@ -450,6 +395,7 @@ def _decoder_block(x, p, i, cross: CrossKV, cache: "KVCache", pos: int,
     K/V are written into the cache in place, then attended.
     """
     b, q_len, d = x.shape
+    hd = d // n_head
     h = layer_norm(x, p["ln1_s"][i], p["ln1_b"][i])
     if "wqkv" in p:
         qkv = dense(h, p["wqkv"][i], p["bqkv"][i])
@@ -458,19 +404,19 @@ def _decoder_block(x, p, i, cross: CrossKV, cache: "KVCache", pos: int,
         q_new = dense(h, p["wq"][i], p["bq"][i])
         k_new = dense(h, p["wk"][i])
         v_new = dense(h, p["wv"][i], p["bv"][i])
-    q = _split_heads(q_new, n_head)
+    q = split_heads(q_new, hd)
     if column_mode:
         a = _self_attention_column(q, k_new, v_new, cache.k[i], cache.v[i],
                                    self_bias, n_head)
     else:
         cache.k[i, :, pos:pos + q_len] = k_new
         cache.v[i, :, pos:pos + q_len] = v_new
-        a = attention(q, _split_heads(cache.k[i], n_head),
-                      _split_heads(cache.v[i], n_head), self_bias)
+        a = attention(q, split_heads(cache.k[i], hd),
+                      split_heads(cache.v[i], hd), self_bias)
     x = x + dense(a.reshape(b, q_len, d), p["wo"][i], p["bo"][i])
     # cross-attention
     h = layer_norm(x, p["lnx_s"][i], p["lnx_b"][i])
-    cq = _split_heads(dense(h, p["cwq"][i], p["cbq"][i]), n_head)
+    cq = split_heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
     a = cross_attention(cq, cross, i)
     x = x + dense(a.reshape(b, q_len, d), p["cwo"][i], p["cbo"][i])
     # mlp
@@ -493,7 +439,7 @@ def fused_step(model: Whisper, cross_dtype: torch.dtype) -> bool:
         isinstance(blocks.get(n), Int8Weight) for n in _FUSED_WEIGHTS)
 
 
-def _fused_layers(x: torch.Tensor, p: nn.ParameterDict, cross: CrossKV,
+def _fused_layers(x: torch.Tensor, p: ParamTree, cross: CrossKV,
                   cache: KVCache, pos: torch.Tensor,
                   n_head: int) -> torch.Tensor:
     """One decode step (x (R, d)) through every decoder layer as three
@@ -578,8 +524,8 @@ def decode_step(model: Whisper, tokens: torch.Tensor, pos,
                 ) -> Tuple[torch.Tensor, KVCache]:
     """Decoder on a chunk (prefill or one step) -> (logits (B, q_len,
     vocab) f32, cache). The lm head is the tied token embedding, or its
-    int8 copy ``lm_head_q`` on int8 weights (the f32 product times the
-    scale), applied in f32 so the logits keep f32 precision as in the JAX
+    int8 copy ``lm_head_q`` on int8 weights (:func:`int8_matmul`),
+    applied in f32 so the logits keep f32 precision as in the JAX
     package.
 
     ``pos`` is an int, or at q_len == 1 one int32 on the device
@@ -591,7 +537,7 @@ def decode_step(model: Whisper, tokens: torch.Tensor, pos,
     x = decode_hidden(model, tokens, pos, cache, cross)
     lm = getattr(model.decoder, "lm_head_q", None)
     if lm is not None:
-        return torch.matmul(x.float(), lm.q.float()) * lm.s, cache
+        return int8_matmul(x, lm), cache
     emb = model.decoder.tok_emb
     logits = torch.matmul(x.float(), emb.float().t())
     return logits, cache
@@ -623,12 +569,7 @@ class Replicated:
         return x
 
 
-def _heads(x: torch.Tensor, hd: int) -> torch.Tensor:
-    b, t, _ = x.shape
-    return x.reshape(b, t, -1, hd)
-
-
-def _mlp(x: torch.Tensor, p: nn.ParameterDict, i: int, tp) -> torch.Tensor:
+def _mlp(x: torch.Tensor, p: ParamTree, i: int, tp) -> torch.Tensor:
     h = tp.copy(layer_norm(x, p["ln2_s"][i], p["ln2_b"][i]))
     out = dense(F.gelu(dense(h, p["w1"][i], p["b1"][i])), p["w2"][i])
     return x + tp.reduce(out) + p["b2"][i]
@@ -637,9 +578,9 @@ def _mlp(x: torch.Tensor, p: nn.ParameterDict, i: int, tp) -> torch.Tensor:
 def _train_encoder_block(x, p, i, hd, tp):
     b, t, _ = x.shape
     h = tp.copy(layer_norm(x, p["ln1_s"][i], p["ln1_b"][i]))
-    q = _heads(dense(h, p["wq"][i], p["bq"][i]), hd)
-    k = _heads(dense(h, p["wk"][i]), hd)
-    v = _heads(dense(h, p["wv"][i], p["bv"][i]), hd)
+    q = split_heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+    k = split_heads(dense(h, p["wk"][i]), hd)
+    v = split_heads(dense(h, p["wv"][i], p["bv"][i]), hd)
     a = attention(q, k, v).reshape(b, t, -1)
     x = x + tp.reduce(dense(a, p["wo"][i])) + p["bo"][i]
     return _mlp(x, p, i, tp)
@@ -648,13 +589,13 @@ def _train_encoder_block(x, p, i, hd, tp):
 def _train_decoder_block(x, p, i, ck, cv, causal, hd, tp):
     b, s, _ = x.shape
     h = tp.copy(layer_norm(x, p["ln1_s"][i], p["ln1_b"][i]))
-    q = _heads(dense(h, p["wq"][i], p["bq"][i]), hd)
-    k = _heads(dense(h, p["wk"][i]), hd)
-    v = _heads(dense(h, p["wv"][i], p["bv"][i]), hd)
+    q = split_heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+    k = split_heads(dense(h, p["wk"][i]), hd)
+    v = split_heads(dense(h, p["wv"][i], p["bv"][i]), hd)
     a = attention(q, k, v, causal).reshape(b, s, -1)
     x = x + tp.reduce(dense(a, p["wo"][i])) + p["bo"][i]
     h = tp.copy(layer_norm(x, p["lnx_s"][i], p["lnx_b"][i]))
-    cq = _heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
+    cq = split_heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
     a = unquantised_cross_attention(cq, ck, cv).reshape(b, s, -1)
     x = x + tp.reduce(dense(a, p["cwo"][i])) + p["cbo"][i]
     return _mlp(x, p, i, tp)
@@ -684,8 +625,8 @@ def decode_train(model: Whisper, tokens: torch.Tensor, xa: torch.Tensor,
     causal = torch.where(idx[None, :] <= idx[:, None], 0.0,
                          float("-inf"))[None, None]
     for i in range(p["wq"].shape[0]):
-        ck = _heads(dense(xa, p["cwk"][i]), hd).permute(0, 2, 3, 1)
-        cv = _heads(dense(xa, p["cwv"][i], p["cbv"][i]),
+        ck = split_heads(dense(xa, p["cwk"][i]), hd).permute(0, 2, 3, 1)
+        cv = split_heads(dense(xa, p["cwv"][i], p["cbv"][i]),
                     hd).permute(0, 2, 3, 1)
         x = _train_decoder_block(x, p, i, ck, cv, causal, hd, tp)
     x = layer_norm(x, dec.ln_s, dec.ln_b)

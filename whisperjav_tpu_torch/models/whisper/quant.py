@@ -5,28 +5,15 @@ representation the fused decode blocks read."""
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 from torch import nn
 
-from whisperjav_tpu_torch.models.whisper.model import Int8Weight, Whisper
+from whisperjav_tpu_torch.models.layers import Int8Weight, quantize
+from whisperjav_tpu_torch.models.whisper.model import Whisper
 
 # decoder block matmuls read every step; cwk/cwv are left out: they run
 # once per segment in precompute_cross_kv
 _DECODE_HOT = ("wq", "wk", "wv", "wo", "cwq", "cwo", "w1", "w2")
-
-
-def _quantize(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., in, out) -> (int8 codes, f32 scales (..., 1, out)): scale =
-    max |w| over the input axis / 127 + 1e-12, codes rounded half to even
-    (as ``jnp.round``) and clipped to +-127. The divisor is a tensor on
-    w's device: CUDA divides by a host scalar as a product with its
-    reciprocal, which can round one ulp apart from the division."""
-    w32 = w.float()
-    s = w32.abs().amax(dim=-2, keepdim=True) / w32.new_tensor(127.0) + 1e-12
-    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
-    return q.contiguous(), s
 
 
 def fuse_qkv_weights(model: Whisper) -> Whisper:
@@ -59,6 +46,6 @@ def quantize_decoder_weights(model: Whisper) -> Whisper:
     p = dec.blocks
     hot = (("wqkv",) + _DECODE_HOT[3:]) if "wqkv" in p else _DECODE_HOT
     for name in hot:
-        p[name] = Int8Weight(*_quantize(p.pop(name)))
-    dec.lm_head_q = Int8Weight(*_quantize(dec.tok_emb.t()))
+        p[name] = Int8Weight(*quantize(p.pop(name)))
+    dec.lm_head_q = Int8Weight(*quantize(dec.tok_emb.t()))
     return model

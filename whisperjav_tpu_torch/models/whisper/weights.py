@@ -17,21 +17,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
-from whisperjav_tpu_torch.models.whisper.model import (
-    Whisper, sinusoid_positions,
+from whisperjav_tpu_torch.models.layers import (
+    sinusoid_positions, tree_to_torch,
 )
-
-
-def _is_int8(tree) -> bool:
-    """A quantised leaf of ``quant.quantize_decoder_weights``."""
-    return isinstance(tree, dict) and set(tree) == {"q", "s"}
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict) and not _is_int8(tree):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.whisper.model import Whisper
 
 
 def params_from_jax(tree: Dict, config: WhisperConfig,
@@ -43,17 +33,7 @@ def params_from_jax(tree: Dict, config: WhisperConfig,
     ``decoder.lm_head_q``) become :class:`Int8Weight` modules with
     parameters ``q`` and ``s``, kept int8 and f32: both packages then
     decode from the same codes."""
-    def tensor(x):
-        return torch.from_numpy(np.array(x, copy=True)).to(device)
-
-    def leaf(x):
-        if _is_int8(x):
-            return {"q": tensor(x["q"]), "s": tensor(x["s"])}
-        t = tensor(x)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t
-    return Whisper(config, _tree_map(leaf, tree))
+    return Whisper(config, tree_to_torch(tree, dtype, device))
 
 
 def nest(flat: Dict[str, object]) -> Dict:

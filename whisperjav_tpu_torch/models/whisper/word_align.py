@@ -27,8 +27,9 @@ import torch.nn.functional as F
 
 from whisperjav_tpu_torch.models.qwen.aligner import monotonic_align
 from whisperjav_tpu_torch.models.whisper.config import WhisperConfig
+from whisperjav_tpu_torch.models.layers import layer_norm
 from whisperjav_tpu_torch.models.whisper.model import (
-    Whisper, _split_heads, dense, layer_norm,
+    Whisper, dense, split_heads,
 )
 from whisperjav_tpu_torch.ops.cuda import _build
 from whisperjav_tpu_torch.ops.cuda.encoder_attention import attention
@@ -65,7 +66,7 @@ def cross_attention_maps(
     p = dec.blocks
     b, s = tokens.shape
     dtype = dec.tok_emb.dtype
-    n_head = model.config.n_text_head
+    hd = model.config.n_text_state // model.config.n_text_head
     x = (dec.tok_emb[tokens] + dec.pos_emb[:s]).to(dtype)
     xa = xa.to(dtype)
     idx = torch.arange(s, device=tokens.device)
@@ -80,19 +81,19 @@ def cross_attention_maps(
         if "wqkv" in p:
             d = h.shape[-1]
             qkv = dense(h, p["wqkv"][i], p["bqkv"][i])
-            q, k, v = (_split_heads(qkv[..., j * d:(j + 1) * d], n_head)
+            q, k, v = (split_heads(qkv[..., j * d:(j + 1) * d], hd)
                        for j in range(3))
         else:
-            q = _split_heads(dense(h, p["wq"][i], p["bq"][i]), n_head)
-            k = _split_heads(dense(h, p["wk"][i]), n_head)
-            v = _split_heads(dense(h, p["wv"][i], p["bv"][i]), n_head)
+            q = split_heads(dense(h, p["wq"][i], p["bq"][i]), hd)
+            k = split_heads(dense(h, p["wk"][i]), hd)
+            v = split_heads(dense(h, p["wv"][i], p["bv"][i]), hd)
         a = attention(q, k, v, causal)
         x = x + dense(a.reshape(b, s, -1), p["wo"][i], p["bo"][i])
         # cross-attention, its probabilities captured
         h = layer_norm(x, p["lnx_s"][i], p["lnx_b"][i])
-        cq = _split_heads(dense(h, p["cwq"][i], p["cbq"][i]), n_head)
-        ck = _split_heads(dense(xa, p["cwk"][i]), n_head)
-        cv = _split_heads(dense(xa, p["cwv"][i], p["cbv"][i]), n_head)
+        cq = split_heads(dense(h, p["cwq"][i], p["cbq"][i]), hd)
+        ck = split_heads(dense(xa, p["cwk"][i]), hd)
+        cv = split_heads(dense(xa, p["cwv"][i], p["cbv"][i]), hd)
         sc = cq.shape[-1] ** -0.25
         logits = torch.matmul((cq * sc).float().transpose(1, 2),
                               (ck * sc).float().permute(0, 2, 3, 1))

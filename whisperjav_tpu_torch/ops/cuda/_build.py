@@ -12,6 +12,12 @@ once per process however many threads make that first call together
 (``--async-processing`` runs the VAD networks in a producer thread while
 the engine decodes in the caller's). A build's temporary files carry the
 process and thread ids, so concurrent builds never share one.
+
+This module knows no kernel. Each wrapper module declares the C entries
+it calls (:class:`entry`), takes the plain version on CPU tensors
+(:func:`on_cpu`) and launches through :func:`launch`, which counts each
+launch in the wrapper's ``launches``. A new kernel is a ``.cu`` file and
+its wrapper.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -62,8 +70,7 @@ def library_path(csrc_dir: Path = CSRC_DIR,
 def build(csrc_dir: Path = CSRC_DIR,
           build_dir: Path = BUILD_DIR) -> Tuple[Path, float, str]:
     """Compile the kernels of ``csrc_dir`` (the package's own by
-    default; another tree's, such as an older version kept for a
-    comparison, when given) unless this exact build exists.
+    default) unless this exact build exists.
 
     Returns (library path, build seconds, nvcc's ptxas report); the
     seconds are 0.0 and the report empty when the library was there.
@@ -108,43 +115,16 @@ def build(csrc_dir: Path = CSRC_DIR,
     return out, time.perf_counter() - t0, "".join(report)
 
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# the C types of the entries' arguments: a pointer (a tensor's data or
+# a stream), an int, an int64
+P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
 def open_library(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare every signature of the C
-    interface (the same in every version of the kernels; an older
-    version may lack the scaled forms of Kernel B, and has the self
-    block's ``wjt_self_block``, which took the position by value, in
-    place of ``wjt_self_block_at``, and no ``wjt_qwen_column_attention``)."""
+    """Load a built library and declare its one library-wide entry,
+    ``wjt_error_string`` (the kernels' entries: :class:`entry`)."""
     lib = ctypes.CDLL(str(path))
-    lib.wjt_encoder_attention.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I,
-        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P]
-    lib.wjt_encoder_attention.restype = _I
-    lib.wjt_decode_cross_attention.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.wjt_decode_cross_attention.restype = _I
-    if hasattr(lib, "wjt_decode_cross_attention_scaled"):
-        lib.wjt_decode_cross_attention_scaled.argtypes = [_P] * 6 + [_I] * 6 \
-            + [_P]
-        lib.wjt_decode_cross_attention_scaled.restype = _I
-    lib.wjt_decode_cross_attention_max_t.argtypes = []
-    lib.wjt_decode_cross_attention_max_t.restype = _I
-    lib.wjt_fused_workspace_bytes.argtypes = [_I, _I, _I, _I]
-    lib.wjt_fused_workspace_bytes.restype = ctypes.c_longlong
-    if hasattr(lib, "wjt_self_block_at"):
-        lib.wjt_self_block_at.argtypes = [_P] * 16 + [_I] * 5 + [_P]
-        lib.wjt_self_block_at.restype = _I
-    lib.wjt_cross_block.argtypes = [_P] * 15 + [_I] * 6 + [_P]
-    lib.wjt_cross_block.restype = _I
-    lib.wjt_mlp_block.argtypes = [_P] * 11 + [_I] * 4 + [_P]
-    lib.wjt_mlp_block.restype = _I
-    if hasattr(lib, "wjt_qwen_column_attention"):
-        lib.wjt_qwen_column_attention.argtypes = [_P] * 6 + [_I64] * 2 \
-            + [_I] * 8 + [ctypes.c_float, _P]
-        lib.wjt_qwen_column_attention.restype = _I
-    lib.wjt_error_string.argtypes = [_I]
+    lib.wjt_error_string.argtypes = [I]
     lib.wjt_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -209,3 +189,47 @@ def check(err: int, what: str) -> None:
         msg: Optional[bytes] = load_library().wjt_error_string(err)
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({(msg or b'?').decode()})")
+
+
+class entry:
+    """One C entry of the library with its signature, declared by the
+    wrapper module that calls it; looked up in the library (built and
+    loaded if need be) at its first call, then held."""
+
+    def __init__(self, name: str, argtypes: Sequence, restype=I):
+        self.name = name
+        self.argtypes = list(argtypes)
+        self.restype = restype
+        self._fn = None
+
+    def __call__(self, *args):
+        if self._fn is None:
+            fn = getattr(load_library(), self.name)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            self._fn = fn
+        return self._fn(*args)
+
+
+def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the wrapper runs its plain
+    version); False when all lie on one CUDA device (it launches its
+    kernel); raises otherwise: a kernel's operands never fall back."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what}: tensors must share one CUDA device or all "
+                         f"lie on the CPU, got {devices}")
+    return False
+
+
+def launch(counter, what: str, device: torch.device, fn: entry,
+           *args) -> None:
+    """Call ``fn`` with ``args`` and the handle of ``device``'s current
+    stream, inside ``device``; raise on the error it returns (``what``
+    names the kernel), then count one launch in ``counter.launches``
+    (:func:`count`)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what)
+    count(counter)

@@ -26,8 +26,14 @@ from typing import Optional, Tuple
 import torch
 
 from whisperjav_tpu_torch.ops.cuda import _build
+from whisperjav_tpu_torch.ops.cuda._build import I, P
 
 _BF16, _TERMS = 1, 2      # the kernel's scaled forms
+_F32_FORM = _build.entry("wjt_decode_cross_attention", [P] * 4 + [I] * 5 + [P])
+_SCALED_FORMS = _build.entry("wjt_decode_cross_attention_scaled",
+                             [P] * 6 + [I] * 6 + [P])
+# the longest T the kernel takes (the fused cross block's too)
+max_t = _build.entry("wjt_decode_cross_attention_max_t", [])
 
 
 def decode_cross_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -62,16 +68,11 @@ def decode_cross_attention_terms_plain(q, k, v, layer: int, v_scale
     return hi, (y - hi.float()).to(torch.bfloat16)
 
 
-def _launch(what: str, form: int, q: torch.Tensor, k: torch.Tensor,
+def _launch(counter, what: str, form: int, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, layer: int, v_scale: Optional[torch.Tensor]):
-    """Checks the operands, then launches the kernel in ``form`` (0 f32,
-    1 bf16, 2 terms); returns the output tensors."""
-    tensors = (q, k, v) if v_scale is None else (q, k, v, v_scale)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1 or not q.is_cuda:
-        raise ValueError(f"{what}: q, k, v{', v_scale' if form else ''} must "
-                         f"share one CUDA device or all lie on the CPU, got "
-                         f"{devices}")
+    """Checks the operands (on one CUDA device), then launches the
+    kernel in ``form`` (0 f32, 1 bf16, 2 terms), counted in ``counter``;
+    returns the output tensors."""
     if k.dim() != 5 or k.shape != v.shape:
         raise ValueError(f"{what}: K and V must be one (L, B, H, hd, T) "
                          f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -98,43 +99,35 @@ def _launch(what: str, form: int, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(v_scale.shape)} {v_scale.dtype}")
     if not 0 <= layer < n_layer:
         raise ValueError(f"{what}: layer {layer} outside [0, {n_layer})")
-    lib = _build.load_library()
-    max_t = lib.wjt_decode_cross_attention_max_t()
-    if not 0 < t <= max_t:
-        raise ValueError(f"{what}: T = {t} outside (0, {max_t}]")
+    longest = max_t()
+    if not 0 < t <= longest:
+        raise ValueError(f"{what}: T = {t} outside (0, {longest}]")
     rows = q.shape[1]
     dtype = torch.float32 if form == 0 else torch.bfloat16
     outs = [torch.empty((b, rows, h, hd), dtype=dtype, device=q.device)
             for _ in range(2 if form == _TERMS else 1)]
     if outs[0].numel() == 0:
         return outs
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if form == 0:
-            err = lib.wjt_decode_cross_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[0].data_ptr(),
-                int(layer), b, rows, h, t, stream)
-        else:
-            err = lib.wjt_decode_cross_attention_scaled(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
-                outs[0].data_ptr(), outs[-1].data_ptr(), form, int(layer), b,
-                rows, h, t, stream)
-    _build.check(err, f"{what} kernel")
+    if form == 0:
+        _build.launch(counter, f"{what} kernel", q.device, _F32_FORM,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      outs[0].data_ptr(), int(layer), b, rows, h, t)
+    else:
+        _build.launch(counter, f"{what} kernel", q.device, _SCALED_FORMS,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      v_scale.data_ptr(), outs[0].data_ptr(),
+                      outs[-1].data_ptr(), form, int(layer), b, rows, h, t)
     return outs
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return {t.device for t in tensors} == {torch.device("cpu")}
 
 
 def decode_cross_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, layer: int) -> torch.Tensor:
     """One decode step of cross-attention over layer ``layer`` of int8
     K/V: f32, before v_scale."""
-    if _on_cpu(q, k, v):
+    if _build.on_cpu("decode_cross_attention", q, k, v):
         return decode_cross_attention_plain(q, k, v, layer)
-    (out,) = _launch("decode_cross_attention", 0, q, k, v, layer, None)
-    _build.count(decode_cross_attention)
+    (out,) = _launch(decode_cross_attention, "decode_cross_attention", 0, q,
+                     k, v, layer, None)
     return out
 
 
@@ -142,11 +135,11 @@ def decode_cross_attention_bf16(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, layer: int,
                                 v_scale: torch.Tensor) -> torch.Tensor:
     """bf16(out * v_scale) of one decode step over layer ``layer``."""
-    if _on_cpu(q, k, v, v_scale):
+    what = "decode_cross_attention_bf16"
+    if _build.on_cpu(what, q, k, v, v_scale):
         return decode_cross_attention_bf16_plain(q, k, v, layer, v_scale)
-    (out,) = _launch("decode_cross_attention_bf16", _BF16, q, k, v, layer,
-                     v_scale)
-    _build.count(decode_cross_attention_bf16)
+    (out,) = _launch(decode_cross_attention_bf16, what, _BF16, q, k, v,
+                     layer, v_scale)
     return out
 
 
@@ -155,11 +148,11 @@ def decode_cross_attention_terms(q: torch.Tensor, k: torch.Tensor,
                                  v_scale: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 (hi, lo) terms of out * v_scale over layer ``layer``."""
-    if _on_cpu(q, k, v, v_scale):
+    what = "decode_cross_attention_terms"
+    if _build.on_cpu(what, q, k, v, v_scale):
         return decode_cross_attention_terms_plain(q, k, v, layer, v_scale)
-    hi, lo = _launch("decode_cross_attention_terms", _TERMS, q, k, v, layer,
-                     v_scale)
-    _build.count(decode_cross_attention_terms)
+    hi, lo = _launch(decode_cross_attention_terms, what, _TERMS, q, k, v,
+                     layer, v_scale)
     return hi, lo
 
 

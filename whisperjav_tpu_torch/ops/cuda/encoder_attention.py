@@ -14,6 +14,10 @@ from typing import Optional
 import torch
 
 from whisperjav_tpu_torch.ops.cuda import _build
+from whisperjav_tpu_torch.ops.cuda._build import I, I64, P
+
+_KERNEL = _build.entry("wjt_encoder_attention",
+                       [P] * 4 + [I] * 3 + [I64] * 9 + [P])
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,12 +42,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def encoder_attention(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """Bidirectional attention, (B, T, H, hd) in and out, any T."""
-    devices = {q.device, k.device, v.device}
-    if devices == {torch.device("cpu")}:
+    if _build.on_cpu("encoder_attention", q, k, v):
         return attention(q, k, v)
-    if len(devices) != 1 or not q.is_cuda:
-        raise ValueError(f"encoder_attention: q, k, v must share one CUDA "
-                         f"device or all lie on the CPU, got {devices}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"encoder_attention: q, k, v must have one "
                          f"(B, T, H, hd) shape, got {tuple(q.shape)}, "
@@ -65,15 +65,10 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((b, t, h, hd), dtype=torch.bfloat16, device=q.device)
     if q.numel() == 0:
         return out
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.wjt_encoder_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, h, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            stream)
-    _build.check(err, "encoder_attention kernel")
-    _build.count(encoder_attention)
+    _build.launch(encoder_attention, "encoder_attention kernel", q.device,
+                  _KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, t, h, *q.stride()[:3], *k.stride()[:3],
+                  *v.stride()[:3])
     return out
 
 

@@ -7,7 +7,7 @@ for rows x (R, d) at q_len == 1. Each block reads the layer-stacked
 (L, ...) parameters, caches and cross K/V at ``layer``, as the TPU
 kernels do, so no per-layer copy is made. An int8 weight is anything
 with ``.q`` (L, in, out) int8 codes and ``.s`` (L, 1, out) f32
-per-output-channel scales (``models/whisper/model.py:Int8Weight``).
+per-output-channel scales (``models/layers.py:Int8Weight``).
 
 The plain versions are the Pallas kernels' f32 chain: LayerNorm of x in
 f32, each int8 product in f32 with the scale after the sum, softmax in
@@ -33,6 +33,7 @@ x taken inside it, for wqkv, cwq and w1) and once on precomputed terms
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import types
 from typing import Tuple
@@ -41,11 +42,17 @@ import torch
 import torch.nn.functional as F
 
 from whisperjav_tpu_torch.ops.cuda import _build
+from whisperjav_tpu_torch.ops.cuda._build import I, P
 from whisperjav_tpu_torch.ops.cuda.decode_attention import (
-    decode_cross_attention_plain,
+    decode_cross_attention_plain, max_t,
 )
 
 _SELF, _CROSS, _MLP = 0, 1, 2
+_WORKSPACE_BYTES = _build.entry("wjt_fused_workspace_bytes", [I] * 4,
+                                ctypes.c_longlong)
+_SELF_BLOCK = _build.entry("wjt_self_block_at", [P] * 16 + [I] * 5 + [P])
+_CROSS_BLOCK = _build.entry("wjt_cross_block", [P] * 15 + [I] * 6 + [P])
+_MLP_BLOCK = _build.entry("wjt_mlp_block", [P] * 11 + [I] * 4 + [P])
 # the self-attention kernel keeps a logit a cache slot in the 48 KB of
 # shared memory a block has without opting in
 _MAX_SELF_T = 8192
@@ -127,18 +134,6 @@ def mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cpu(what: str, *tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raises unless they all lie
-    on one CUDA device otherwise."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what}: tensors must share one CUDA device or all "
-                         f"lie on the CPU, got {devices}")
-    return False
-
-
 def _expect(what: str, name: str, t: torch.Tensor, shape,
             dtype: torch.dtype) -> None:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
@@ -174,18 +169,13 @@ def _expect_int8(what: str, name: str, w, n_layer: int, k: int,
 
 @functools.lru_cache(maxsize=64)
 def _workspace_bytes(kind: int, rows: int, d: int, hidden: int) -> int:
-    return _build.load_library().wjt_fused_workspace_bytes(kind, rows, d,
-                                                           hidden)
+    return _WORKSPACE_BYTES(kind, rows, d, hidden)
 
 
 def _workspace(kind: int, rows: int, d: int, hidden: int,
                device: torch.device) -> torch.Tensor:
     n = _workspace_bytes(kind, rows, d, hidden)
     return torch.empty((n + 15) // 16 * 16, dtype=torch.uint8, device=device)
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
@@ -206,7 +196,7 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
         pos = torch.tensor([int(pos)], dtype=torch.int32, device=x.device)
     tensors = (x, ln_s, ln_b, wqkv.q, wqkv.s, bqkv, wo.q, wo.s, bo, cache_k,
                cache_v, pos)
-    if _on_cpu(what, *tensors):
+    if _build.on_cpu(what, *tensors):
         return self_block_plain(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k,
                                 cache_v, layer, pos, n_head)
     n_layer = ln_s.shape[0]
@@ -229,17 +219,13 @@ def self_block(x, ln_s, ln_b, wqkv, bqkv, wo, bo, cache_k, cache_v,
     if r == 0:
         return x_out, k_new, v_new
     work = _workspace(_SELF, r, d, 0, x.device)
-    with torch.cuda.device(x.device):
-        err = _build.load_library().wjt_self_block_at(
-            x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-            wqkv.q.data_ptr(), wqkv.s.data_ptr(), bqkv.data_ptr(),
-            wo.q.data_ptr(), wo.s.data_ptr(), bo.data_ptr(),
-            cache_k.data_ptr(), cache_v.data_ptr(), x_out.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
-            pos.data_ptr(), int(layer), r, d, n_head, t_cache,
-            _stream(x.device))
-    _build.check(err, "self_block kernels")
-    _build.count(self_block)
+    _build.launch(self_block, "self_block kernels", x.device, _SELF_BLOCK,
+                  x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                  wqkv.q.data_ptr(), wqkv.s.data_ptr(), bqkv.data_ptr(),
+                  wo.q.data_ptr(), wo.s.data_ptr(), bo.data_ptr(),
+                  cache_k.data_ptr(), cache_v.data_ptr(), x_out.data_ptr(),
+                  k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
+                  pos.data_ptr(), int(layer), r, d, n_head, t_cache)
     _count(qgemv_ln=1, self_attention=1, qgemv=1)
     return x_out, k_new, v_new
 
@@ -251,7 +237,7 @@ def cross_block(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv, k_scale, v_scale,
     what = "cross_block"
     tensors = (x, ln_s, ln_b, cwq.q, cwq.s, cbq, cwo.q, cwo.s, cbo, ck, cv,
                k_scale, v_scale)
-    if _on_cpu(what, *tensors):
+    if _build.on_cpu(what, *tensors):
         return cross_block_plain(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv,
                                  k_scale, v_scale, layer, n_head)
     n_layer = ln_s.shape[0]
@@ -274,24 +260,20 @@ def cross_block(x, ln_s, ln_b, cwq, cbq, cwo, cbo, ck, cv, k_scale, v_scale,
     if b == 0 or r % b:
         raise ValueError(f"{what}: {r} query rows not a multiple of the "
                          f"cross-K/V batch {b}")
-    lib = _build.load_library()
-    max_t = lib.wjt_decode_cross_attention_max_t()
-    if not 0 < t <= max_t:
-        raise ValueError(f"{what}: T = {t} outside (0, {max_t}]")
+    longest = max_t()
+    if not 0 < t <= longest:
+        raise ValueError(f"{what}: T = {t} outside (0, {longest}]")
     x_out = torch.empty_like(x)
     if r == 0:
         return x_out
     work = _workspace(_CROSS, r, d, 0, x.device)
-    with torch.cuda.device(x.device):
-        err = lib.wjt_cross_block(
-            x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-            cwq.q.data_ptr(), cwq.s.data_ptr(), cbq.data_ptr(),
-            cwo.q.data_ptr(), cwo.s.data_ptr(), cbo.data_ptr(),
-            ck.data_ptr(), cv.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), x_out.data_ptr(), work.data_ptr(),
-            int(layer), r, b, d, n_head, t, _stream(x.device))
-    _build.check(err, "cross_block kernels")
-    _build.count(cross_block)
+    _build.launch(cross_block, "cross_block kernels", x.device, _CROSS_BLOCK,
+                  x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                  cwq.q.data_ptr(), cwq.s.data_ptr(), cbq.data_ptr(),
+                  cwo.q.data_ptr(), cwo.s.data_ptr(), cbo.data_ptr(),
+                  ck.data_ptr(), cv.data_ptr(), k_scale.data_ptr(),
+                  v_scale.data_ptr(), x_out.data_ptr(), work.data_ptr(),
+                  int(layer), r, b, d, n_head, t)
     _count(qgemv_ln=1, decode_cross_attention_terms=1, qgemv=1)
     return x_out
 
@@ -300,7 +282,7 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
     """GELU MLP block of layer ``layer``: x (R, d) -> x_out (R, d)."""
     what = "mlp_block"
     tensors = (x, ln_s, ln_b, w1.q, w1.s, b1, w2.q, w2.s, b2)
-    if _on_cpu(what, *tensors):
+    if _build.on_cpu(what, *tensors):
         return mlp_block_plain(x, ln_s, ln_b, w1, b1, w2, b2, layer)
     n_layer = ln_s.shape[0]
     _check_common(what, x, n_layer, layer)
@@ -319,15 +301,12 @@ def mlp_block(x, ln_s, ln_b, w1, b1, w2, b2, layer: int) -> torch.Tensor:
     if r == 0:
         return x_out
     work = _workspace(_MLP, r, d, hidden, x.device)
-    with torch.cuda.device(x.device):
-        err = _build.load_library().wjt_mlp_block(
-            x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-            w1.q.data_ptr(), w1.s.data_ptr(), b1.data_ptr(),
-            w2.q.data_ptr(), w2.s.data_ptr(), b2.data_ptr(),
-            x_out.data_ptr(), work.data_ptr(), int(layer), r, d, hidden,
-            _stream(x.device))
-    _build.check(err, "mlp_block kernels")
-    _build.count(mlp_block)
+    _build.launch(mlp_block, "mlp_block kernels", x.device, _MLP_BLOCK,
+                  x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                  w1.q.data_ptr(), w1.s.data_ptr(), b1.data_ptr(),
+                  w2.q.data_ptr(), w2.s.data_ptr(), b2.data_ptr(),
+                  x_out.data_ptr(), work.data_ptr(), int(layer), r, d,
+                  hidden)
     _count(qgemv_ln=1, qgemv=1)
     return x_out
 

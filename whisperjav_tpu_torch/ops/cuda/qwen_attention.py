@@ -30,7 +30,10 @@ import ctypes
 import torch
 
 from whisperjav_tpu_torch.ops.cuda import _build
+from whisperjav_tpu_torch.ops.cuda._build import I, I64, P
 
+_KERNEL = _build.entry("wjt_qwen_column_attention",
+                       [P] * 6 + [I64] * 2 + [I] * 8 + [ctypes.c_float, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128, 32)    # every dense Qwen3; the port's test widths
 
@@ -64,14 +67,9 @@ def column_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
 
 
 def _check(q, cache_k, cache_v, layer, pos, k_new, v_new):
-    """Raise on operands the kernel does not take; returns (B, nkv, rep,
-    hd, T_max)."""
+    """Raise on operands (on one CUDA device) the kernel does not take;
+    returns (B, nkv, rep, hd, T_max)."""
     tensors = (q, cache_k, cache_v, k_new, v_new)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1 or not q.is_cuda:
-        raise ValueError(f"column_attention: q, the cache and the column "
-                         f"must share one CUDA device or all lie on the "
-                         f"CPU, got {devices}")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"column_attention: q must be (B, 1, nh, hd), got "
                          f"{tuple(q.shape)}")
@@ -120,24 +118,18 @@ def column_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      ) -> torch.Tensor:
     """One decode step's attention of layer ``layer`` at position
     ``pos``; writes the column into the cache at ``pos``."""
-    if {t.device for t in (q, cache_k, cache_v, k_new, v_new)} \
-            == {torch.device("cpu")}:
+    if _build.on_cpu("column_attention", q, cache_k, cache_v, k_new, v_new):
         return column_attention_plain(q, cache_k, cache_v, layer, pos,
                                       k_new, v_new)
     b, nkv, rep, hd, t_max = _check(q, cache_k, cache_v, layer, pos,
                                     k_new, v_new)
     out = torch.empty_like(q)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.wjt_qwen_column_attention(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
-            k_new.stride(0), v_new.stride(0),
-            _DTYPES[q.dtype], int(layer), b, nkv, rep, hd, t_max,
-            int(pos), ctypes.c_float(hd ** -0.5), stream)
-    _build.check(err, "column_attention kernel")
-    _build.count(column_attention)
+    _build.launch(column_attention, "column_attention kernel", q.device,
+                  _KERNEL, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
+                  k_new.stride(0), v_new.stride(0), _DTYPES[q.dtype],
+                  int(layer), b, nkv, rep, hd, t_max, int(pos),
+                  ctypes.c_float(hd ** -0.5))
     return out
 
 

@@ -87,8 +87,9 @@ from whisperjav_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
 from whisperjav_tpu_torch.utils.logger import logger
 from whisperjav_tpu_torch.models.whisper.decode import (
     DecodeOptions, DecodeResult, DecodedSegment, decode_beam, decode_greedy,
-    draw_gumbel, extract_segments,
+    extract_segments,
 )
+from whisperjav_tpu_torch.models.layers import draw_gumbel
 from whisperjav_tpu_torch.models.whisper.model import Whisper, encode
 from whisperjav_tpu_torch.models.whisper.quant import (
     fuse_qkv_weights, quantize_decoder_weights,

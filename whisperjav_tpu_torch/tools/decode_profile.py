@@ -116,19 +116,18 @@ def _build(model: str, batch: int, device: torch.device):
 def _sliced(model, config, n_layers: int):
     """A decoder of the first ``n_layers`` layers of ``model`` (views of
     its stacked block tensors; the cross-K/V follows them)."""
-    from whisperjav_tpu_torch.models.whisper.model import Int8Weight
+    from whisperjav_tpu_torch.models.layers import Int8Weight, ParamTree
     out = copy.copy(model)
     out._modules = dict(model._modules)
     dec = copy.copy(model.decoder)
     dec._modules = dict(model.decoder._modules)
     dec._parameters = dict(model.decoder._parameters)
-    blocks = nn.ParameterDict()
-    for name, leaf in model.decoder.blocks.items():
-        blocks[name] = (Int8Weight(leaf.q[:n_layers], leaf.s[:n_layers])
-                        if isinstance(leaf, Int8Weight)
-                        else nn.Parameter(leaf[:n_layers],
-                                          requires_grad=False))
-    dec.blocks = blocks
+    sliced = {}
+    for name in model.decoder.blocks.keys():
+        leaf = model.decoder.blocks[name]
+        sliced[name] = (Int8Weight(leaf.q[:n_layers], leaf.s[:n_layers])
+                        if isinstance(leaf, Int8Weight) else leaf[:n_layers])
+    dec.blocks = ParamTree(sliced)
     out.decoder = dec
     out.config = dataclasses.replace(config, n_text_layer=n_layers)
     return out
