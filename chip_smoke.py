@@ -1655,9 +1655,12 @@ def check_qwen_column_attention(dev, gen):
                 if dtype == torch.float32:
                     worst = max(worst, err)
 
+                # the position as the decode loop's graph hands it over
+                at = torch.full((1,), pos, dtype=torch.int32, device=dev)
+
                 def walk(fn):
                     layers = itertools.cycle(range(n_layer))
-                    return lambda: fn(q, ck, cv, next(layers), pos, kn, vn)
+                    return lambda: fn(q, ck, cv, next(layers), at, kn, vn)
                 ms = device_ms(walk(qa.column_attention), 40)
                 plain_ms = device_ms(walk(qa.column_attention_plain), 5)
                 qh = q.transpose(1, 2)

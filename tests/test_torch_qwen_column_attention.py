@@ -130,7 +130,9 @@ def model():
 
 def _attend_as_prefill(q, ck, cv, layer, pos, kn, vn):
     """The step's attention in ``_lm_block``'s prefill form: the column
-    written into the cache, then a causal softmax over every slot."""
+    written into the cache, then a causal softmax over every slot. The
+    decode loop hands the position over as a one-element tensor."""
+    pos = int(pos)
     b, _, nh, hd = q.shape
     t_max, kvd = ck.shape[2:]
     nkv = kvd // hd
@@ -184,14 +186,16 @@ def test_generate_tokens_match_the_prefill_form(model, monkeypatch):
 
 def test_the_loop_counts_kernel_layers(model):
     """``decode.loop`` carries the first generated token's position and
-    the layer-steps the kernel ran: none on the CPU."""
+    the layer-steps the kernel ran, the steps replayed from a CUDA graph
+    and the graphs captured: none of the last three on the CPU."""
     rec = tracer.SpanRecorder()
     with rec.span("test"):
         qm.generate_text(model, torch.tensor([[5, 6, 7, 8]]),
                          torch.tensor([4]), max_new=6)
     (loop,) = [s for s in rec.spans if s.name == "decode.loop"]
     assert loop.counters == {"steps": 6, "rows": 1, "start": 4,
-                             "kernel_layers": 0}
+                             "kernel_layers": 0, "graph_steps": 0,
+                             "captures": 0}
 
 
 # -- on the card ------------------------------------------------------------
@@ -240,3 +244,35 @@ def test_kernel_matches_plain(cuda_device, dtype, b, t_max, nkv, hd, pos,
     assert (out.float() - want).abs().max().item() <= tol
     assert torch.equal(ck.nan_to_num(), want_k.nan_to_num())
     assert torch.equal(cv, want_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,rep", [(1, 2), (32, 2), (1, 4), (32, 4)],
+                         ids=["b1-rep2", "b32-rep2", "b1-rep4", "b32-rep4"])
+@pytest.mark.parametrize("pos", [0, 1, 31, 32, 625, 913, 1200])
+def test_kernel_at_a_device_position(cuda_device, dtype, b, rep, pos):
+    """The position read from device memory (one int32), at the cell's
+    cache of 1,201 positions, 8 groups of 128: the grid follows T_max,
+    so at B=1 the first positions leave ranks with nothing to read,
+    which must add nothing; the output as the plain version's at the
+    int position and the cache after the step equal."""
+    t_max = 1201
+    q, ck, cv, kn, vn = _operands(b, t_max, 8, 128, dtype, seed=pos,
+                                  device=cuda_device, layers=2, rep=rep)
+    want = qa.column_attention_plain(q.float(), ck.float().clone(),
+                                     cv.float().clone(), 1, pos, kn.float(),
+                                     vn.float())
+    want_k, want_v = ck.clone(), cv.clone()
+    want_k[1, :, pos], want_v[1, :, pos] = kn, vn
+    at = torch.full((1,), pos, dtype=torch.int32, device=cuda_device)
+    out = qa.column_attention(q, ck, cv, 1, at, kn, vn)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    top = want.abs().max().item()
+    tol = (2e-5 * top if dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(top)) - 7))
+    assert (out.float() - want).abs().max().item() <= tol
+    assert torch.equal(ck, want_k) and torch.equal(cv, want_v)

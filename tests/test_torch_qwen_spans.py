@@ -81,9 +81,10 @@ def test_spans_and_counters(params, monkeypatch, ahead):
             assert s.parent in roots
         if s.name == "decode.loop":
             # the first generated token after 50 audio tokens and BOS;
-            # no kernel on the CPU
+            # no kernel and no CUDA graph on the CPU
             assert s.counters == {"steps": BUDGET, "rows": 2, "start": 51,
-                                  "kernel_layers": 0}
+                                  "kernel_layers": 0, "graph_steps": 0,
+                                  "captures": 0}
         if s.name in STEPS:
             assert s.parent.name == "decode.step"
         if s.name == "decode.step":

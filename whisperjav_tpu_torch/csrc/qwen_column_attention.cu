@@ -16,6 +16,9 @@
 //     positions [0, pos) are read in place, none at or after pos
 //   k_new, v_new (B, n_kv * hd) rows at any row stride: the step's own
 //     column, attended as position pos and written into K, V at pos
+//   pos: one int32 in device memory, read when the kernel runs (so one
+//     launch captured in a CUDA graph serves every step), clamped to
+//     [0, T_max)
 //   out (B, n_kv * rep, hd): softmax(q k^T hd^-0.5) v over the pos + 1
 //     positions, query head h reading KV group h / rep
 // f32 or bf16 (q, K, V, the column and out share one type); the scale,
@@ -37,10 +40,14 @@
 //   1.7B: rep 2), else 1 (14B: rep 5, five chunks, each reading the
 //   group's K and V). R is the most that keeps the whole grid resident at
 //   once (B * n_kv * chunks * R within the card's resident blocks, from
-//   the occupancy API) while giving each rank a sweep of its warps at
-//   least: the rows share pos, so the blocks' work is equal and one wave
+//   the occupancy API) and no more than T_max's sweeps of a block's
+//   warps: the rows share pos, so the blocks' work is equal and one wave
 //   ends together (B=32, rep 2: R=2; B=1, the translator: R=8). Nothing
-//   to set: it follows B, n_kv, rep and pos.
+//   to set: it follows B, n_kv, rep and T_max, never pos, which the
+//   launch does not know. Each rank reads pos and takes its share of
+//   [0, pos], ceil((pos + 1) / R) keys; at small pos the last ranks'
+//   shares are empty (B=1, the first steps): such a rank's max stays
+//   -inf and its sum 0, and the merges weigh it 0.
 // - Streaming: a warp takes whole keys; its lanes split the head
 //   dimension in 16-byte pieces (hd 128: 32 lanes a key at f32, 16 at
 //   bf16, so two keys a load). A lane issues the 16-byte loads of
@@ -83,8 +90,9 @@ struct Args {
   void* k;              // (B, T_max, n_kv * hd) of the layer
   void* v;
   void* out;            // (B, n_kv * rep, hd)
+  const int* pos;       // one int32 on the device
   int64_t k_new_stride, v_new_stride;   // elements
-  int n_kv, rep, chunks, t_max, pos, ranks, rank_keys;
+  int n_kv, rep, chunks, t_max, ranks;
   float scale;
 };
 
@@ -251,9 +259,10 @@ qwen_column_attention_kernel(Args a) {
   const int b = pair / a.n_kv, g = pair - b * a.n_kv;
   const int kvd = a.n_kv * HD, nh = a.n_kv * a.rep;
   const int h0 = g * a.rep + chunk * REP;   // the chunk's first head
-  const int pos = a.pos;
-  const int t0 = rank * a.rank_keys;
-  const int t1 = min(t0 + a.rank_keys, pos + 1);   // key pos: the column
+  const int pos = min(max(__ldg(a.pos), 0), a.t_max - 1);
+  const int rank_keys = (pos + n_ranks) / n_ranks;   // ceil((pos + 1) / R)
+  const int t0 = rank * rank_keys;
+  const int t1 = min(t0 + rank_keys, pos + 1);   // key pos: the column
   const int cached = min(t1, pos);                 // keys from the cache
   const bool has_new = t0 <= pos && pos < t1;
 
@@ -425,12 +434,11 @@ int launch(Args a, int batch, cudaStream_t stream) {
   int resident = 0;
   const int err0 = resident_blocks(kernel, known, &resident);
   if (err0) return err0;
-  const int units = batch * a.n_kv * a.chunks, keys = a.pos + 1;
+  const int units = batch * a.n_kv * a.chunks;
   int ranks = resident / units;
-  ranks = min(ranks, (keys + kSweep - 1) / kSweep);
+  ranks = min(ranks, (a.t_max + kSweep - 1) / kSweep);
   ranks = max(1, min(ranks, kMaxRanks));
   a.ranks = ranks;
-  a.rank_keys = (keys + ranks - 1) / ranks;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ranks * units);
   cfg.blockDim = dim3(kThreads);
@@ -467,15 +475,16 @@ int launch_width(const Args& a, int batch, int head_dim,
 }  // namespace
 
 // k and v point at the whole (L, B, T_max, n_kv * hd) cache; `layer`
-// selects one. Writes the column at pos; attends over [0, pos] with the
+// selects one. `pos` points to the step's position, one int32 on the
+// device. Writes the column at pos; attends over [0, pos] with the
 // column as pos. dtype 0: f32, 1: bf16. Any rep; hd 128 or 32 only.
 extern "C" int wjt_qwen_column_attention(
     const void* q, const void* k_new, const void* v_new, void* k, void* v,
     void* out, long long k_new_stride, long long v_new_stride, int dtype,
     int layer, int batch, int n_kv, int rep, int head_dim, int t_max,
-    int pos, float scale, void* stream) {
-  if (batch <= 0 || n_kv <= 0 || rep <= 0 || layer < 0 || pos < 0 ||
-      pos >= t_max)
+    const void* pos, float scale, void* stream) {
+  if (batch <= 0 || n_kv <= 0 || rep <= 0 || layer < 0 || t_max <= 0 ||
+      pos == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t itemsize = dtype == kBf16 ? 2 : 4;
   const int64_t layer_off =
@@ -483,8 +492,8 @@ extern "C" int wjt_qwen_column_attention(
   Args a = {q, k_new, v_new,
             static_cast<char*>(k) + layer_off,
             static_cast<char*>(v) + layer_off,
-            out, k_new_stride, v_new_stride, n_kv, rep, 1, t_max, pos, 0,
-            0, scale};
+            out, static_cast<const int*>(pos), k_new_stride, v_new_stride,
+            n_kv, rep, 1, t_max, 0, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_width<float>(a, batch, head_dim, s);
   if (dtype == kBf16) return launch_width<bf16>(a, batch, head_dim, s);

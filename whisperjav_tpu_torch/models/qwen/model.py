@@ -27,18 +27,24 @@ this path: the products are PyTorch matmuls. A decode step's attention
 runs ``csrc/qwen_column_attention.cu`` on CUDA tensors
 (``ops/cuda/qwen_attention.py``), a kernel the JAX package does not
 need: XLA fuses the einsums that eager PyTorch would run as copies of
-the whole cache.
+the whole cache. On CUDA each decode step's forward (:func:`step_forward`)
+is a replay of a CUDA graph captured once a loop shape
+(``step_graph.py``); the tower, the prefill and the token selection stay
+eager.
 
 Under a span the caller entered (``WJAV_TRACE_BATCHES=1``, see
 ``utils/tracer.py``; ``QwenGenerator.generate_batch`` enters its
 ``qwen.batch``), :func:`generate` records ``qwen.encode`` and
 ``qwen.prefill``, and :func:`_decode` records ``decode.loop`` (counters
 ``steps``, the forwards run, ``rows``, ``start``, the position of the
-first generated token, and ``kernel_layers``, the layer-steps whose
-attention ran the hand-written kernel) with one ``decode.step`` a
-step and its children ``decode.stop_check`` (the every-8-steps wait for
-the flag), ``decode.select`` (penalty, token choice, log-softmax and
-bookkeeping) and ``decode.forward`` (the :func:`lm_step` enqueue). Each
+first generated token, ``kernel_layers``, the layer-steps whose
+attention ran the hand-written kernel, ``graph_steps``, the steps whose
+forward was a CUDA graph's replay, and ``captures``, the graphs captured
+in the loop) with one ``decode.step`` a step and its children
+``decode.stop_check`` (the every-8-steps wait for the flag),
+``decode.select`` (penalty, token choice, log-softmax and bookkeeping)
+and ``decode.forward`` (:func:`step_forward`: on CUDA a replay, and a
+capture where one is made, see ``step_graph.py``; eager on the CPU). Each
 of the three stages closes its span once the device has run it
 (``Span.close_synced``), so the device trace puts each stage's device
 work inside its span. Untraced, a phase costs one ``is None`` check.
@@ -46,6 +52,7 @@ work inside its span. Untraced, a phase costs one ``is None`` check.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -57,6 +64,7 @@ from whisperjav_tpu_torch.models.layers import (
     Int8, Int8Weight, ParamTree, draw_gumbel, int8_matmul, layer_norm,
     quantize, sinusoid_positions,
 )
+from whisperjav_tpu_torch.models.qwen.step_graph import StepForward
 from whisperjav_tpu_torch.ops.cuda import qwen_attention
 from whisperjav_tpu_torch.utils import tracer
 from whisperjav_tpu_torch.utils.precision import full_f32
@@ -156,15 +164,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies theta^(-i / half) (hd/2,) in f32 on
+    ``device``, made once a width, base and device: their making copies
+    theta from the host, which a captured step must not do. Never
+    written."""
+    half = hd // 2
+    with torch.inference_mode(False):
+        exps = -torch.arange(half, dtype=torch.float32, device=device) / half
+        return torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                      device=device), exps)
+
+
 def rope_angles(positions: torch.Tensor, hd: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos and sin (T, 1, hd/2) of ``positions`` (T,): frequencies
-    theta^(-i / half) and angles computed in f32, as the JAX package."""
-    half = hd // 2
-    exps = -torch.arange(half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    """cos and sin (T, 1, hd/2) of ``positions`` (T,), a tensor on the
+    device: angles computed in f32 from :func:`rope_freqs`, as the JAX
+    package."""
+    freqs = rope_freqs(hd, theta, positions.device)
     ang = positions.float()[:, None] * freqs[None, :]
     return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
 
@@ -328,11 +346,12 @@ class LMCache(NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
+def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos,
               cfg: QwenASRConfig, bias: Optional[torch.Tensor], cos, sin):
     """LM layer ``i`` at positions [pos, pos + q_len).
 
-    A single position (q_len == 1) goes through
+    A single position (q_len == 1; ``pos`` an int or one int32 on the
+    device) goes through
     :func:`~whisperjav_tpu_torch.ops.cuda.qwen_attention.column_attention`,
     which attends over the cache's [0, pos) and the new key and writes
     the new K/V column at ``pos``. Otherwise the new K/V are written into
@@ -372,11 +391,13 @@ def _lm_block(x, p: ParamTree, i: int, cache: LMCache, pos: int,
     return x + dense(gate * dense(h, p["w_up"][i]), p["w_down"][i])
 
 
-def lm_step(model: QwenASR, x_emb: torch.Tensor, pos: int,
+def lm_step(model: QwenASR, x_emb: torch.Tensor, pos,
             cache: LMCache) -> Tuple[torch.Tensor, LMCache]:
     """Embedded inputs (B, q_len, d) at [pos, pos + q_len) -> f32 logits
     (B, q_len, vocab); each layer writes its new K/V into the cache in
-    place."""
+    place. ``pos`` is an int, or at q_len 1 one int32 on the device
+    (shape (1,)): then nothing reads it on the host, and the step can be
+    captured in a CUDA graph (:func:`step_forward`)."""
     cfg = model.config
     b, q_len, _ = x_emb.shape
     t_max = cache.k.shape[2]
@@ -400,6 +421,16 @@ def lm_step(model: QwenASR, x_emb: torch.Tensor, pos: int,
         else:
             logits = torch.matmul(x, model.lm_head.to(x.dtype)).float()
     return logits, cache
+
+
+def step_forward(model: QwenASR, token: torch.Tensor, pos: torch.Tensor,
+                 cache: LMCache) -> torch.Tensor:
+    """The decode loop's forward: f32 logits (B, vocab) of ``token``
+    (B,) at the position ``pos`` (one int32 on the device), its K/V
+    column written into the cache. What a CUDA graph captures
+    (``step_graph.StepForward``), from the embedding gather to the head."""
+    logits, _ = lm_step(model, model.tok_emb[token[:, None]], pos, cache)
+    return logits[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +469,6 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
         raise ValueError("sampling at temperature > 0 needs a generator "
                          "or a gumbel callable")
     b, dev = cur.shape[0], cur.device
-    tok_emb = model.tok_emb
     eos = cfg.eos_id
     tokens = torch.full((b, max_new), eos, dtype=torch.long, device=dev)
     sum_lp = torch.zeros((b,), device=dev)
@@ -453,6 +483,7 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
             if penalize else None)
     loop = tracer.child(tracer.current(), "decode.loop")
     launched = qwen_attention.column_attention.launches
+    forward = StepForward(model, cache, step_forward)
     steps = 0
     for step in range(max_new):
         span = None if loop is None else loop.child("decode.step")
@@ -486,11 +517,9 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
             seen[:, eos] = False
         if span is not None:
             span.lap("decode.select")
-        nxt, cache = lm_step(model, tok_emb[tok[:, None]], start + step,
-                             cache)
+        cur = forward(tok, start + step)
         if span is not None:
             span.lap("decode.forward")
-        cur = nxt[:, 0]
         finished = finished | is_eos
         steps += 1
         if span is not None:
@@ -498,7 +527,9 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
     if loop is not None:
         loop.close_synced(dev, steps=steps, rows=b, start=start,
                           kernel_layers=qwen_attention.column_attention
-                          .launches - launched)
+                          .launches - launched,
+                          graph_steps=forward.graph_steps,
+                          captures=forward.captures)
     avg_lp = sum_lp / (length.float() + 1.0)
     return QwenGenResult(tokens, length, avg_lp)
 

@@ -12,7 +12,11 @@ column mode)::
        positions, query head h reading KV group h // (nh // nkv)
 
 and writes the column into the cache at ``pos``, so the cache after the
-step holds what the step added. On CUDA tensors it launches
+step holds what the step added. ``pos`` is an int or one int32 on the
+operands' device (shape (1,)); the kernel reads a tensor position when
+it runs, so one launch captured in a CUDA graph serves every step
+(``models/qwen/step_graph.py``), and the plain version reads it with
+tensor ops, never on the host. On CUDA tensors it launches
 ``csrc/qwen_column_attention.cu`` or raises: the kernel reads the filled
 positions of the layer in place, once, and nothing at or after ``pos``.
 On CPU tensors it runs :func:`column_attention_plain`, the einsums the
@@ -33,18 +37,20 @@ from whisperjav_tpu_torch.ops.cuda import _build
 from whisperjav_tpu_torch.ops.cuda._build import I, I64, P
 
 _KERNEL = _build.entry("wjt_qwen_column_attention",
-                       [P] * 6 + [I64] * 2 + [I] * 8 + [ctypes.c_float, P])
+                       [P] * 6 + [I64] * 2 + [I] * 7
+                       + [P, ctypes.c_float, P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (128, 32)    # every dense Qwen3; the port's test widths
 
 
 def column_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
-                           cache_v: torch.Tensor, layer: int, pos: int,
+                           cache_v: torch.Tensor, layer: int, pos,
                            k_new: torch.Tensor,
                            v_new: torch.Tensor) -> torch.Tensor:
     """The kernel's function in PyTorch: the cache's logits (slots at and
     after ``pos`` masked) and the new key's through one softmax, in q's
-    type; then the column written at ``pos``."""
+    type; then the column written at ``pos`` (an int or a one-element
+    tensor, read by tensor ops alone)."""
     b, _, nh, hd = q.shape
     t_max, kvd = cache_k.shape[2:]
     nkv = kvd // hd
@@ -61,8 +67,9 @@ def column_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
     a = torch.softmax(torch.cat([lg_c, lg_n], dim=-1), dim=-1).to(q.dtype)
     o = (torch.einsum("bgrqk,bkgd->bqgrd", a[..., :t_max], vv).float()
          + torch.einsum("bgrqk,bkgd->bqgrd", a[..., t_max:], vn).float())
-    cache_k[layer, :, pos] = k_new.to(cache_k.dtype)
-    cache_v[layer, :, pos] = v_new.to(cache_v.dtype)
+    at = torch.as_tensor(pos, device=q.device).reshape(1).long()
+    cache_k[layer, :, at] = k_new[:, None].to(cache_k.dtype)
+    cache_v[layer, :, at] = v_new[:, None].to(cache_v.dtype)
     return o.to(q.dtype).reshape(b, 1, nh, hd)
 
 
@@ -106,29 +113,42 @@ def _check(q, cache_k, cache_v, layer, pos, k_new, v_new):
     if not 0 <= layer < n_layer:
         raise ValueError(f"column_attention: layer {layer} outside [0, "
                          f"{n_layer})")
-    if not 0 <= pos < t_max:
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != (1,) or pos.dtype != torch.int32:
+            raise ValueError(f"column_attention: a tensor pos must be one "
+                             f"int32 of shape (1,), got {pos.dtype} "
+                             f"{tuple(pos.shape)}")
+    elif not 0 <= pos < t_max:
         raise ValueError(f"column_attention: pos {pos} outside [0, "
                          f"{t_max})")
     return b, nkv, nh // nkv, hd, t_max
 
 
 def column_attention(q: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, layer: int, pos: int,
+                     cache_v: torch.Tensor, layer: int, pos,
                      k_new: torch.Tensor, v_new: torch.Tensor
                      ) -> torch.Tensor:
     """One decode step's attention of layer ``layer`` at position
-    ``pos``; writes the column into the cache at ``pos``."""
-    if _build.on_cpu("column_attention", q, cache_k, cache_v, k_new, v_new):
+    ``pos``; writes the column into the cache at ``pos``. An int
+    position is checked against T_max and copied to the device; a
+    tensor's range is the caller's to keep (the kernel clamps it to [0,
+    T_max))."""
+    tensors = (q, cache_k, cache_v, k_new, v_new)
+    if isinstance(pos, torch.Tensor):
+        tensors += (pos,)
+    if _build.on_cpu("column_attention", *tensors):
         return column_attention_plain(q, cache_k, cache_v, layer, pos,
                                       k_new, v_new)
     b, nkv, rep, hd, t_max = _check(q, cache_k, cache_v, layer, pos,
                                     k_new, v_new)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor([int(pos)], dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     _build.launch(column_attention, "column_attention kernel", q.device,
                   _KERNEL, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                   cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
                   k_new.stride(0), v_new.stride(0), _DTYPES[q.dtype],
-                  int(layer), b, nkv, rep, hd, t_max, int(pos),
+                  int(layer), b, nkv, rep, hd, t_max, pos.data_ptr(),
                   ctypes.c_float(hd ** -0.5))
     return out
 
