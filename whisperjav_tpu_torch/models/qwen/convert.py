@@ -25,6 +25,8 @@ tied ``embed_tokens`` when absent (Qwen3 ≤1.7B ties embeddings).
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -209,16 +211,43 @@ def load_pretrained(model_name_or_path: str, dtype=np.float32):
     return cfg, params
 
 
-def load_lm(model_name_or_path: str, dtype=np.float32):
-    """Load a text-only Qwen3-family causal LM (e.g. a local Qwen3
-    instruct checkpoint) for text generation on the card.
+# the translator's LM families, by config.json's model_type
+LM_FAMILIES = ("the Qwen3 block (model_type qwen3) and the DeepSeek-V3 "
+               "block (model_type deepseek_v3)")
 
-    Returns (config, numpy tree) with no ``audio`` subtree, for
-    :func:`whisperjav_tpu_torch.models.qwen.model.generate_text` through
-    ``weights.params_from_jax``. A checkpoint without Qwen3's per-head
-    q/k norms (Qwen2.5-style) is refused: the LM implements the Qwen3
-    block. Raises ImportError where transformers is not installed.
+
+def _model_type(path: str) -> Optional[str]:
+    """A local checkpoint directory's ``config.json`` ``model_type``
+    (None where there is no such file)."""
+    cfg = Path(path) / "config.json"
+    if not cfg.is_file():
+        return None
+    return json.loads(cfg.read_text()).get("model_type")
+
+
+def load_lm(model_name_or_path: str, dtype=np.float32):
+    """Load a text-only causal LM for text generation on the card, its
+    family picked by ``config.json``'s ``model_type``.
+
+    A Qwen3-family checkpoint (``qwen3``, e.g. a local Qwen3 instruct
+    checkpoint) returns (config, numpy tree) with no ``audio`` subtree,
+    for :func:`whisperjav_tpu_torch.models.qwen.model.generate_text`
+    through ``weights.params_from_jax``; one without Qwen3's per-head q/k
+    norms (Qwen2.5-style, ``qwen2``) is refused. A ``deepseek_v3``
+    checkpoint (e.g. Kanana-2-30B-A3B) returns (``DeepseekV3Config``, a
+    layer source that reads its safetensors lazily), for
+    ``models/deepseek_v3/model.py:place``, which quantises each matrix as
+    it moves to the card. Any other ``model_type`` is refused. Raises
+    ImportError where transformers (Qwen3) or safetensors (DeepSeek-V3)
+    is not installed.
     """
+    kind = _model_type(model_name_or_path)
+    if kind == "deepseek_v3":
+        from whisperjav_tpu_torch.models.deepseek_v3.convert import load
+        return load(model_name_or_path)
+    if kind not in (None, "qwen3", "qwen2"):
+        raise ValueError(f"{model_name_or_path}: model_type {kind!r}; the "
+                         f"translator's LM implements {LM_FAMILIES}")
     try:
         import transformers
     except ImportError as e:
@@ -232,7 +261,6 @@ def load_lm(model_name_or_path: str, dtype=np.float32):
     sd = hf.state_dict()
     if "model.layers.0.self_attn.q_norm.weight" not in _strip_prefixes(sd):
         raise ValueError(
-            "checkpoint lacks q/k-norm weights (Qwen2.5-style); the LM "
-            "implements the Qwen3 block — use a Qwen3-family instruct "
-            "checkpoint")
+            "checkpoint lacks q/k-norm weights (Qwen2.5-style); the "
+            f"translator's LM implements {LM_FAMILIES}")
     return cfg, lm_params_from_state_dict(sd, cfg, dtype)

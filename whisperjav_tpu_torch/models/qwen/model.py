@@ -449,14 +449,21 @@ class QwenGenResult(NamedTuple):
 FINISHED_CHECK_EVERY = 8
 
 
-def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
+def _decode(model, cur: torch.Tensor, cache: tuple, start: int,
             max_new: int, repetition_penalty: float, temperature: float,
             generator: Optional[torch.Generator],
-            gumbel: Optional[Callable[[int], torch.Tensor]]
-            ) -> QwenGenResult:
+            gumbel: Optional[Callable[[int], torch.Tensor]],
+            step_fn: Callable = step_forward) -> QwenGenResult:
     """Up to ``max_new`` greedy (temperature 0) or sampled steps from the
     logits ``cur`` (B, vocab) of the prefix's last position; generated
     token i lands at cache position ``start + i``.
+
+    The one decode loop of the port's LMs: ``step_fn(model, token, pos,
+    cache)`` is the model's single-token forward (Qwen3's
+    :func:`step_forward`, DeepSeek-V3's ``models/deepseek_v3/model.py:
+    step_forward``) and ``cache`` its cache, a tuple of tensors (L, B,
+    positions, ...) (:class:`LMCache`, or DeepSeek-V3's latent cache);
+    ``model.config`` gives ``eos_id`` and ``vocab_size``.
 
     Sampling is ``argmax(logits + T * gumbel)`` with the noise of step i
     from ``gumbel(i)`` when given, else drawn from ``generator``. The
@@ -483,7 +490,7 @@ def _decode(model: QwenASR, cur: torch.Tensor, cache: LMCache, start: int,
             if penalize else None)
     loop = tracer.child(tracer.current(), "decode.loop")
     launched = qwen_attention.column_attention.launches
-    forward = StepForward(model, cache, step_forward)
+    forward = StepForward(model, cache, step_fn)
     steps = 0
     for step in range(max_new):
         span = None if loop is None else loop.child("decode.step")
@@ -574,6 +581,17 @@ def generate(model: QwenASR, mel: torch.Tensor, max_new: int,
                    gumbel)
 
 
+def prompt_of(prompt_ids, prompt_len, device) -> torch.Tensor:
+    """The real prompt (B, n) of ``prompt_ids`` (B, L), right-padded past
+    ``prompt_len`` (B,), which every row must share, on ``device``."""
+    lens = torch.as_tensor(prompt_len).reshape(-1)
+    n = int(lens[0])
+    if not bool((lens == n).all()) or n < 1:
+        raise ValueError(f"prompt lengths {lens.tolist()}: every row must "
+                         "share one length of at least 1")
+    return torch.as_tensor(prompt_ids, device=device).long()[:, :n]
+
+
 @torch.inference_mode()
 def generate_text(model: QwenASR, prompt_ids, prompt_len, max_new: int,
                   repetition_penalty: float = 1.0, temperature: float = 0.0,
@@ -590,16 +608,11 @@ def generate_text(model: QwenASR, prompt_ids, prompt_len, max_new: int,
     compiles, which changes no result, and eager PyTorch compiles
     nothing. Then up to ``max_new`` steps as :func:`_decode`; tokens are
     EOS-padded to ``max_new`` and ``length`` excludes the EOS."""
-    dev = model.tok_emb.device
-    lens = torch.as_tensor(prompt_len).reshape(-1)
-    n = int(lens[0])
-    if not bool((lens == n).all()) or n < 1:
-        raise ValueError(f"prompt lengths {lens.tolist()}: every row must "
-                         "share one length of at least 1")
-    ids = torch.as_tensor(prompt_ids, device=dev).long()[:, :n]
     tok_emb = model.tok_emb
+    ids = prompt_of(prompt_ids, prompt_len, tok_emb.device)
+    n = ids.shape[1]
     cache = LMCache.zeros(model.config, ids.shape[0], n + max_new,
-                          tok_emb.dtype, dev)
+                          tok_emb.dtype, tok_emb.device)
     logits, cache = lm_step(model, tok_emb[ids], 0, cache)
     return _decode(model, logits[:, -1], cache, n, max_new,
                    repetition_penalty, temperature, generator, gumbel)

@@ -1,7 +1,9 @@
-"""The Qwen3 decode loop's single-token forward, replayed from a captured
-CUDA graph.
+"""The LM decode loop's single-token forward, replayed from a captured
+CUDA graph: Qwen3's (``models/qwen/model.py``) and DeepSeek-V3's
+(``models/deepseek_v3/model.py``), one loop (``model._decode``) over
+either model's step forward and cache.
 
-A decode step's forward (``model.step_forward``: the embedding gather,
+A decode step's forward (Qwen3's ``model.step_forward``: the embedding gather,
 every LM layer with the column attention kernel in each, ``ln_f`` and
 the head) is ~1,800 kernels at Qwen3-ASR-1.7B's 28 layers, each
 enqueued from Python: at B=32 20-40 ms of host against ~15 ms of
@@ -15,8 +17,9 @@ CPU tests run the code a graph captures.
 What a graph reads or writes, besides the weights and its own
 intermediates:
 
-- the loop's K/V cache, which ``generate`` or ``generate_text`` makes
-  for the loop, as an eager loop's: a cache held between loops would lie
+- the loop's cache, a tuple of tensors (L, rows, positions, ...):
+  Qwen3's K/V, DeepSeek-V3's latent cache, which ``generate`` or
+  ``generate_text`` makes for the loop, as an eager loop's: a cache held between loops would lie
   beside the next prefill's logits and raise the peak by its size (8.8
   GB at B=32, 1,201 positions, f32). The next loop of a shape asks the
   allocator for the same sizes in the same order and finds the same
@@ -59,10 +62,11 @@ from torch import nn
 
 from whisperjav_tpu_torch.ops.cuda import _build
 
-# plans a slot keeps: a file's loop, the warm-up's short budget and two
-# more (the translator's prompt lengths); each holds its logits, (rows,
-# vocab) f32: 19 MB at B=32
-_PLANS = 4
+# plans a slot keeps: a file's loop and the warm-up's short budget, or
+# the translator's cache lengths (30-cue prompts and their answers reach
+# five 256-position lengths); each holds its logits, (rows, vocab) f32:
+# 19 MB at B=32
+_PLANS = 6
 
 
 def _weights_key(model: nn.Module) -> tuple:
@@ -150,8 +154,9 @@ def _claim(model: nn.Module, device: torch.device) -> Optional[_Slot]:
 
 
 class StepForward:
-    """One decode loop's single-token forward over ``cache`` (a call):
-    ``forward(model, token, pos, cache)`` (``model.step_forward``),
+    """One decode loop's single-token forward over ``cache`` (a tuple of
+    tensors, each (L, rows, positions, ...)), a call:
+    ``forward(model, token, pos, cache)`` (the model's ``step_forward``),
     replayed from the plan's graph on CUDA, run eagerly on the CPU.
     ``graph_steps`` counts the steps whose forward was a replay,
     ``captures`` the graphs captured for this loop."""
@@ -160,8 +165,8 @@ class StepForward:
         self.model, self.cache, self.forward = model, cache, forward
         self.graph_steps = 0
         self.captures = 0
-        _, rows, t_max, _ = cache.k.shape
-        dev = cache.k.device
+        rows, t_max = cache[0].shape[1:3]
+        dev = cache[0].device
         self.slot = slot = _claim(model, dev)
         if slot is None:
             self.plan = None
@@ -175,15 +180,15 @@ class StepForward:
                     torch.zeros((1,), dtype=torch.int32, device=dev))
 
         self.plan = plan = slot.plan(_weights_key(model),
-                                     (rows, t_max, cache.k.dtype), make)
-        plan.read_at((cache.k.data_ptr(), cache.v.data_ptr()))
+                                     (rows, t_max, cache[0].dtype), make)
+        plan.read_at(tuple(t.data_ptr() for t in cache))
         self.pos = plan.pos
 
     def __call__(self, token: torch.Tensor, pos: int) -> torch.Tensor:
         """Logits (rows, vocab) f32 of ``token`` (rows,) at ``pos``; the
-        K/V column goes into the cache. On CUDA the logits are the plan's
-        own, overwritten by the next step's replay."""
-        t_max = self.cache.k.shape[2]
+        step's column goes into the cache. On CUDA the logits are the
+        plan's own, overwritten by the next step's replay."""
+        t_max = self.cache[0].shape[2]
         if not 0 <= pos < t_max:
             raise ValueError(f"decode step at {pos} outside the cache's "
                              f"{t_max} positions")
@@ -204,7 +209,7 @@ class StepForward:
         first capture follows one eager forward there, its memory from
         the graphs' pool (lazy set-up, such as cuBLAS's workspace for the
         stream, must not happen inside a capture; the forward writes the
-        K/V column the replay writes again), and a one-op graph that
+        column the replay writes again), and a one-op graph that
         keeps the pool's count of captures above zero while the slot
         lives: a graph dropped then gives its memory to the next capture,
         where a pool whose captures were all gone would take none."""

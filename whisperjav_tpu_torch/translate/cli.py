@@ -11,6 +11,8 @@ same file the JAX CLI reads) > built-in defaults.
     whisperjav-torch-translate -i clip.ja.whisperjav.srt --provider gpt
     whisperjav-torch-translate -i clip.srt --provider tpu-local \
         --model ./Qwen3-1.7B
+    whisperjav-torch-translate -i clip.srt --provider tpu-local \
+        --model ./kanana-2-30b-a3b-instruct-2601
     python -m whisperjav_tpu_torch.translate.cli --show-settings
 """
 
@@ -86,8 +88,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="deepseek/openrouter/gpt/claude/gemini/glm/groq/"
                         "ollama/local/tpu-local/custom/identity")
     p.add_argument("--model", default=stored["model"],
-                   help="model id (for tpu-local: a local Qwen3-family "
-                        "instruct checkpoint directory)")
+                   help="model id (for tpu-local: a local instruct "
+                        "checkpoint directory, Qwen3 or DeepSeek-V3 "
+                        "block, e.g. Kanana-2-30B-A3B)")
     p.add_argument("--target-language", default=stored["target_language"])
     p.add_argument("--base-url", default=None)
     p.add_argument("--tone", default=stored["tone"],

@@ -55,8 +55,9 @@ PROVIDERS: Dict[str, ProviderConfig] = {
                              "qwen2.5:7b", 32_768, ""),
     "local": ProviderConfig("local", "openai", "http://localhost:8080/v1",
                             "local", 8_192, ""),
-    # the local LM on the card (models/qwen LM + a local Qwen3 instruct
-    # checkpoint, translate/local_backend.py); the name is the JAX CLI's
+    # the local LM on the card (a local Qwen3 or DeepSeek-V3-block
+    # instruct checkpoint, translate/local_backend.py); the name is the
+    # JAX CLI's
     "tpu-local": ProviderConfig("tpu-local", "tpu-local", None,
                                 "", 32_768, ""),
     "custom": ProviderConfig("custom", "openai", None, "", 32_768,
